@@ -1,0 +1,255 @@
+"""Packed-int4 weight kernels: the port's counterpart of the int4 half of
+``tfmq_dm_tpu/ops/pallas_kernels.py``.
+
+- ``int4_linear``  replaces ``int4_matmul_dequant`` (``_int4_mm_kernel``)
+- ``int4_conv2d``  replaces ``int4_conv2d_dequant`` (``_int4_conv_kernel``)
+
+Both are CUDA C++ for ``sm_90a`` (``csrc/int4_kernels.cu``), compiled with
+``nvcc`` into ``_build/`` at first use and called through a plain C
+interface with ``ctypes``. Each wrapper dispatches on the device of its
+input: a CPU tensor takes the plain PyTorch version beside it (the tests
+use it); a CUDA tensor launches the kernel, or raises. Nothing falls back
+from one to the other.
+
+Packing is the port's own: codes in [-8, 7] along the last (output
+channel) axis, channel 2j in the low nibble and 2j+1 in the high nibble of
+byte j. The TPU's tile-concat layout existed only for its lanes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "int4_kernels.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+# launches of each kernel since the last reset (chip_smoke.py reads these
+# to show that the main path went through the kernels)
+LAUNCHES = {"int4_linear": 0, "int4_conv2d": 0}
+
+_lib = None
+BUILD_LOG = {"seconds": None, "ptxas": ""}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# packing
+# ---------------------------------------------------------------------------
+
+def pack_int4(w_q: torch.Tensor) -> torch.Tensor:
+    """Centered codes (..., N) in [-8, 7] -> uint8 (..., ceil(N/2)); an odd
+    last channel is paired with a zero code."""
+    w = w_q.to(torch.int16)
+    if w.shape[-1] % 2:
+        w = F.pad(w, (0, 1))
+    lo = w[..., 0::2] & 15
+    hi = w[..., 1::2] & 15
+    return (lo | (hi << 4)).to(torch.uint8).contiguous()
+
+
+def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of ``pack_int4``: uint8 (..., ceil(n/2)) -> int8 (..., n)."""
+    p = packed.to(torch.int16)
+    lo = ((p & 15) ^ 8) - 8
+    hi = ((p >> 4) ^ 8) - 8
+    out = torch.stack([lo, hi], dim=-1).flatten(-2)
+    return out[..., :n].to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# build and bind
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on "
+                           "PATH or set CUDA_HOME")
+    return path
+
+
+def build(force: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/int4_kernels.cu`` (once per source content) and load
+    it. ``force`` removes ``_build/`` first, for a cold build."""
+    global _lib
+    if force:
+        _lib = None
+        shutil.rmtree(BUILD_DIR, ignore_errors=True)
+    if _lib is not None:
+        return _lib
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    so = BUILD_DIR / f"int4_kernels_{digest}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, so)
+        BUILD_LOG["seconds"] = time.perf_counter() - t0
+        BUILD_LOG["ptxas"] = res.stderr
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tfmq_int4_linear.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.tfmq_int4_linear.restype = i
+    lib.tfmq_int4_conv2d.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.tfmq_int4_conv2d.restype = i
+    _lib = lib
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or \
+            t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def _launch_check(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+# ---------------------------------------------------------------------------
+# int4 linear (counterpart of int4_matmul_dequant)
+# ---------------------------------------------------------------------------
+
+def int4_linear_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                      delta: torch.Tensor, zp_c: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version: the kernel's rounding points in PyTorch ops. The
+    dequant runs in bf16 arithmetic, rounded at each step as the TPU
+    kernel does; products of bf16 values are exact in f32."""
+    n = delta.shape[0]
+    wq = unpack_int4(w_packed, n).to(torch.bfloat16)
+    w = (wq - zp_c.to(torch.bfloat16)) * delta.to(torch.bfloat16)
+    out = x.to(torch.bfloat16).float() @ w.float()
+    return out if bias is None else out + bias
+
+
+def int4_linear(x: torch.Tensor, w_packed: torch.Tensor,
+                delta: torch.Tensor, zp_c: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weight-only int4 GEMM: x (M, K) f32 x packed w (K, ceil(N/2)) ->
+    (M, N) f32, with per-channel delta / centered zero point (N,)."""
+    if x.device.type == "cpu":
+        return int4_linear_plain(x, w_packed, delta, zp_c, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_linear: unsupported device {x.device}")
+    m, k = x.shape
+    n = delta.shape[0]
+    dev = x.device
+    _check("x", x, torch.float32, (m, k), dev)
+    _check("w_packed", w_packed, torch.uint8, (k, (n + 1) // 2), dev)
+    _check("delta", delta, torch.float32, (n,), dev)
+    _check("zp_c", zp_c, torch.float32, (n,), dev)
+    if bias is not None:
+        _check("bias", bias, torch.float32, (n,), dev)
+    lib = build()
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.tfmq_int4_linear(_ptr(x), _ptr(w_packed), _ptr(delta),
+                               _ptr(zp_c), _ptr(bias), _ptr(out), m, k, n,
+                               dev.index or 0, stream)
+    _launch_check("int4_linear", err)
+    LAUNCHES["int4_linear"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int4 conv2d (counterpart of int4_conv2d_dequant)
+# ---------------------------------------------------------------------------
+
+def _pads(kh: int, kw: int, padding: str):
+    if padding == "SAME":
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError("SAME padding needs an odd kernel")
+        return kh // 2, kw // 2
+    if padding == "VALID":
+        return 0, 0
+    raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+
+
+def int4_conv2d_plain(x: torch.Tensor, w_packed: torch.Tensor,
+                      delta: torch.Tensor, zp_c: torch.Tensor, kh: int,
+                      kw: int, bias: Optional[torch.Tensor] = None,
+                      padding: str = "SAME") -> torch.Tensor:
+    """Plain version: dequant in f32, one rounding to bf16 (the TPU
+    kernel's order), then an f32 convolution of the bf16-valued operands
+    (exact products, f32 sums)."""
+    n = delta.shape[0]
+    cin = x.shape[-1]
+    ph, pw = _pads(kh, kw, padding)
+    wq = unpack_int4(w_packed, n).float()
+    w = ((wq - zp_c) * delta).to(torch.bfloat16).float()
+    w = w.reshape(kh, kw, cin, n).permute(3, 2, 0, 1)
+    out = F.conv2d(x.float().permute(0, 3, 1, 2), w, padding=(ph, pw))
+    out = out.permute(0, 2, 3, 1)
+    return out if bias is None else out + bias
+
+
+def int4_conv2d(x: torch.Tensor, w_packed: torch.Tensor,
+                delta: torch.Tensor, zp_c: torch.Tensor, kh: int, kw: int,
+                bias: Optional[torch.Tensor] = None,
+                padding: str = "SAME") -> torch.Tensor:
+    """Stride-1 conv over NHWC bf16 ``x`` with packed-int4 weights
+    (kh*kw, Cin, ceil(N/2)) -> (B, Ho, Wo, N) f32."""
+    if x.device.type == "cpu":
+        return int4_conv2d_plain(x, w_packed, delta, zp_c, kh, kw, bias,
+                                 padding)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_conv2d: unsupported device {x.device}")
+    b, h, w, cin = x.shape
+    n = delta.shape[0]
+    ph, pw = _pads(kh, kw, padding)
+    dev = x.device
+    _check("x", x, torch.bfloat16, (b, h, w, cin), dev)
+    _check("w_packed", w_packed, torch.uint8,
+           (kh * kw, cin, (n + 1) // 2), dev)
+    _check("delta", delta, torch.float32, (n,), dev)
+    _check("zp_c", zp_c, torch.float32, (n,), dev)
+    if bias is not None:
+        _check("bias", bias, torch.float32, (n,), dev)
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    lib = build()
+    out = torch.empty((b, ho, wo, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.tfmq_int4_conv2d(_ptr(x), _ptr(w_packed), _ptr(delta),
+                               _ptr(zp_c), _ptr(bias), _ptr(out), b, h, w,
+                               cin, n, kh, kw, ph, pw, dev.index or 0,
+                               stream)
+    _launch_check("int4_conv2d", err)
+    LAUNCHES["int4_conv2d"] += 1
+    return out

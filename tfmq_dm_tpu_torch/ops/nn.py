@@ -1,0 +1,93 @@
+"""Functional NN primitives over NHWC activations, HWIO conv weights and
+(in, out) linear weights: the layouts of ``tfmq_dm_tpu/ops/nn.py``, kept at
+the port's public functions so that tests compare like with like.
+
+A float32 convolution on the card goes through cuDNN in TF32 unless told
+otherwise; ``exact_f32`` turns TF32 off for convolutions and matrix
+products, and the port's entry points call it (the deployed attention's
+integer-valued f32 products are exact only in true f32).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def exact_f32() -> None:
+    """Run float32 convolutions and matrix products in full float32
+    (PyTorch's cuDNN default is TF32). Process-wide PyTorch flags."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+           stride: int = 1, padding: str = "SAME") -> torch.Tensor:
+    """x: (B,H,W,Cin), w: (kh,kw,Cin,Cout). x follows w's dtype. "SAME"
+    is stride-1 with an odd kernel (the only SAME use in the models);
+    "VALID" pads nothing."""
+    kh, kw = w.shape[:2]
+    if padding == "SAME":
+        if stride != 1 or kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError("SAME padding: stride 1 and odd kernels only")
+        pad = (kh // 2, kw // 2)
+    elif padding == "VALID":
+        pad = (0, 0)
+    else:
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    x = x.to(w.dtype)
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                   stride=stride, padding=pad).permute(0, 2, 3, 1)
+    if b is not None:
+        out = out + b
+    return out
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., Cin), w: (Cin, Cout). x follows w's dtype."""
+    out = x.to(w.dtype) @ w
+    if b is not None:
+        out = out + b
+    return out
+
+
+def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               groups: int = 32, eps: float = 1e-6) -> torch.Tensor:
+    """GroupNorm over channel-last tensors with the JAX package's one-pass
+    statistics: var = E[x^2] - E[x]^2 in f32 (F.group_norm takes two
+    passes, which rounds differently)."""
+    c = x.shape[-1]
+    dt = x.dtype
+    xg = x.float().reshape(x.shape[0], -1, groups, c // groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    m2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp(m2 - mean * mean, min=0.0)
+    xn = (xg - mean) * torch.rsqrt(var + eps)
+    return xn.reshape(x.shape).to(dt) * gamma + beta
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x upsample, NHWC."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def timestep_embedding(t: torch.Tensor, dim: int,
+                       max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding of the DDIM reference
+    (ddim/models/diffusion.py:6-24): concat[sin, cos]."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32,
+                                   device=t.device)
+                      * -(math.log(max_period) / (half - 1)))
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
