@@ -11,8 +11,9 @@ when one is exceeded):
 3. kernels  - every distinct CIFAR-10 conv and linear geometry of the
               int4-serving path (batch 8) plus odd shapes: each CUDA kernel
               against its plain PyTorch version on the same inputs; then
-              times kernel, plain version and one PyTorch library call
-              beside the card's bound.
+              times kernel, plain version and one PyTorch library call on
+              the device (calls captured in a CUDA graph), and the kernel's
+              wall time per eager call, beside the card's bound.
 4. main     - the full-width CIFAR-10 w4a8 int4-serving path: trained
               weights from runs/cifar10_ddpm.npz, minmax weight grids, a
               10-step calibration harvest at batch 8, the FSC init pass,
@@ -56,8 +57,8 @@ KERNEL_REL_TOL = 2e-5
 # order flips an occasional bf16 / 8-bit activation rounding
 MIN_PSNR_KERNEL_VS_PLAIN_DB = 30.0
 
-# dense bf16 tensor-core peak and HBM rate (NVIDIA data sheets, SXM parts)
-CARD_PEAKS = {"H100": (989e12, 3.35e12), "H200": (989e12, 4.8e12)}
+# dense bf16 tensor-core peak and HBM rate (NVIDIA data sheet, SXM part)
+CARD_PEAKS = {"H100": (989e12, 3.35e12)}
 
 STEPS, BATCH, SEED = 10, 8, 1234
 
@@ -93,18 +94,45 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def wall_ms(fn, iters: int = 20) -> float:
+    """Wall time per eager call, back to back: host work (argument checks,
+    allocation, launch) included."""
     import torch
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph,
+    replayed and timed with CUDA events, so no host work is counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(3):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
 
 
 def psnr(a, b) -> float:
@@ -178,14 +206,26 @@ def linear_case(g, m, k, n, dev):
     return (x, wp, d, z, bias)
 
 
-def bound(flops, nbytes, peaks):
+def timings(kernel, plain, library, flops, nbytes, peaks) -> dict:
+    """Device ms per call of the kernel, its plain version and the library
+    call; the kernel's wall ms per eager call; the bound: the larger of the
+    operations over the bf16 peak and the bytes over the memory rate."""
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return {"ms": device_ms(kernel), "wall_ms": wall_ms(kernel),
+            "plain_ms": device_ms(plain, 5),
+            "library_ms": device_ms(library),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def time_conv(case, peaks):
-    """ms of the kernel, its plain version and the library conv (bf16 cuDNN
-    on weights dequantized ahead of time), and the bound."""
+def timing_line(t: dict) -> str:
+    return (f"{t['ms']:.4f} / {t['plain_ms']:.4f} / {t['library_ms']:.4f}; "
+            f"{t['wall_ms']:.4f}; {t['bound_ms']:.6f} ({t['bound_by']})")
+
+
+def time_conv(case, peaks) -> dict:
+    """The kernel, its plain version and the library conv (bf16 cuDNN on
+    weights dequantized ahead of time)."""
     import torch
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
@@ -195,18 +235,20 @@ def time_conv(case, peaks):
     wd = (K.unpack_int4(wp, n).float() - z) * d
     wd = wd.to(torch.bfloat16).reshape(kh, kw, cin, n).permute(3, 2, 0, 1)
     wd = wd.contiguous(memory_format=torch.channels_last)
+    bd = bias.to(torch.bfloat16)
     xn = x.permute(0, 3, 1, 2)                  # NHWC memory: channels_last
     p = kh // 2 if pad == "SAME" else 0
     flops = 2 * b * h * w * n * kh * kw * cin
     nbytes = x.numel() * 2 + wp.numel() + 3 * n * 4 + b * h * w * n * 4
-    ms = time_ms(lambda: K.int4_conv2d(*case))
-    plain = time_ms(lambda: K.int4_conv2d_plain(*case), iters=5)
-    lib = time_ms(lambda: F.conv2d(xn, wd, bias.to(torch.bfloat16),
-                                   padding=p))
-    return ms, plain, lib, bound(flops, nbytes, peaks)
+    return timings(lambda: K.int4_conv2d(*case),
+                   lambda: K.int4_conv2d_plain(*case),
+                   lambda: F.conv2d(xn, wd, bd, padding=p),
+                   flops, nbytes, peaks)
 
 
-def time_linear(case, peaks):
+def time_linear(case, peaks) -> dict:
+    """The kernel, its plain version and a bf16 ``torch.matmul`` on weights
+    dequantized ahead of time."""
     import torch
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
     x, wp, d, z, bias = case
@@ -216,10 +258,9 @@ def time_linear(case, peaks):
     xb = x.to(torch.bfloat16)
     flops = 2 * m * n * k
     nbytes = x.numel() * 4 + wp.numel() + 3 * n * 4 + m * n * 4
-    ms = time_ms(lambda: K.int4_linear(*case))
-    plain = time_ms(lambda: K.int4_linear_plain(*case))
-    lib = time_ms(lambda: torch.matmul(xb, wd))
-    return ms, plain, lib, bound(flops, nbytes, peaks)
+    return timings(lambda: K.int4_linear(*case),
+                   lambda: K.int4_linear_plain(*case),
+                   lambda: torch.matmul(xb, wd), flops, nbytes, peaks)
 
 
 @contextlib.contextmanager
@@ -241,29 +282,21 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def profile_sampling(cfg, dev, ckpt: str, art: str, steps: int) -> dict:
+def profile_sampling(cfg, dev, argv: list, steps: int) -> dict:
     """Device time by kernel over one deployed sample (batch 8, ``steps``
-    DDIM steps) under torch.profiler, after a warm-up sample."""
+    DDIM steps) under torch.profiler, after a warm-up sample. The model is
+    built by the CLI from the same arguments as the sampling run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from tfmq_dm_tpu_torch import cli
     from tfmq_dm_tpu_torch.convert import load_params
-    from tfmq_dm_tpu_torch.models import ddim_units
-    from tfmq_dm_tpu_torch.quant.calibrate import load_cali_model
-    from tfmq_dm_tpu_torch.quant.deploy import (deploy_weights,
-                                                make_deployed_model_fn)
     from tfmq_dm_tpu_torch.samplers.ddim import generalized_scan
 
-    params, _ = load_params(ckpt, device=dev)
-    wstate, astate, meta = load_cali_model(art, device=dev)
-    adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8)
+    args = cli.build_argparser().parse_args(argv)
+    params, _ = load_params(args.ckpt, device=dev)
     betas, seq = cli.cifar10_schedule(steps)
-    gos = cli.group_of_step_from_t(meta["cali_t"], seq[::-1])
-    fn = make_deployed_model_fn(
-        adapter, params, deploy_weights(adapter.policy, params, wstate,
-                                        int4_serving=True),
-        astate, use_aq=True, group_of_step=gos)
+    fn = cli.build_model_fn(args, params, cfg, seq[::-1], dev)
     x = torch.randn((BATCH, 32, 32, 3),
                     generator=torch.Generator().manual_seed(3)).to(dev)
     generalized_scan(fn, betas, seq, x)
@@ -377,7 +410,8 @@ def drive_main_path(cfg, dev, steps: int = STEPS) -> dict:
             raise AssertionError(f"kernel vs plain PSNR {p_kp:.2f} dB < "
                                  f"{MIN_PSNR_KERNEL_VS_PLAIN_DB}")
         if dev.type == "cuda":
-            profile_sampling(cfg, dev, str(ckpt), art, steps)
+            profile_sampling(cfg, dev, common + quant + ["--out", "-"],
+                             steps)
         return {"launches": launches, "e2e_s": e2e_s, "plain_s": plain_s,
                 "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
                 "psnr_quant_vs_fp": p_qf}
@@ -397,9 +431,8 @@ def run() -> None:
         kind = torch.cuda.get_device_name(0)
         peaks = next((v for k, v in CARD_PEAKS.items() if k in kind), None)
         if peaks is None:
-            peaks = CARD_PEAKS["H100"]
-            print(f"   {kind}: no peak table entry, bounds use H100 SXM "
-                  "peaks", flush=True)
+            raise RuntimeError(f"{kind}: no entry in CARD_PEAKS, so no "
+                               "bound can be computed")
         print(f"   python {sys.version.split()[0]}, torch "
               f"{torch.__version__}, CUDA {torch.version.cuda}", flush=True)
         from tfmq_dm_tpu_torch.ops import int4_kernels as K
@@ -435,26 +468,25 @@ def run() -> None:
             check_close(f"int4_linear M{m} {k}->{n}", K.int4_linear(*case),
                         K.int4_linear_plain(*case), errs["int4_linear"])
 
-        print("   timing (ms; kernel / plain / library / bound):",
-              flush=True)
-        timings = {}
+        print("   timing, ms per call (device: kernel / plain / library; "
+              "kernel wall per eager call; bound):", flush=True)
+        measured = {}
         for b, r, ci in ((64, 16, 256), (64, 32, 128), (BATCH, 32, 128)):
-            t = time_conv(conv_case(g, b, r, 3, ci, ci, dev), peaks)
-            timings[("conv", b, r, ci)] = t
+            measured[("conv", b, r, ci)] = t = time_conv(
+                conv_case(g, b, r, 3, ci, ci, dev), peaks)
             print(f"   int4_conv2d b{b} {r}x{r} 3x3 {ci}->{ci}: "
-                  f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3][0]:.4f} "
-                  f"({t[3][1]})", flush=True)
+                  + timing_line(t), flush=True)
         for m in (64, BATCH):
-            t = time_linear(linear_case(g, m, 512, 256, dev), peaks)
-            timings[("linear", m)] = t
-            print(f"   int4_linear M{m} 512->256: {t[0]:.4f} / {t[1]:.4f} "
-                  f"/ {t[2]:.4f} / {t[3][0]:.4f} ({t[3][1]})", flush=True)
+            measured[("linear", m)] = t = time_linear(
+                linear_case(g, m, 512, 256, dev), peaks)
+            print(f"   int4_linear M{m} 512->256: " + timing_line(t),
+                  flush=True)
 
     with phase("main"):
         main_path = drive_main_path(cfg, dev)
     launches = main_path["launches"]
-    tc = timings[("conv", BATCH, 32, 128)]
-    tl = timings[("linear", BATCH)]
+    tc = measured[("conv", BATCH, 32, 128)]
+    tl = measured[("linear", BATCH)]
     report = {"kernels": [
         {"name": "int4_conv2d", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/int4_kernels.cu",
@@ -462,18 +494,14 @@ def run() -> None:
          "tpu": "int4_conv2d_dequant",
          "shape": f"x ({BATCH},32,32,128) bf16, 3x3 128->128",
          "launches": launches["int4_conv2d"],
-         "max_abs_err": max(errs["int4_conv2d"]),
-         "ms": tc[0], "plain_ms": tc[1], "bound_ms": tc[3][0],
-         "bound_by": tc[3][1], "library_ms": tc[2]},
+         "max_abs_err": max(errs["int4_conv2d"]), **tc},
         {"name": "int4_linear", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/int4_kernels.cu",
          "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:275",
          "tpu": "int4_matmul_dequant",
          "shape": f"x ({BATCH},512) f32, 512->256",
          "launches": launches["int4_linear"],
-         "max_abs_err": max(errs["int4_linear"]),
-         "ms": tl[0], "plain_ms": tl[1], "bound_ms": tl[3][0],
-         "bound_by": tl[3][1], "library_ms": tl[2]},
+         "max_abs_err": max(errs["int4_linear"]), **tl},
     ]}
     print(json.dumps({"e2e_s": main_path["e2e_s"], "images": BATCH,
                       "steps": STEPS, "psnr_kernel_vs_plain_db":

@@ -84,7 +84,7 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _model_fn(args, params, cfg, sample_t, device):
+def build_model_fn(args, params, cfg, sample_t, device):
     """model_fn(x, t, step) for the requested path."""
     if not args.ptq:
         return lambda x, t, step: ddim_unet.apply(params, cfg, x, t)
@@ -132,7 +132,7 @@ def sample(args) -> np.ndarray:
     cfg = ddim_unet.cifar10_config()
     params, _ = load_params(args.ckpt, device=device)
     betas, seq = cifar10_schedule(args.timesteps)
-    model_fn = _model_fn(args, params, cfg, seq[::-1], device)
+    model_fn = build_model_fn(args, params, cfg, seq[::-1], device)
 
     gen = torch.Generator().manual_seed(args.seed)
     shape = (cfg.resolution, cfg.resolution, cfg.in_channels)

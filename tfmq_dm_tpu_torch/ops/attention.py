@@ -102,7 +102,6 @@ def qsm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pw = _site_params(qctx, sites.get("w"))
 
     if (qctx is not None and qctx.deploy is not None
-            and qctx.act_out_dtype != torch.bfloat16
             and qctx.act_mode is None
             and all(_scalar_asym(p) for p in (pq, pk, pv))
             and (pw is None or _scalar_asym(pw))):

@@ -47,8 +47,7 @@ class QuantCtx:
                  use_aq: bool = False,
                  act_mode: Optional[str] = None,  # None | "init"
                  act_scaler: str = "mse",
-                 deploy: Optional[dict] = None,
-                 act_out_dtype: Optional[torch.dtype] = None):
+                 deploy: Optional[dict] = None):
         if act_mode not in (None, "init"):
             raise ValueError(f"act_mode {act_mode!r}: only None or 'init'")
         self.policy = policy
@@ -60,7 +59,6 @@ class QuantCtx:
         self.act_scaler = act_scaler
         self.out_astate: Dict[str, dict] = {}
         self.deploy = deploy
-        self.act_out_dtype = act_out_dtype
 
     def qweight(self, name: str, w: torch.Tensor) -> torch.Tensor:
         if not self.use_wq:

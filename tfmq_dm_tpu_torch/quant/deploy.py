@@ -125,8 +125,8 @@ def deploy_weights(policy: QuantPolicy, params, wstate: Dict, *,
 def make_deployed_model_fn(adapter: ModelAdapter, params,
                            deployed: Dict[str, object],
                            astate_batched: Optional[Dict] = None, *,
-                           use_aq: bool = False, group_of_step=None,
-                           act_dtype=torch.float32) -> Callable:
+                           use_aq: bool = False,
+                           group_of_step=None) -> Callable:
     """model_fn(x, t, step) that executes the deployed weights; the FSC
     activation state is selected per sampler step (group = step, or
     ``group_of_step[step]``). Turns TF32 off (``ops.nn.exact_f32``)."""
@@ -141,8 +141,7 @@ def make_deployed_model_fn(adapter: ModelAdapter, params,
             flat, spec = packed
             astate = unpack_fsc(flat[g], spec)
         ctx = QuantCtx(adapter.policy, wstate={}, astate=astate,
-                       use_wq=True, use_aq=use_aq, deploy=deployed,
-                       act_out_dtype=act_dtype)
+                       use_wq=True, use_aq=use_aq, deploy=deployed)
         return adapter.forward(params, ctx, x, t)
 
     return model_fn

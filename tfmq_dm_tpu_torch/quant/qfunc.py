@@ -38,7 +38,7 @@ def qconv2d(qctx: Optional[QuantCtx], name: str, x: torch.Tensor,
     if qctx is not None and qctx.deploy is not None and \
             name in qctx.deploy:
         iw = qctx.deploy[name]
-        out_dtype = qctx.act_out_dtype or x.dtype
+        out_dtype = x.dtype
         x = _deployed_act(qctx, name, x)
         if isinstance(iw, int_ops.FPWeight):
             return fnn.conv2d(x, iw.w.to(out_dtype), b, stride=stride,
@@ -67,7 +67,7 @@ def qlinear(qctx: Optional[QuantCtx], name: str, x: torch.Tensor,
     if qctx is not None and qctx.deploy is not None and \
             name in qctx.deploy:
         iw = qctx.deploy[name]
-        out_dtype = qctx.act_out_dtype or x.dtype
+        out_dtype = x.dtype
         x = _deployed_act(qctx, name, x)
         if isinstance(iw, int_ops.FPWeight):
             return fnn.linear(x, iw.w.to(out_dtype), b)
