@@ -1,0 +1,92 @@
+"""Task registry (the port's copy of the tasks it serves from
+``tfmq_dm_tpu/configs/tasks.py``): one typed config per model/dataset,
+values transcribed from ddim/configs/cifar10.yml and
+configs/latent-diffusion/cin256-v2.yaml with the reference's sampler
+settings (README.md:86-125)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from ..models import ddim_unet, ldm_unet, vae as vae_mod
+
+
+@dataclasses.dataclass(frozen=True)
+class TaskConfig:
+    name: str
+    family: str                    # "ddim" | "ldm"
+    unet: object
+    vae: Optional[vae_mod.VAEConfig] = None
+    cond: str = "none"             # "none" | "class" | "text"
+    # diffusion schedule
+    beta_schedule: str = "linear"
+    beta_start: float = 1e-4
+    beta_end: float = 2e-2
+    num_timesteps: int = 1000
+    # default sampler settings
+    sampler: str = "ddim"          # ddim (ldm); generalized (ddim family)
+    steps: int = 100
+    eta: float = 0.0
+    skip_type: str = "uniform"     # uniform | quad
+    cfg_scale: float = 1.0
+    # calibration defaults
+    cali_n: int = 256              # samples per timestep
+    interval_length: int = 1       # weight-phase timestep subsampling
+    recon_batch: int = 32
+    use_ema: bool = True
+
+
+def cifar10() -> TaskConfig:
+    return TaskConfig(
+        name="cifar10", family="ddim",
+        unet=ddim_unet.cifar10_config(),
+        beta_schedule="linear", beta_start=0.0001, beta_end=0.02,
+        sampler="generalized", steps=100, eta=0.0, skip_type="quad",
+        cali_n=256, interval_length=5)
+
+
+_LDM_VQ4_VAE = vae_mod.VAEConfig(
+    ch=128, out_ch=3, in_channels=3, z_channels=3, ch_mult=(1, 2, 4),
+    num_res_blocks=2, attn_resolutions=(), resolution=256,
+    double_z=False, embed_dim=3, vq=True, n_embed=8192)
+
+
+def cin256_v2() -> TaskConfig:
+    return TaskConfig(
+        name="cin256_v2", family="ldm", unet=ldm_unet.cin256_config(),
+        vae=_LDM_VQ4_VAE, cond="class", beta_start=0.0015,
+        beta_end=0.0195, sampler="ddim", steps=20, eta=0.0, cfg_scale=3.0,
+        cali_n=512, interval_length=1, recon_batch=8, use_ema=False)
+
+
+def tiny_cin() -> TaskConfig:
+    return TaskConfig(
+        name="tiny_cin", family="ldm",
+        unet=ldm_unet.tiny_sd_config(context_dim=16),
+        vae=vae_mod.tiny_vae_config(), cond="class", beta_start=0.0015,
+        beta_end=0.0195, sampler="ddim", steps=4, cfg_scale=3.0,
+        num_timesteps=100, cali_n=4, interval_length=1, recon_batch=4,
+        use_ema=False)
+
+
+TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "tiny_cin": tiny_cin}
+
+def get_task(name: str) -> TaskConfig:
+    return TASKS[name]()
+
+
+def task_betas(task: TaskConfig):
+    """The DDPM beta schedule for a task. The two 'linear's differ: the
+    ddim family uses a plain linspace (ddim/runners/diffusion.py:51), the
+    LDM family a sqrt-spaced one (diffusionmodules/util.py:21-25)."""
+    from ..samplers.ldm import make_beta_schedule
+    from ..utils.schedules import get_beta_schedule
+    if task.family == "ddim":
+        return get_beta_schedule(task.beta_schedule,
+                                 beta_start=task.beta_start,
+                                 beta_end=task.beta_end,
+                                 num_diffusion_timesteps=task.num_timesteps)
+    return make_beta_schedule(task.beta_schedule, task.num_timesteps,
+                              linear_start=task.beta_start,
+                              linear_end=task.beta_end)

@@ -1,8 +1,15 @@
 """Attention with the four act-quant sites aqtizer_q/k/v/w (port of
-``tfmq_dm_tpu/ops/attention.py``, its two non-flash paths).
+``tfmq_dm_tpu/ops/attention.py``).
 
 ``softmax(fq(q) fq(k)^T * s) -> fq(softmax) -> @ fq(v)``:
 
+- the flash kernels (``ops/flash_attention.py``) where the key length
+  reaches ``MIN_FLASH_KV`` on the card (or ``set_flash("on")``) and the
+  context allows it (``QuantCtx.flash``, no act-stat collection): mode
+  int8 when q/k/v carry per-tensor asymmetric 8-bit grids (and the
+  softmax grid, if any, fits int8 levels), else q/k/v fake-quantized
+  elementwise and mode fp or pquant. The port has no bf16 fast deploy, so
+  the JAX package's ``fqk`` mode is never chosen;
 - the deployed path (``_int8_materialized``) computes both products on
   centered integer codes with exact zero-point corrections and the
   (B, H, T, T) score matrix materialized — the JAX package's choice for
@@ -13,8 +20,7 @@
 The integer products are computed as float32 matrix products: every
 partial sum of codes is an integer below 2^24 at T, D <= 256
 (|q8 k8| <= 128*128*256), so they are exact in true f32 — which is why
-the port's entry points turn TF32 off (``ops.nn.exact_f32``). The flash
-kernels for T >= 1024 belong to the LDM/SD slice.
+the port's entry points turn TF32 off (``ops.nn.exact_f32``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,32 @@ from typing import Dict, Optional
 import torch
 
 from . import int_ops
+from .flash_attention import flash_attention
+
+_MODE = "auto"  # "auto" (card, Tk >= MIN_FLASH_KV) | "on" | "off"
+
+# below this key length the materialized score matrix is cheap; the flash
+# kernels serve LDM/SD self-attention at 1024-4096 tokens
+MIN_FLASH_KV = 1024
+
+
+def set_flash(mode: str) -> None:
+    """"auto": flash only for CUDA tensors with Tk >= MIN_FLASH_KV; "on":
+    always (the plain versions on the CPU); "off": never."""
+    global _MODE
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"flash mode {mode!r}: auto, on or off")
+    _MODE = mode
+
+
+def _flash_ok(qctx, tk: int, device: torch.device) -> bool:
+    if _MODE == "off":
+        return False
+    if _MODE == "auto" and (device.type != "cuda" or tk < MIN_FLASH_KV):
+        return False
+    if qctx is None:
+        return True
+    return qctx.flash and qctx.act_mode is None
 
 
 def _site_params(qctx, site):
@@ -45,6 +77,47 @@ def _scalar_asym(p) -> bool:
     cfg, st = p
     return (cfg.qrange[0] == 0 and cfg.bits <= 8
             and st["delta"].ndim == 0 and st["zp"].ndim == 0)
+
+
+def _scalar_w(p) -> bool:
+    """A softmax-output quantizer the flash kernels take: a per-tensor
+    grid (any width; only mode int8 needs 8 bits)."""
+    if p is None:
+        return True
+    _, st = p
+    return st["delta"].ndim == 0 and st["zp"].ndim == 0
+
+
+def _flash(q, k, v, sm_scale, qctx, sites, pq, pk, pv, pw, out_dtype):
+    """The flash dispatch of ``qsm_attention`` (attention.py:184-250)."""
+    def bhtd(x):
+        return x.permute(0, 2, 1, 3)
+
+    p_quant = (pw[1]["delta"], pw[1]["zp"]) if pw is not None else None
+    qrange = pw[0].qrange if pw is not None else None
+    p_az = bool(pw is not None and pw[0].always_zero)
+    if all(_scalar_asym(p) for p in (pq, pk, pv)) and (
+            pw is None or _scalar_asym(pw)):
+        out = flash_attention(
+            bhtd(q), bhtd(k), bhtd(v), sm_scale=sm_scale,
+            qkv_quant=tuple((p[1]["delta"], p[1]["zp"])
+                            for p in (pq, pk, pv)),
+            qkv_ranges=tuple(p[0].qrange for p in (pq, pk, pv)),
+            p_quant=p_quant, qrange=qrange, p_always_zero=p_az)
+        return bhtd(out).to(out_dtype)
+    # other site configurations (e.g. a 16-bit softmax grid): fake-quant
+    # the live q/k/v sites elementwise, then mode fp or pquant
+    if qctx is not None:
+        if pq is not None:
+            q = qctx.qact(sites["q"], q)
+        if pk is not None:
+            k = qctx.qact(sites["k"], k)
+        if pv is not None:
+            v = qctx.qact(sites["v"], v)
+    out = flash_attention(bhtd(q), bhtd(k), bhtd(v), sm_scale=sm_scale,
+                          p_quant=p_quant, qrange=qrange,
+                          p_always_zero=p_az)
+    return bhtd(out).to(out_dtype)
 
 
 def _int8_materialized(q, k, v, sm_scale, pq, pk, pv, pw, out_dtype):
@@ -100,6 +173,10 @@ def qsm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pk = _site_params(qctx, sites.get("k"))
     pv = _site_params(qctx, sites.get("v"))
     pw = _site_params(qctx, sites.get("w"))
+
+    if _flash_ok(qctx, k.shape[1], k.device) and _scalar_w(pw):
+        return _flash(q, k, v, sm_scale, qctx, sites, pq, pk, pv, pw,
+                      out_dtype)
 
     if (qctx is not None and qctx.deploy is not None
             and qctx.act_mode is None

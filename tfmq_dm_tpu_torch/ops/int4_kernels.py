@@ -18,31 +18,33 @@ byte j. The TPU's tile-concat layout existed only for its lanes.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "int4_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+from .cuda_build import CudaLibrary, check as _check, \
+    launch_check as _launch_check, ptr as _ptr
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int4_kernels.cu"
 
 # launches of each kernel since the last reset (chip_smoke.py reads these
 # to show that the main path went through the kernels)
 LAUNCHES = {"int4_linear": 0, "int4_conv2d": 0}
 
-_lib = None
-BUILD_LOG = {"seconds": None, "ptxas": ""}
+
+def _bind(lib) -> None:
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tfmq_int4_linear.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.tfmq_int4_linear.restype = i
+    lib.tfmq_int4_conv2d.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.tfmq_int4_conv2d.restype = i
+
+
+LIBRARY = CudaLibrary(SOURCE, _bind)
+BUILD_LOG = LIBRARY.log
 
 
 def reset_launch_counts() -> None:
@@ -74,72 +76,10 @@ def unpack_int4(packed: torch.Tensor, n: int) -> torch.Tensor:
     return out[..., :n].to(torch.int8)
 
 
-# ---------------------------------------------------------------------------
-# build and bind
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on "
-                           "PATH or set CUDA_HOME")
-    return path
-
-
-def build(force: bool = False) -> ctypes.CDLL:
+def build(force: bool = False):
     """Compile ``csrc/int4_kernels.cu`` (once per source content) and load
-    it. ``force`` removes ``_build/`` first, for a cold build."""
-    global _lib
-    if force:
-        _lib = None
-        shutil.rmtree(BUILD_DIR, ignore_errors=True)
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"int4_kernels_{digest}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG["seconds"] = time.perf_counter() - t0
-        BUILD_LOG["ptxas"] = res.stderr
-    lib = ctypes.CDLL(str(so))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tfmq_int4_linear.argtypes = [p] * 6 + [i] * 4 + [p]
-    lib.tfmq_int4_linear.restype = i
-    lib.tfmq_int4_conv2d.argtypes = [p] * 6 + [i] * 10 + [p]
-    lib.tfmq_int4_conv2d.restype = i
-    _lib = lib
-    return lib
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.dtype != dtype or tuple(t.shape) != shape or \
-            t.device != device or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device} (contiguous={t.is_contiguous()})")
-
-
-def _launch_check(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    it. ``force`` removes its built library first, for a cold build."""
+    return LIBRARY.load(force)
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
            stride: int = 1, padding: str = "SAME") -> torch.Tensor:
     """x: (B,H,W,Cin), w: (kh,kw,Cin,Cout). x follows w's dtype. "SAME"
     is stride-1 with an odd kernel (the only SAME use in the models);
-    "VALID" pads nothing."""
+    "VALID" pads nothing; ((top, bottom), (left, right)) pads
+    explicitly."""
     kh, kw = w.shape[:2]
-    if padding == "SAME":
+    if isinstance(padding, (tuple, list)):
+        (pt, pb), (pl, pr) = padding
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        pad = (0, 0)
+    elif padding == "SAME":
         if stride != 1 or kh % 2 == 0 or kw % 2 == 0:
             raise ValueError("SAME padding: stride 1 and odd kernels only")
         pad = (kh // 2, kw // 2)
@@ -69,6 +74,22 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return xn.reshape(x.shape).to(dt) * gamma + beta
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis as the JAX package writes it
+    (``ldm_unet._lnorm``): var = mean((x - mean)^2)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def geglu(h: torch.Tensor) -> torch.Tensor:
+    """GEGLU (attention.py GEGLU): split in two halves, h * gelu(gate)
+    with the exact (erf) GELU."""
+    h, gate = h.chunk(2, dim=-1)
+    return h * F.gelu(gate)
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
@@ -76,6 +97,27 @@ def swish(x: torch.Tensor) -> torch.Tensor:
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample, NHWC."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2, NHWC."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).sum(dim=(2, 4)) / 4.0
+
+
+def timestep_embedding_ldm(t: torch.Tensor, dim: int,
+                           max_period: float = 10000.0) -> torch.Tensor:
+    """OpenAI/LDM variant (diffusionmodules/util.py:151-171):
+    freq = exp(-log(1e4) i / half), concat[cos, sin]."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,

@@ -1,0 +1,68 @@
+"""Checkpoint loading (port of the LDM part of
+``tfmq_dm_tpu/pipelines/loading.py``): a PyTorch-Lightning ``.ckpt``
+``{'state_dict': ...}`` with the submodule prefixes
+``model.diffusion_model.`` / ``first_stage_model.`` /
+``cond_stage_model.``, and LitEma weights under ``model_ema.*`` with the
+dots stripped from their names (ldm/modules/ema.py). The CIFAR-10 ``p::``
+npz loader stays in ``convert.py``."""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional
+
+import torch
+
+from ..configs.tasks import TaskConfig
+from ..models import ldm_unet, vae as vae_mod
+from ..utils.torch_convert import convert_state_dict
+
+logger = logging.getLogger(__name__)
+
+
+def _strip_prefix(sd: Dict, prefix: str) -> Dict:
+    return {k[len(prefix):]: v for k, v in sd.items()
+            if k.startswith(prefix)}
+
+
+def _apply_ema(unet_sd: Dict, full_sd: Dict) -> Dict:
+    """Swap in LitEma weights: ema names are the param names with dots
+    removed, under 'model_ema.' (loading.py:38-53)."""
+    ema = _strip_prefix(full_sd, "model_ema.")
+    if not ema:
+        return unet_sd
+    out = dict(unet_sd)
+    n = 0
+    for k in unet_sd:
+        ek = ("diffusion_model." + k).replace(".", "")
+        if ek in ema:
+            out[k] = ema[ek]
+            n += 1
+    logger.info("EMA swap: %d/%d tensors", n, len(unet_sd))
+    return out
+
+
+def load_ldm_checkpoint(path: str, task: TaskConfig,
+                        use_ema: Optional[bool] = None, device="cuda"):
+    """-> (unet_params, vae_params, cond_params or None), tensors on
+    ``device``. The first stage's decoder side only (the port decodes)."""
+    full = torch.load(path, map_location="cpu", weights_only=True)
+    sd = full.get("state_dict", full)
+    unet_sd = _strip_prefix(sd, "model.diffusion_model.")
+    if task.use_ema if use_ema is None else use_ema:
+        unet_sd = _apply_ema(unet_sd, sd)
+    unet_params = convert_state_dict(
+        unet_sd, ldm_unet.iter_layers(task.unet), device)
+    vae_params = convert_state_dict(
+        _strip_prefix(sd, "first_stage_model."),
+        vae_mod.iter_layers(task.vae), device)
+    cond_params = None
+    if task.cond == "class":
+        w = sd.get("cond_stage_model.embedding.weight")
+        if w is not None:
+            cond_params = {"embedding": w.detach().to(device,
+                                                      torch.float32)}
+    elif task.cond == "text":
+        raise NotImplementedError("text conditioning waits for the SD "
+                                  "slice")
+    return unet_params, vae_params, cond_params

@@ -9,7 +9,9 @@ It carries the static ``policy``, the weight state ``wstate`` ({layer:
   from the current batch, in forward order, and records them in
   ``out_astate`` (the FSC init pass, fsc.py:30-38);
 - ``deploy``: {layer: deployed weight} — the call sites execute the
-  deployed integer weights (quant/deploy.py) instead of fake-quant.
+  deployed integer weights (quant/deploy.py) instead of fake-quant;
+- ``flash``: opt in to the flash-attention kernels (inference contexts;
+  see ``ops/attention.py``).
 
 The reconstruction tape and the EMA pass belong to the calibration slice.
 """
@@ -47,7 +49,8 @@ class QuantCtx:
                  use_aq: bool = False,
                  act_mode: Optional[str] = None,  # None | "init"
                  act_scaler: str = "mse",
-                 deploy: Optional[dict] = None):
+                 deploy: Optional[dict] = None,
+                 flash: bool = False):
         if act_mode not in (None, "init"):
             raise ValueError(f"act_mode {act_mode!r}: only None or 'init'")
         self.policy = policy
@@ -59,6 +62,7 @@ class QuantCtx:
         self.act_scaler = act_scaler
         self.out_astate: Dict[str, dict] = {}
         self.deploy = deploy
+        self.flash = flash
 
     def qweight(self, name: str, w: torch.Tensor) -> torch.Tensor:
         if not self.use_wq:
