@@ -7,17 +7,20 @@ Phases, each with a time budget (the script raises and exits non-zero
 when one is exceeded):
 
 1. device   - a CUDA card must be present; prints its name and power limit.
-2. build    - compiles both CUDA sources cold (nvcc, sm_90a), the two
+2. build    - compiles the three CUDA sources cold (nvcc, sm_90a), the
               nvcc processes at once; prints each kernel's registers and
               shared memory.
 3. kernels  - every distinct conv and linear geometry of the CIFAR-10
               (batch 8) and cin256 (batch 2 x CFG) int4-serving paths plus
-              odd shapes, and the three flash-attention kernels at the
-              cin256 and SD shapes: each CUDA kernel against its plain
-              PyTorch version on the same inputs; then times kernel, plain
-              version and one PyTorch library call on the device (calls
-              captured in a CUDA graph), and the kernel's wall time per
-              eager call, beside the card's bound.
+              odd shapes, the same geometries on the int8 GEMM
+              (``int8_matmul_pre``, and the int8 conv on its im2col, sym
+              and asym grids), and the four flash-attention kernels at the
+              cin256 and SD shapes (fqk with and without the softmax
+              quantizer, with int8_pv, over two key blocks): each CUDA
+              kernel against its plain PyTorch version on the same inputs;
+              then times kernel, plain version and one PyTorch library
+              call on the device (calls captured in a CUDA graph), and the
+              kernel's wall time per eager call, beside the card's bound.
 4. main     - the full-width CIFAR-10 w4a8 int4-serving path: trained
               weights from runs/cifar10_ddpm.npz, minmax weight grids, a
               10-step calibration harvest at batch 8, the FSC init pass,
@@ -37,6 +40,17 @@ when one is exceeded):
               in FP; one deployed UNet forward, kernels against plain
               versions; and a 4-step sample with a 16-bit softmax grid
               (flash pquant). Launch counts are read around each run.
+6. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
+              ``--int-kernels --deploy_dtype bfloat16`` (20 steps, the ldm
+              phase's checkpoint and artifact; fqk, int8_matmul_pre and the
+              int8 conv), the CIFAR-10 bench configuration (w4a8
+              ``--w_sym``, int8 deploy, bf16) and CIFAR-10 exact w8a8
+              (f32), calibrated in phase main. Each runs with the kernels
+              and with the plain versions on the same noise (PSNR >= 30 dB:
+              cin256 latents, CIFAR images), with launch counts read around
+              the run and around one UNet forward, PSNR against the FP
+              sample (information) and the device-busy share of a
+              profiled sample.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -62,7 +76,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
-                  "ldm": 420}
+                  "ldm": 420, "deploy": 360}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -314,8 +328,11 @@ def plain_kernels():
     the kernel-vs-plain comparison of a whole path."""
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
     names = [(K, "int4_linear"), (K, "int4_conv2d"), (FA, "flash_fp"),
-             (FA, "flash_pquant"), (FA, "flash_int8")]
+             (FA, "flash_pquant"), (FA, "flash_int8"), (FA, "flash_fqk"),
+             (I8, "int8_matmul_pre"), (I8, "int8_conv_acc"),
+             (I8, "int8_bmm_acc")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
     for m, n in names:
         setattr(m, n, getattr(m, f"{n}_plain"))
@@ -329,14 +346,17 @@ def plain_kernels():
 def reset_all_counts() -> None:
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
     K.reset_launch_counts()
     FA.reset_launch_counts()
+    I8.reset_launch_counts()
 
 
 def all_counts() -> dict:
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
-    return {**K.LAUNCHES, **FA.LAUNCHES}
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    return {**K.LAUNCHES, **FA.LAUNCHES, **I8.LAUNCHES}
 
 
 def sync(dev) -> None:
@@ -397,10 +417,12 @@ def profile_sampling(cfg, dev, argv: list, steps: int) -> dict:
                           f"{steps}-step sample")
 
 
-def drive_main_path(cfg, dev, steps: int = STEPS) -> dict:
+def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     """Calibrate the full-width model on the card, then sample through the
     port's CLI with the packed-int4 kernels; launch counts are read around
-    that one call. Returns counts, seconds and PSNRs."""
+    that one call. Also writes, into ``tmp``, the artifacts of the deploy
+    phase's CIFAR-10 runs (w4a8 with symmetric weight grids, and w8a8) and
+    keeps the FP samples. Returns counts, seconds, PSNRs and paths."""
     import numpy as np
     import torch
     from tfmq_dm_tpu_torch import cli
@@ -409,84 +431,91 @@ def drive_main_path(cfg, dev, steps: int = STEPS) -> dict:
     from tfmq_dm_tpu_torch.quant.calibrate import cali_model
     from tfmq_dm_tpu_torch.samplers.ddim import harvest_trajectory
 
-    tmp = Path(tempfile.mkdtemp(prefix="tfmq_chip_smoke_"))
-    try:
-        ckpt = ROOT / "runs" / "cifar10_ddpm.npz"
-        t0 = time.perf_counter()
-        params, _ = load_params(str(ckpt), device=dev)
-        adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8)
-        betas, seq = cli.cifar10_schedule(steps)
-        x_cali = torch.randn((BATCH, 32, 32, 3),
-                             generator=torch.Generator().manual_seed(1))
-        xs, ts = harvest_trajectory(
-            lambda x, t, s: ddim_unet.apply(params, cfg, x, t), betas, seq,
-            x_cali.to(dev))
-        art = str(tmp / "cali.npz")
-        cali_model(adapter, params, (xs, ts),
-                   torch.Generator().manual_seed(2), path=art,
-                   w_scaler="minmax", act_scaler="minmax", init_samples=BATCH,
-                   meta={"wq": 4, "aq": 8,
+    tmp = tmp / "c10"
+    tmp.mkdir()
+    ckpt = ROOT / "runs" / "cifar10_ddpm.npz"
+    t0 = time.perf_counter()
+    params, _ = load_params(str(ckpt), device=dev)
+    betas, seq = cli.cifar10_schedule(steps)
+    x_cali = torch.randn((BATCH, 32, 32, 3),
+                         generator=torch.Generator().manual_seed(1))
+    xs, ts = harvest_trajectory(
+        lambda x, t, s: ddim_unet.apply(params, cfg, x, t), betas, seq,
+        x_cali.to(dev))
+    # w4a8 (int4-serving here), and the deploy phase's bench
+    # configuration (w4a8, symmetric weight grids) and w8a8
+    arts = {}
+    for name, wq, sym in (("w4a8", 4, False), ("bench", 4, True),
+                          ("w8a8", 8, False)):
+        arts[name] = str(tmp / f"cali_{name}.npz")
+        cali_model(ddim_units.build_adapter(cfg, w_bits=wq, a_bits=8,
+                                            w_sym=sym),
+                   params, (xs, ts), torch.Generator().manual_seed(2),
+                   path=arts[name], w_scaler="minmax",
+                   act_scaler="minmax", init_samples=BATCH,
+                   meta={"wq": wq, "aq": 8,
                          "cali_t": [float(v) for v in seq[::-1]]})
-        sync(dev)
-        print(f"   calibration (harvest {steps} steps x {BATCH}, FSC init): "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        del params, xs, ts
+    art = arts["w4a8"]
+    sync(dev)
+    print(f"   calibration (harvest {steps} steps x {BATCH}, FSC init "
+          f"of w4a8, w4a8 symmetric and w8a8): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del params, xs, ts
 
-        common = ["--task", "cifar10", "--ckpt", str(ckpt), "--timesteps",
-                  str(steps), "-n", str(BATCH), "--batch", str(BATCH),
-                  "--seed", str(SEED), "--device", dev.type]
-        quant = ["--ptq", "--cali_ckpt", art, "--use_aq", "--int-kernels",
-                 "--int4-serving"]
-        reset_all_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(common + quant + ["--out", str(tmp / "q")])
-        sync(dev)
-        e2e_s = time.perf_counter() - t0
-        launches = all_counts()
-        if rc != 0:
-            raise RuntimeError(f"cli.main returned {rc}")
-        print(f"   cli.main int4-serving sampling ({BATCH} images, {steps} "
-              f"steps; load + deploy + sample): {e2e_s:.2f} s; launches "
-              f"{launches}", flush=True)
-        if dev.type == "cuda":
-            need = {"int4_conv2d": 71 * steps, "int4_linear": 23 * steps}
-            for name, n in need.items():
-                if launches[name] < n:
-                    raise AssertionError(f"{name}: {launches[name]} "
-                                         f"launches, expected >= {n}")
-        q = np.load(tmp / "q" / "samples.npy")
-        if q.shape != (BATCH, 32, 32, 3) or not np.all(np.isfinite(q)):
-            raise AssertionError(f"bad samples: {q.shape}")
-        if q.min() < 0 or q.max() > 1:
-            raise AssertionError("samples outside [0, 1]")
+    common = ["--task", "cifar10", "--ckpt", str(ckpt), "--timesteps",
+              str(steps), "-n", str(BATCH), "--batch", str(BATCH),
+              "--seed", str(SEED), "--device", dev.type]
+    quant = ["--ptq", "--cali_ckpt", art, "--use_aq", "--int-kernels",
+             "--int4-serving"]
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(common + quant + ["--out", str(tmp / "q")])
+    sync(dev)
+    e2e_s = time.perf_counter() - t0
+    launches = all_counts()
+    if rc != 0:
+        raise RuntimeError(f"cli.main returned {rc}")
+    print(f"   cli.main int4-serving sampling ({BATCH} images, {steps} "
+          f"steps; load + deploy + sample): {e2e_s:.2f} s; launches "
+          f"{launches}", flush=True)
+    if dev.type == "cuda":
+        need = {"int4_conv2d": 71 * steps, "int4_linear": 23 * steps}
+        for name, n in need.items():
+            if launches[name] < n:
+                raise AssertionError(f"{name}: {launches[name]} "
+                                     f"launches, expected >= {n}")
+    q = np.load(tmp / "q" / "samples.npy")
+    if q.shape != (BATCH, 32, 32, 3) or not np.all(np.isfinite(q)):
+        raise AssertionError(f"bad samples: {q.shape}")
+    if q.min() < 0 or q.max() > 1:
+        raise AssertionError("samples outside [0, 1]")
 
-        with plain_kernels():
-            t0 = time.perf_counter()
-            cli.main(common + quant + ["--out", str(tmp / "plain")])
-            sync(dev)
-            plain_s = time.perf_counter() - t0
+    with plain_kernels():
         t0 = time.perf_counter()
-        cli.main(common + ["--out", str(tmp / "fp")])
+        cli.main(common + quant + ["--out", str(tmp / "plain")])
         sync(dev)
-        fp_s = time.perf_counter() - t0
-        plain = np.load(tmp / "plain" / "samples.npy")
-        fp = np.load(tmp / "fp" / "samples.npy")
-        p_kp, p_qf = psnr(q, plain), psnr(q, fp)
-        print(f"   plain-version sampling {plain_s:.2f} s, FP sampling "
-              f"{fp_s:.2f} s", flush=True)
-        print(f"   PSNR kernels vs plain versions: {p_kp:.2f} dB; quantized "
-              f"vs FP (information): {p_qf:.2f} dB", flush=True)
-        if not p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB:
-            raise AssertionError(f"kernel vs plain PSNR {p_kp:.2f} dB < "
-                                 f"{MIN_PSNR_KERNEL_VS_PLAIN_DB}")
-        if dev.type == "cuda":
-            profile_sampling(cfg, dev, common + quant + ["--out", "-"],
-                             steps)
-        return {"launches": launches, "e2e_s": e2e_s, "plain_s": plain_s,
-                "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
-                "psnr_quant_vs_fp": p_qf}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.main(common + ["--out", str(tmp / "fp")])
+    sync(dev)
+    fp_s = time.perf_counter() - t0
+    plain = np.load(tmp / "plain" / "samples.npy")
+    fp = np.load(tmp / "fp" / "samples.npy")
+    p_kp, p_qf = psnr(q, plain), psnr(q, fp)
+    print(f"   plain-version sampling {plain_s:.2f} s, FP sampling "
+          f"{fp_s:.2f} s", flush=True)
+    print(f"   PSNR kernels vs plain versions: {p_kp:.2f} dB; quantized "
+          f"vs FP (information): {p_qf:.2f} dB", flush=True)
+    if not p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB:
+        raise AssertionError(f"kernel vs plain PSNR {p_kp:.2f} dB < "
+                             f"{MIN_PSNR_KERNEL_VS_PLAIN_DB}")
+    if dev.type == "cuda":
+        profile_sampling(cfg, dev, common + quant + ["--out", "-"],
+                         steps)
+    return {"launches": launches, "e2e_s": e2e_s, "plain_s": plain_s,
+            "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
+            "psnr_quant_vs_fp": p_qf, "arts": arts, "ckpt": str(ckpt),
+            "fp_img": fp}
 
 
 def cin_geometries(cfg):
@@ -683,12 +712,14 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int,
     torch.save({"state_dict": sd}, path)
 
 
-def drive_ldm_path(dev, steps: int = 20, pq_steps: int = 4) -> dict:
+def drive_ldm_path(dev, tmp: Path, steps: int = 20,
+                   pq_steps: int = 4) -> dict:
     """The cin256_v2 w4a8 int4-serving path at full width: checkpoint,
     calibration on the card, then the port's CLI with the kernels, with
     the plain versions and in FP; one deployed forward kernels vs plain;
     and a 16-bit-softmax sample. Launch counts are read around each CLI
-    run."""
+    run. The checkpoint, the 8-bit-softmax artifact and the FP sample stay
+    in ``tmp`` for the deploy phase."""
     import numpy as np
     import torch
     from tfmq_dm_tpu_torch import cli
@@ -702,154 +733,505 @@ def drive_ldm_path(dev, steps: int = 20, pq_steps: int = 4) -> dict:
     task = get_task(task_name)
     n = CIN_N
     res, img_res = task.unet.image_size, task.vae.resolution
-    tmp = Path(tempfile.mkdtemp(prefix="tfmq_chip_smoke_ldm_"))
-    try:
-        t0 = time.perf_counter()
-        ckpt = str(tmp / f"{task_name}_random.ckpt")
-        make_ldm_checkpoint(ckpt, task, dev, n_classes=1001)
-        print(f"   random-init {task_name} checkpoint "
-              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB: "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tmp = tmp / "cin"
+    tmp.mkdir()
+    t0 = time.perf_counter()
+    ckpt = str(tmp / f"{task_name}_random.ckpt")
+    make_ldm_checkpoint(ckpt, task, dev, n_classes=1001)
+    print(f"   random-init {task_name} checkpoint "
+          f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-        t0 = time.perf_counter()
-        params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
-        ctx, uc = cli.class_context(cond, "1,2", n, dev)
+    t0 = time.perf_counter()
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    ctx, uc = cli.class_context(cond, "1,2", n, dev)
+    reset_all_counts()
+    _, a_cali, cali_t = ptq.generate_cali_data(
+        task, lambda x, t, c: ldm_unet.apply(params, task.unet, x, t,
+                                             context=c),
+        torch.Generator().manual_seed(1), n_per_t=n, context=ctx,
+        uncond=uc, steps=steps, device=dev)
+    sync(dev)
+    harvest = all_counts()
+    arts = {}
+    for bits in (8, 16):
+        adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
+                                          softmax_a_bit=bits,
+                                          use_aq=True)
+        arts[bits] = str(tmp / f"cali_sm{bits}.npz")
+        cali_model(adapter, params, a_cali,
+                   torch.Generator().manual_seed(2), path=arts[bits],
+                   w_scaler="minmax", act_scaler="minmax",
+                   init_samples=2 * n,
+                   meta={"task": task.name, "wq": 4, "aq": 8,
+                         "softmax_a_bit": bits, "use_aq": True,
+                         "cali_t": [float(v) for v in cali_t]})
+    sync(dev)
+    print(f"   calibration (harvest {steps} steps x {n} x CFG, FSC init "
+          f"with 8- and 16-bit softmax grids): "
+          f"{time.perf_counter() - t0:.2f} s; harvest launches "
+          f"{harvest}", flush=True)
+    del params, a_cali
+
+    common = ["--task", task_name, "--ckpt", ckpt, "--classes", "1,2",
+              "-n", str(n), "--batch", str(n), "--seed", str(SEED),
+              "--device", "cuda"]
+    quant = ["--ptq", "--cali_ckpt", arts[8], "--use_aq",
+             "--int-kernels", "--int4-serving"]
+    runs = {}
+
+    def run(name, argv, plain=False):
         reset_all_counts()
-        _, a_cali, cali_t = ptq.generate_cali_data(
-            task, lambda x, t, c: ldm_unet.apply(params, task.unet, x, t,
-                                                 context=c),
-            torch.Generator().manual_seed(1), n_per_t=n, context=ctx,
-            uncond=uc, steps=steps, device=dev)
+        t0 = time.perf_counter()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            rc = cli.main(argv + ["--out", str(tmp / name)])
         sync(dev)
-        harvest = all_counts()
-        arts = {}
-        for bits in (8, 16):
-            adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
-                                              softmax_a_bit=bits,
-                                              use_aq=True)
-            arts[bits] = str(tmp / f"cali_sm{bits}.npz")
-            cali_model(adapter, params, a_cali,
-                       torch.Generator().manual_seed(2), path=arts[bits],
-                       w_scaler="minmax", act_scaler="minmax",
-                       init_samples=2 * n,
-                       meta={"task": task.name, "wq": 4, "aq": 8,
-                             "softmax_a_bit": bits, "use_aq": True,
-                             "cali_t": [float(v) for v in cali_t]})
-        sync(dev)
-        print(f"   calibration (harvest {steps} steps x {n} x CFG, FSC init "
-              f"with 8- and 16-bit softmax grids): "
-              f"{time.perf_counter() - t0:.2f} s; harvest launches "
-              f"{harvest}", flush=True)
-        del params, a_cali
+        sec = time.perf_counter() - t0
+        counts = all_counts()
+        if rc != 0:
+            raise RuntimeError(f"cli.main ({name}) returned {rc}")
+        img = np.load(tmp / name / "samples.npy")
+        lat = np.load(tmp / name / "latents.npy")
+        if img.shape != (n, img_res, img_res, 3) or \
+                not np.all(np.isfinite(img)):
+            raise AssertionError(f"{name}: bad images {img.shape}")
+        if img.min() < 0 or img.max() > 1:
+            raise AssertionError(f"{name}: images outside [0, 1]")
+        print(f"   cli.main {name} ({n} images x CFG; load + deploy + "
+              f"sample + decode): {sec:.2f} s; launches {counts}",
+              flush=True)
+        runs[name] = {"s": sec, "launches": counts, "img": img,
+                      "lat": lat}
 
-        common = ["--task", task_name, "--ckpt", ckpt, "--classes", "1,2",
-                  "-n", str(n), "--batch", str(n), "--seed", str(SEED),
-                  "--device", "cuda"]
-        quant = ["--ptq", "--cali_ckpt", arts[8], "--use_aq",
-                 "--int-kernels", "--int4-serving"]
-        runs = {}
+    run("deployed", common + quant + ["--timesteps", str(steps)])
+    run("plain", common + quant + ["--timesteps", str(steps)],
+        plain=True)
+    run("fp", common + ["--timesteps", str(steps)])
+    run("softmax16", common + ["--ptq", "--cali_ckpt", arts[16],
+                               "--use_aq", "--int-kernels",
+                               "--int4-serving", "--softmax_a_bit",
+                               "16", "--timesteps", str(pq_steps)])
+    need = [("deployed", "flash_int8", 5 * steps),
+            ("deployed", "int4_conv2d", 1),
+            ("deployed", "int4_linear", 1),
+            ("fp", "flash_fp", 5 * steps),
+            ("softmax16", "flash_pquant", 5 * pq_steps)]
+    for name, kern, least in need:
+        got = runs[name]["launches"][kern]
+        if got < least:
+            raise AssertionError(f"{name}: {kern} launched {got} "
+                                 f"times, expected >= {least}")
+    p_lat = latent_psnr(runs["deployed"]["lat"], runs["plain"]["lat"])
+    p_img = psnr(runs["deployed"]["img"], runs["plain"]["img"])
+    p_qf = psnr(runs["deployed"]["img"], runs["fp"]["img"])
+    p_qf_lat = latent_psnr(runs["deployed"]["lat"], runs["fp"]["lat"])
+    print(f"   PSNR kernels vs plain versions: latents {p_lat:.2f} dB, "
+          f"decoded images {p_img:.2f} dB (information); quantized vs "
+          f"FP (information): latents {p_qf_lat:.2f} dB, images "
+          f"{p_qf:.2f} dB", flush=True)
+    if not p_lat >= MIN_LATENT_PSNR_DB:
+        raise AssertionError(f"latent PSNR kernels vs plain {p_lat:.2f}"
+                             f" dB < {MIN_LATENT_PSNR_DB}")
 
-        def run(name, argv, plain=False):
+    # one deployed UNet forward (CFG-doubled), kernels vs plain, and
+    # the device profile of a deployed sample
+    args = cli.build_argparser().parse_args(
+        common + quant + ["--timesteps", str(steps), "--out", "-"])
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=steps)
+    fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
+    x = torch.randn((n, res, res, task.unet.in_channels),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    t = torch.full((n,), int(sample_t[0]), dtype=torch.int32,
+                   device=dev)
+    noise = torch.randn(x.shape, generator=torch.Generator()
+                        .manual_seed(6)).to(dev)
+    got = fn(x, t, 0)
+    with plain_kernels():
+        ref = fn(x, t, 0)
+        ref_noisy = fn(x * (1.0 + FORWARD_NOISE * noise), t, 0)
+    sync(dev)
+
+    def rel(a, b):
+        d = (a - b).abs()
+        return (float(d.max() / b.abs().max()),
+                float(d.mean() / b.abs().mean()))
+
+    f_max, f_mean = rel(got, ref)
+    n_max, n_mean = rel(ref_noisy, ref)
+    lim_max = max(FORWARD_MAX_REL, FORWARD_NOISE_FACTOR * n_max)
+    lim_mean = max(FORWARD_MEAN_REL, FORWARD_NOISE_FACTOR * n_mean)
+    print(f"   one deployed forward, kernels vs plain: max rel "
+          f"{f_max:.3e} (limit {lim_max:.3e}), mean rel {f_mean:.3e} "
+          f"(limit {lim_mean:.3e}); plain vs plain on inputs moved by "
+          f"{FORWARD_NOISE:g}: max rel {n_max:.3e}, mean rel "
+          f"{n_mean:.3e}", flush=True)
+    if not (f_max <= lim_max and f_mean <= lim_mean):
+        raise AssertionError("deployed forward: kernels disagree with "
+                             "the plain versions")
+    prof = profile_device(lambda: sampler_fn(fn, x),
+                          f"{task_name} {steps}-step deployed sample "
+                          f"(batch {n} x CFG, no decode)", top=12)
+    return {"runs": {k: {"s": v["s"], "launches": v["launches"]}
+                     for k, v in runs.items()},
+            "psnr_latents_kernel_vs_plain": p_lat,
+            "psnr_images_kernel_vs_plain": p_img,
+            "psnr_quant_vs_fp": p_qf, "forward_max_rel": f_max,
+            "forward_mean_rel": f_mean, "noise_mean_rel": n_mean,
+            "profile": prof, "ckpt": ckpt, "art": arts[8],
+            "fp_lat": runs["fp"]["lat"], "fp_img": runs["fp"]["img"]}
+
+
+# ---------------------------------------------------------------------------
+# the int8 GEMM and mode fqk
+# ---------------------------------------------------------------------------
+
+def int8_weight(g, k, n, sym: bool, dev, kh: int = 0):
+    """A deployed IntWeight of random 8-bit codes: (K, N), or HWIO
+    (kh, kh, K, N) when ``kh``."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    shape = (kh, kh, k, n) if kh else (k, n)
+    w = torch.randn(shape, generator=g) * 0.05
+    cfg = QCfg(bits=8, symmetric=sym, channel_wise=True)
+    delta = torch.rand(n, generator=g) * 1e-3 + 5e-4
+    zp = torch.zeros(n) if sym else \
+        torch.randint(100, 156, (n,), generator=g).float()
+    iw = int_ops.quantize_weight_int(w.to(dev), delta.to(dev), zp.to(dev),
+                                     cfg)
+    return iw
+
+
+def int8_act(g, shape, dev):
+    """Centered int8 activation codes, their grid (zp_xc, dx)."""
+    import torch
+    x = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    return x.to(dev), torch.tensor(-3.0, device=dev), \
+        torch.tensor(0.02, device=dev)
+
+
+def check_int8(g, dev, errs, linears, convs) -> None:
+    """``int8_linear`` (int8_matmul_pre) and ``int8_conv2d`` (the GEMM on
+    the im2col) with the kernels against the same with the plain versions:
+    equal bit for bit (exact int32 sums; the same epilogue order)."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    for (m, k, n) in linears:
+        for sym in (False, True):
+            iw = int8_weight(g, k, n, sym, dev)
+            x, zx, dx = int8_act(g, (m, k), dev)
+            b = torch.randn(n, generator=g).to(dev)
+            for od in (torch.float32, torch.bfloat16):
+                got = int_ops.int8_linear(x, zx, dx, iw, b, out_dtype=od)
+                with plain_kernels():
+                    ref = int_ops.int8_linear(x, zx, dx, iw, b, out_dtype=od)
+                check_equal(f"int8_matmul_pre M{m} {k}->{n} sym {sym} "
+                            f"{str(od)[6:]}", got, ref,
+                            errs["int8_matmul_pre"])
+    for (b, res, kh, cin, n) in convs:
+        for sym in (False, True):
+            iw = int8_weight(g, cin, n, sym, dev, kh)
+            x, zx, dx = int8_act(g, (b, res, res, cin), dev)
+            pads = ((kh // 2, kh // 2),) * 2
+            got = int_ops.int8_conv2d(x, zx, dx, iw, None, pads=pads)
+            with plain_kernels():
+                ref = int_ops.int8_conv2d(x, zx, dx, iw, None, pads=pads)
+            check_equal(f"int8_conv2d b{b} {res}x{res} {kh}x{kh} {cin}->{n} "
+                        f"sym {sym}", got, ref, errs["int8_matmul_pre"])
+    # batched products (attention above the f32-exact depth: Tk 4096)
+    a = torch.randint(-128, 128, (16, 64, 4096), generator=g,
+                      dtype=torch.int8).to(dev)
+    bm = torch.randint(-128, 128, (16, 4096, 40), generator=g,
+                       dtype=torch.int8).to(dev)
+    check_equal("int8_bmm_acc 16 x 64x4096 @ 4096x40",
+                I8.int8_bmm_acc(a, bm), I8.int8_bmm_acc_plain(a, bm),
+                errs["int8_matmul_pre"])
+
+
+def check_equal(label, got, ref, errors) -> None:
+    import torch
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    print(f"   {label:48s} max_abs_err {err:.3e} (bit-equal: "
+          f"{torch.equal(got, ref)})", flush=True)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{label}: kernel differs from its plain "
+                             f"version ({err:.3e})")
+    errors.append(err)
+
+
+# (label, B*H, T, D, block_k): cin256 at batch 2 x CFG, and SD's 64x64
+# self-attention over two key blocks
+FQK_SHAPES = [("cin256", 4, 1024, 384), ("sd 64x64", 16, 4096, 40)]
+
+
+def fqk_sc(pw, dev):
+    import torch
+    dw, zw = pw if pw is not None else (1.0, 0.0)
+    return torch.tensor([a for p in INT8_GRIDS for a in p] + [dw, zw],
+                        device=dev)
+
+
+def check_fqk(g, dev, errs) -> None:
+    """Mode fqk on bf16 q/k/v against its plain version: without the
+    softmax quantizer the bf16 outputs may differ by one bf16 ulp (2^-7 of
+    the largest) in under 0.5% of outputs; with it, the one-level rule."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    for label, bh, t, d in FQK_SHAPES:
+        q, k, v = (x.to(torch.bfloat16)
+                   for x in flash_case(g, bh, t, t, d, dev))
+        tag = f"{label} bh{bh} T{t} d{d}"
+        for pw, zz, pv in ((None, False, False), (P_GRIDS[0], True, False),
+                           (P_GRIDS[1], False, False),
+                           (P_GRIDS[0], True, True)):
+            qr = None if pw is None else (0, 255)
+            args = (q, k, v, fqk_sc(pw, dev), d ** -0.5, ((0, 255),) * 3, qr,
+                    zz, pv)
+            got = FA.flash_fqk(*args).float()
+            ref = FA.flash_fqk_plain(*args).float()
+            name = f"flash_fqk {'p ' + str(pw[1]) if pw else 'no p'}" \
+                f"{' int8_pv' if pv else ''} {tag}"
+            if pw is None:
+                torch.cuda.synchronize()
+                diff = (got - ref).abs()
+                share = float((diff > 1e-5).float().mean())
+                err = float(diff.max())
+                lim = 2.0 ** -7 * float(ref.abs().max())
+                print(f"   {name:48s} max_abs_err {err:.3e}  share>1e-5 "
+                      f"{share:.2e}  (bf16 ulp limit {lim:.3e})", flush=True)
+                if not (share < ONE_LEVEL_SHARE and err <= lim):
+                    raise AssertionError(f"{name}: kernel disagrees with its "
+                                         "plain version")
+                errs["flash_fqk"].append(err)
+            else:
+                check_one_level(name, got, ref, pw[0], errs["flash_fqk"])
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def time_int8(g, dev, peaks) -> dict:
+    """``int8_matmul_pre`` at cin256's ``ff.net.0.proj`` (M 4096 tokens of
+    batch 2 x CFG, 384 -> 3072, bf16 out, as in the fast deploy), and its
+    conv route at the 64x64 3x3 192 -> 192 conv (the int8 GEMM on the
+    im2col, plus im2col and corrections): kernel, plain version, and
+    ``torch._int_mm`` with the epilogue in PyTorch ops as the library
+    call."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    m, k, n = 2 * CIN_N * 1024, 384, 3072
+    iw = int8_weight(g, k, n, False, dev)
+    x, zx, dx = int8_act(g, (m, k), dev)
+    b = torch.randn(n, generator=g).to(dev)
+    xs = x.to(torch.int32).sum(-1, keepdim=True).float()
+    ws = iw.wsum.float()
+    args = (x, xs, iw.w_q, iw.delta, iw.zp_c, ws, dx, zx, b)
+    w_cm = iw.w_q.t().contiguous().t()       # column-major for cuBLASLt
+
+    def library():
+        acc = torch._int_mm(x, w_cm).float()
+        corr = acc - iw.zp_c * xs - zx * ws + (k * zx) * iw.zp_c
+        return ((dx * iw.delta) * corr + b).to(torch.bfloat16)
+
+    flops = 2 * m * n * k
+    nbytes = m * k + k * n + 4 * m + 4 * 4 * n + 2 * m * n
+    out = {"linear": timings(
+        lambda: I8.int8_matmul_pre(*args, out_dtype=torch.bfloat16),
+        lambda: I8.int8_matmul_pre_plain(*args, out_dtype=torch.bfloat16),
+        library, flops, nbytes, peaks, rate="int8")}
+    out["linear"]["library"] = "torch._int_mm + epilogue"
+    # the conv route at cin256's 64x64 3x3 192 -> 192 (batch 2 x CFG)
+    bb, res, c = 2 * CIN_N, 64, 192
+    iw = int8_weight(g, c, c, False, dev, 3)
+    x, zx, dx = int8_act(g, (bb, res, res, c), dev)
+    cols, w2 = I8._conv_operands(x, iw.w_q, 1, ((1, 1), (1, 1)))
+    mc, kc = cols.shape
+    w2_cm = w2.t().contiguous().t()
+    flops = 2 * mc * c * 9 * c
+    nbytes = x.numel() + iw.w_q.numel() + 4 * mc * c
+    out["conv_gemm"] = timings(
+        lambda: I8._launch("int8_conv2d", cols, w2, mc, kc, c, 1, None),
+        lambda: I8._acc_plain(cols, w2),
+        lambda: torch._int_mm(cols, w2_cm), flops, nbytes, peaks,
+        rate="int8")
+    out["conv_gemm"]["library"] = "torch._int_mm on the im2col"
+    out["conv_total_ms"] = device_ms(
+        lambda: int_ops.int8_conv2d(x, zx, dx, iw, None))
+    for name in ("linear", "conv_gemm"):
+        print(f"   int8 {name}: " + timing_line(out[name]), flush=True)
+    print(f"   int8_conv2d 64x64 3x3 192->192 b{bb} whole (im2col + GEMM "
+          f"+ corrections): {out['conv_total_ms']:.4f} ms device",
+          flush=True)
+    return out
+
+
+def time_fqk(g, dev, peaks) -> dict:
+    """``flash_fqk`` at cin256 (B*H 4, T 1024, D 384, bf16, 8-bit softmax
+    grid): kernel, plain version and bf16 ``scaled_dot_product_attention``
+    on q/k/v fake-quantized ahead of time."""
+    import torch
+    import torch.nn.functional as F
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    _, bh, t, d = FQK_SHAPES[0]
+    q, k, v = (x.to(torch.bfloat16) for x in flash_case(g, bh, t, t, d, dev))
+    sc = fqk_sc(P_GRIDS[0], dev)
+    args = (q, k, v, sc, d ** -0.5, ((0, 255),) * 3, (0, 255), True, False)
+    fq = [FA.fake_quant_tile(x, sc[2 * i], sc[2 * i + 1], (0, 255),
+                             torch.bfloat16)[:, None]
+          for i, x in enumerate((q, k, v))]
+    flops = 2 * 2 * bh * t * t * d
+    nbytes = 2 * 4 * bh * t * d + 4 * 8
+    tm = timings(lambda: FA.flash_fqk(*args),
+                 lambda: FA.flash_fqk_plain(*args),
+                 lambda: F.scaled_dot_product_attention(*fq, scale=d ** -0.5),
+                 flops, nbytes, peaks)
+    tm["library"] = ("scaled_dot_product_attention bf16 "
+                     f"({sdpa_backend(*fq)})")
+    print(f"   flash_fqk cin256 bh{bh} T{t} d{d}: " + timing_line(tm),
+          flush=True)
+    return tm
+
+
+def forward_counts(fn, args) -> dict:
+    """Launch counts of one call ``fn(*args)``."""
+    import torch
+    reset_all_counts()
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    return {k: v for k, v in all_counts().items() if v}
+
+
+def drive_deploy_path(dev, main_path: dict, ldm: dict,
+                      cin_steps: int = 20) -> dict:
+    """The int8 and bf16 deployments through ``cli.main``: cin256_v2
+    ``--int-kernels --deploy_dtype bfloat16``, the CIFAR-10 bench
+    configuration (w4a8 ``--w_sym``, int8 deploy, bf16) and CIFAR-10 w8a8
+    (f32). Each with the kernels (counts read around the run) and with
+    the plain versions on the same noise; one UNet forward's launches; the
+    device profile of a sample."""
+    import numpy as np
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.convert import load_params
+    from tfmq_dm_tpu_torch.models import ddim_unet
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.pipelines.loading import load_ldm_checkpoint
+    from tfmq_dm_tpu_torch.samplers.ddim import generalized_scan
+
+    tmp = Path(ldm["ckpt"]).parent.parent / "deploy"
+    tmp.mkdir()
+    task = get_task("cin256_v2")
+    n, res = CIN_N, task.unet.image_size
+    cin_argv = ["--task", "cin256_v2", "--ckpt", ldm["ckpt"], "--classes",
+                "1,2", "-n", str(n), "--batch", str(n), "--seed", str(SEED),
+                "--device", "cuda", "--ptq", "--cali_ckpt", ldm["art"],
+                "--use_aq", "--int-kernels", "--deploy_dtype", "bfloat16",
+                "--timesteps", str(cin_steps)]
+    c10 = ["--task", "cifar10", "--ckpt", main_path["ckpt"], "--timesteps",
+           str(STEPS), "-n", str(BATCH), "--batch", str(BATCH), "--seed",
+           str(SEED), "--device", "cuda", "--ptq", "--use_aq",
+           "--int-kernels"]
+    configs = [
+        ("cin256_v2 bf16", cin_argv, True),
+        ("cifar10 bench", c10 + ["--cali_ckpt", main_path["arts"]["bench"],
+                                 "--w_sym", "--deploy_dtype", "bfloat16"],
+         False),
+        ("cifar10 w8a8", c10 + ["--cali_ckpt", main_path["arts"]["w8a8"],
+                                "--wq", "8"], False)]
+    out = {}
+    for name, argv, ldm_task in configs:
+        res_ = {}
+        for plain in (False, True):
+            d = tmp / f"{name.replace(' ', '_')}_{int(plain)}"
             reset_all_counts()
             t0 = time.perf_counter()
             with plain_kernels() if plain else contextlib.nullcontext():
-                rc = cli.main(argv + ["--out", str(tmp / name)])
+                rc = cli.main(argv + ["--out", str(d)])
             sync(dev)
             sec = time.perf_counter() - t0
-            counts = all_counts()
             if rc != 0:
                 raise RuntimeError(f"cli.main ({name}) returned {rc}")
-            img = np.load(tmp / name / "samples.npy")
-            lat = np.load(tmp / name / "latents.npy")
-            if img.shape != (n, img_res, img_res, 3) or \
-                    not np.all(np.isfinite(img)):
-                raise AssertionError(f"{name}: bad images {img.shape}")
-            if img.min() < 0 or img.max() > 1:
-                raise AssertionError(f"{name}: images outside [0, 1]")
-            print(f"   cli.main {name} ({n} images x CFG; load + deploy + "
-                  f"sample + decode): {sec:.2f} s; launches {counts}",
-                  flush=True)
-            runs[name] = {"s": sec, "launches": counts, "img": img,
-                          "lat": lat}
+            img = np.load(d / "samples.npy")
+            if not np.all(np.isfinite(img)) or img.min() < 0 or \
+                    img.max() > 1:
+                raise AssertionError(f"{name}: bad images")
+            res_[plain] = {"s": sec, "launches": all_counts(), "img": img,
+                           "lat": np.load(d / "latents.npy")
+                           if ldm_task else None}
+        k, p = res_[False], res_[True]
+        if ldm_task:
+            p_kp = latent_psnr(k["lat"], p["lat"])
+            p_fp = latent_psnr(k["lat"], ldm["fp_lat"])
+        else:
+            p_kp = psnr(k["img"], p["img"])
+            p_fp = psnr(k["img"], main_path["fp_img"])
 
-        run("deployed", common + quant + ["--timesteps", str(steps)])
-        run("plain", common + quant + ["--timesteps", str(steps)],
-            plain=True)
-        run("fp", common + ["--timesteps", str(steps)])
-        run("softmax16", common + ["--ptq", "--cali_ckpt", arts[16],
-                                   "--use_aq", "--int-kernels",
-                                   "--int4-serving", "--softmax_a_bit",
-                                   "16", "--timesteps", str(pq_steps)])
-        need = [("deployed", "flash_int8", 5 * steps),
-                ("deployed", "int4_conv2d", 1),
-                ("deployed", "int4_linear", 1),
-                ("fp", "flash_fp", 5 * steps),
-                ("softmax16", "flash_pquant", 5 * pq_steps)]
-        for name, kern, least in need:
-            got = runs[name]["launches"][kern]
-            if got < least:
-                raise AssertionError(f"{name}: {kern} launched {got} "
-                                     f"times, expected >= {least}")
-        p_lat = latent_psnr(runs["deployed"]["lat"], runs["plain"]["lat"])
-        p_img = psnr(runs["deployed"]["img"], runs["plain"]["img"])
-        p_qf = psnr(runs["deployed"]["img"], runs["fp"]["img"])
-        p_qf_lat = latent_psnr(runs["deployed"]["lat"], runs["fp"]["lat"])
-        print(f"   PSNR kernels vs plain versions: latents {p_lat:.2f} dB, "
-              f"decoded images {p_img:.2f} dB (information); quantized vs "
-              f"FP (information): latents {p_qf_lat:.2f} dB, images "
-              f"{p_qf:.2f} dB", flush=True)
-        if not p_lat >= MIN_LATENT_PSNR_DB:
-            raise AssertionError(f"latent PSNR kernels vs plain {p_lat:.2f}"
-                                 f" dB < {MIN_LATENT_PSNR_DB}")
-
-        # one deployed UNet forward (CFG-doubled), kernels vs plain, and
-        # the device profile of a deployed sample
-        args = cli.build_argparser().parse_args(
-            common + quant + ["--timesteps", str(steps), "--out", "-"])
-        params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
-        sampler_fn, sample_t = ptq.make_schedule(task, steps=steps)
-        fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
-        x = torch.randn((n, res, res, task.unet.in_channels),
-                        generator=torch.Generator().manual_seed(5)).to(dev)
-        t = torch.full((n,), int(sample_t[0]), dtype=torch.int32,
-                       device=dev)
-        noise = torch.randn(x.shape, generator=torch.Generator()
-                            .manual_seed(6)).to(dev)
-        got = fn(x, t, 0)
-        with plain_kernels():
-            ref = fn(x, t, 0)
-            ref_noisy = fn(x * (1.0 + FORWARD_NOISE * noise), t, 0)
-        sync(dev)
-
-        def rel(a, b):
-            d = (a - b).abs()
-            return (float(d.max() / b.abs().max()),
-                    float(d.mean() / b.abs().mean()))
-
-        f_max, f_mean = rel(got, ref)
-        n_max, n_mean = rel(ref_noisy, ref)
-        lim_max = max(FORWARD_MAX_REL, FORWARD_NOISE_FACTOR * n_max)
-        lim_mean = max(FORWARD_MEAN_REL, FORWARD_NOISE_FACTOR * n_mean)
-        print(f"   one deployed forward, kernels vs plain: max rel "
-              f"{f_max:.3e} (limit {lim_max:.3e}), mean rel {f_mean:.3e} "
-              f"(limit {lim_mean:.3e}); plain vs plain on inputs moved by "
-              f"{FORWARD_NOISE:g}: max rel {n_max:.3e}, mean rel "
-              f"{n_mean:.3e}", flush=True)
-        if not (f_max <= lim_max and f_mean <= lim_mean):
-            raise AssertionError("deployed forward: kernels disagree with "
-                                 "the plain versions")
-        prof = profile_device(lambda: sampler_fn(fn, x),
-                              f"{task_name} {steps}-step deployed sample "
-                              f"(batch {n} x CFG, no decode)", top=12)
-        return {"runs": {k: {"s": v["s"], "launches": v["launches"]}
-                         for k, v in runs.items()},
-                "psnr_latents_kernel_vs_plain": p_lat,
-                "psnr_images_kernel_vs_plain": p_img,
-                "psnr_quant_vs_fp": p_qf, "forward_max_rel": f_max,
-                "forward_mean_rel": f_mean, "noise_mean_rel": n_mean,
-                "profile": prof}
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        # one UNet forward's launches, and the device profile of a sample
+        t0 = time.perf_counter()
+        args = cli.build_argparser().parse_args(argv + ["--out", "-"])
+        if ldm_task:
+            params, _, cond = load_ldm_checkpoint(ldm["ckpt"], task,
+                                                  device=dev)
+            sampler_fn, sample_t = ptq.make_schedule(task, steps=cin_steps)
+            fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t,
+                                        dev)
+            x = torch.randn((n, res, res, task.unet.in_channels),
+                            generator=torch.Generator().manual_seed(5)
+                            ).to(dev)
+            t = torch.full((n,), int(sample_t[0]), dtype=torch.int32,
+                           device=dev)
+            per_fwd = forward_counts(fn, (x, t, 0))
+            prof = profile_device(lambda: sampler_fn(fn, x),
+                                  f"{name} {cin_steps}-step sample (batch "
+                                  f"{n} x CFG, no decode)", top=10)
+            steps = cin_steps
+        else:
+            cfg = ddim_unet.cifar10_config()
+            params, _ = load_params(main_path["ckpt"], device=dev)
+            betas, seq = cli.cifar10_schedule(STEPS)
+            fn = cli.build_model_fn(args, params, cfg, seq[::-1], dev)
+            x = torch.randn((BATCH, 32, 32, 3),
+                            generator=torch.Generator().manual_seed(3)
+                            ).to(dev)
+            t = torch.full((BATCH,), int(seq[-1]), dtype=torch.int32,
+                           device=dev)
+            per_fwd = forward_counts(fn, (x, t, 0))
+            prof = profile_device(lambda: generalized_scan(fn, betas, seq, x),
+                                  f"{name} {STEPS}-step sample (batch "
+                                  f"{BATCH})", top=8)
+            steps = STEPS
+        prof_s = time.perf_counter() - t0
+        del params, fn
+        torch.cuda.empty_cache()
+        print(f"   deploy {name}: model build, one forward and the profile "
+              f"of three samples {prof_s:.2f} s", flush=True)
+        print(f"   deploy {name}: cli.main {k['s']:.2f} s with the kernels "
+              f"(launches {k['launches']}), {p['s']:.2f} s with the plain "
+              f"versions; one forward launches {per_fwd}; PSNR kernels vs "
+              f"plain {p_kp:.2f} dB ({'latents' if ldm_task else 'images'})"
+              f", vs FP (information) {p_fp:.2f} dB", flush=True)
+        if not p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB:
+            raise AssertionError(f"{name}: PSNR kernels vs plain {p_kp:.2f}"
+                                 f" dB < {MIN_PSNR_KERNEL_VS_PLAIN_DB}")
+        need = {"int8_matmul_pre": 1, "int8_conv2d": 1}
+        if ldm_task:
+            need["flash_fqk"] = 5 * steps
+        for kern, least in need.items():
+            if k["launches"].get(kern, 0) < least:
+                raise AssertionError(f"{name}: {kern} launched "
+                                     f"{k['launches'].get(kern, 0)} times, "
+                                     f"expected >= {least}")
+        out[name] = {"s": k["s"], "plain_s": p["s"],
+                     "launches": k["launches"], "per_forward": per_fwd,
+                     "psnr_kernel_vs_plain": p_kp if math.isfinite(p_kp)
+                     else "bit-identical", "psnr_vs_fp": p_fp,
+                     "profile": prof, "profile_s": prof_s}
+    return out
 
 
 def run() -> None:
@@ -876,14 +1258,16 @@ def run() -> None:
     with phase("build"):
         from concurrent.futures import ThreadPoolExecutor
         from tfmq_dm_tpu_torch.ops import flash_attention as FA
+        from tfmq_dm_tpu_torch.ops import int8_kernels as I8
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:   # one nvcc per source, at once
-            for fut in [pool.submit(m.build, True) for m in (K, FA)]:
+        with ThreadPoolExecutor(3) as pool:   # one nvcc per source, at once
+            for fut in [pool.submit(m.build, True) for m in (K, FA, I8)]:
                 fut.result()
         print(f"   nvcc builds {time.perf_counter() - t0:.2f} s (int4 "
               f"{K.BUILD_LOG['seconds']:.2f} s, flash "
-              f"{FA.BUILD_LOG['seconds']:.2f} s, in parallel)", flush=True)
-        for mod in (K, FA):
+              f"{FA.BUILD_LOG['seconds']:.2f} s, int8 "
+              f"{I8.BUILD_LOG['seconds']:.2f} s, in parallel)", flush=True)
+        for mod in (K, FA, I8):
             for line in mod.BUILD_LOG["ptxas"].splitlines():
                 if ("registers" in line or "Compiling entry" in line
                         or "spill" in line):
@@ -896,7 +1280,8 @@ def run() -> None:
         convs, linears = cifar_geometries(cfg)
         g = torch.Generator().manual_seed(0)
         errs = {"int4_conv2d": [], "int4_linear": [], "flash_fp": [],
-                "flash_pquant": [], "flash_int8": []}
+                "flash_pquant": [], "flash_int8": [], "flash_fqk": [],
+                "int8_matmul_pre": []}
         conv_shapes = [(BATCH, r, k, ci, co) for (r, k, ci, co) in convs]
         conv_shapes += [(2, 5, 3, 20, 37), (1, 7, 1, 48, 10)]
         cin_convs, cin_linears = cin_geometries(get_task("cin256_v2").unet)
@@ -916,6 +1301,8 @@ def run() -> None:
                         K.int4_linear_plain(*case), errs["int4_linear"],
                         depth=k)
         check_flash(g, dev, errs)
+        check_int8(g, dev, errs, lin_shapes, conv_shapes)
+        check_fqk(g, dev, errs)
 
         print("   timing, ms per call (device: kernel / plain / library; "
               "kernel wall per eager call; bound):", flush=True)
@@ -933,11 +1320,20 @@ def run() -> None:
             print(f"   int4_linear M{m} {k}->{n}: " + timing_line(t),
                   flush=True)
         measured.update(time_flash(g, dev, peaks))
+        measured["int8"] = time_int8(g, dev, peaks)
+        measured["flash_fqk"] = time_fqk(g, dev, peaks)
 
-    with phase("main"):
-        main_path = drive_main_path(cfg, dev)
-    with phase("ldm"):
-        ldm = drive_ldm_path(dev)
+    # checkpoints, artifacts and samples shared by the phases below
+    tmp = Path(tempfile.mkdtemp(prefix="tfmq_chip_smoke_"))
+    try:
+        with phase("main"):
+            main_path = drive_main_path(cfg, dev, tmp)
+        with phase("ldm"):
+            ldm = drive_ldm_path(dev, tmp)
+        with phase("deploy"):
+            dep = drive_deploy_path(dev, main_path, ldm)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
     runs = ldm["runs"]
     tc = measured[("conv", BATCH, 32, 128)]
@@ -950,6 +1346,7 @@ def run() -> None:
         ("flash_int8", "tfmq_dm_tpu/ops/flash_attention.py:291", "int8",
          "deployed", "q/k/v int8 codes, 8-bit softmax grid")]
     _, bh, t_cin, _, d_cin = FLASH_SHAPES[0]
+    cin_dep = dep["cin256_v2 bf16"]
     report = {"kernels": [
         {"name": "int4_conv2d", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/int4_kernels.cu",
@@ -977,7 +1374,32 @@ def run() -> None:
          "launches": runs[run_name]["launches"][name],
          "launches_path": f"cin256 cli.main {run_name}",
          "max_abs_err": max(errs[name]), **measured[name]}
-        for name, where, mode, run_name, what in flash_rows]}
+        for name, where, mode, run_name, what in flash_rows] + [
+        {"name": "int8_matmul_pre", "route": "cuda",
+         "source": "tfmq_dm_tpu_torch/csrc/int8_kernels.cu",
+         "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:166",
+         "tpu": "int8_matmul_pre",
+         "shape": f"x ({2 * CIN_N * 1024},384) int8 codes, 384->3072, "
+                  "bf16 out",
+         "launches": cin_dep["launches"]["int8_matmul_pre"],
+         "launches_path": "cin256 cli.main --int-kernels --deploy_dtype "
+                          "bfloat16",
+         "launches_int8_conv2d": cin_dep["launches"]["int8_conv2d"],
+         "launches_per_forward": cin_dep["per_forward"],
+         "max_abs_err": max(errs["int8_matmul_pre"]),
+         **measured["int8"]["linear"],
+         "conv_gemm": measured["int8"]["conv_gemm"],
+         "conv_total_ms": measured["int8"]["conv_total_ms"]},
+        {"name": "flash_fqk", "route": "cuda",
+         "source": "tfmq_dm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "tfmq_dm_tpu/ops/flash_attention.py:175",
+         "tpu": "flash_attention mode fqk",
+         "shape": f"(B*H {bh}, T {t_cin}, D {d_cin}), q/k/v bf16, 8-bit "
+                  "softmax grid",
+         "launches": cin_dep["launches"]["flash_fqk"],
+         "launches_path": "cin256 cli.main --int-kernels --deploy_dtype "
+                          "bfloat16",
+         "max_abs_err": max(errs["flash_fqk"]), **measured["flash_fqk"]}]}
     print(json.dumps({"e2e_s": main_path["e2e_s"], "images": BATCH,
                       "steps": STEPS, "psnr_kernel_vs_plain_db":
                       main_path["psnr_kernel_vs_plain"],
@@ -995,6 +1417,7 @@ def run() -> None:
         "forward_mean_rel": ldm["forward_mean_rel"],
         "forward_noise_mean_rel": ldm["noise_mean_rel"],
         "profile": ldm["profile"]}}), flush=True)
+    print(json.dumps({"deploy": dep}), flush=True)
     print(json.dumps(report), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

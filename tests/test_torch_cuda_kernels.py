@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (packed-int4 conv and linear, flash attention)
-against their plain PyTorch versions, on the card. Skips where
+"""The port's CUDA kernels (packed-int4 conv and linear, flash attention,
+the exact int8 GEMM) against their plain PyTorch versions, on the card. Skips where
 torch.cuda.is_available() is false. The file imports no JAX, so that it
 runs on a machine without it:
 
@@ -171,3 +171,123 @@ def test_cuda_flash_rejects_wide_head_dim(cuda):
     q, k, v = _qkv(0, 1, 64, 64, 576, cuda)
     with pytest.raises(ValueError, match="head dim 576"):
         FA.flash_fp(q, k, v, 0.05)
+
+
+@pytest.mark.parametrize("bh,tq,tk,d", FLASH_SHAPES)
+@pytest.mark.parametrize("pw,zp_zero,int8_pv", [
+    (None, False, False), ((1 / 255.0, 0.0), True, False),
+    ((0.004, 3.0), False, False), ((1 / 255.0, 0.0), True, True)])
+def test_cuda_flash_fqk_matches_plain(cuda, bh, tq, tk, d, pw, zp_zero,
+                                      int8_pv):
+    """Mode fqk on bf16 q/k/v: without a softmax quantizer the bf16
+    outputs may differ by one bf16 ulp (2^-7 of the largest), in under
+    0.5% of outputs; with one, the one-level rule."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = (x.to(torch.bfloat16) for x in _qkv(d + 3, bh, tq, tk, d,
+                                                  cuda))
+    dw, zw = pw if pw is not None else (1.0, 0.0)
+    sc = torch.tensor([0.031, 130.0, 0.029, 120.0, 0.033, 125.0, dw, zw],
+                      device=cuda)
+    qrange = None if pw is None else A8
+    args = (q, k, v, sc, d ** -0.5, (A8,) * 3, qrange, zp_zero, int8_pv)
+    before = FA.LAUNCHES["flash_fqk"]
+    got = FA.flash_fqk(*args)
+    assert FA.LAUNCHES["flash_fqk"] == before + 1 and \
+        got.dtype == torch.bfloat16
+    ref = FA.flash_fqk_plain(*args).float()
+    got = got.float()
+    if pw is None:
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        assert float((diff > 1e-5).float().mean()) < 0.005
+        assert float(diff.max()) <= 2.0 ** -7 * float(ref.abs().max())
+    else:
+        _assert_one_level(got, ref, pw[0])
+
+
+@pytest.mark.parametrize("mode", ["pquant", "int8", "fqk"])
+def test_cuda_flash_key_blocks_match_plain(cuda, mode):
+    """Several key blocks (Tk 1024 at block_k 256): each rounded against
+    its block's running max, then rebased, in kernel and plain version."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(11, 4, 1024, 1024, 64, cuda)
+    pw = (1 / 255.0, 0.0)
+    if mode == "pquant":
+        dz = torch.tensor(pw, device=cuda)
+        args = (q, k, v, 0.125, dz, A8, True, 256)
+        got, ref = FA.flash_pquant(*args), FA.flash_pquant_plain(*args)
+    elif mode == "int8":
+        ops, sc = _int8_ops(q, k, v, cuda, pw)
+        got = FA.flash_int8(*ops, sc, 0.125, A8, 256)
+        ref = FA.flash_int8_plain(*ops, sc, 0.125, A8, 256)
+    else:
+        sc = torch.tensor([0.031, 130.0, 0.029, 120.0, 0.033, 125.0, *pw],
+                          device=cuda)
+        args = (q.bfloat16(), k.bfloat16(), v.bfloat16(), sc, 0.125,
+                (A8,) * 3, A8, True, False, 256)
+        got, ref = FA.flash_fqk(*args).float(), \
+            FA.flash_fqk_plain(*args).float()
+    _assert_one_level(got, ref, pw[0])
+
+
+# ---------------------------------------------------------------------------
+# the exact int8 GEMM: bit-equal to its plain version (exact int32 sums,
+# the same epilogue order)
+# ---------------------------------------------------------------------------
+
+def _codes(g, shape, dev):
+    return torch.randint(-128, 128, shape, generator=g,
+                         dtype=torch.int8).to(dev)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 100, 37), (1, 512, 256),
+                                   (8, 512, 256), (4096, 384, 1536),
+                                   (77, 17280, 960)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_matmul_pre_matches_plain(cuda, m, k, n, out_dtype):
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    g = torch.Generator().manual_seed(m + n)
+    x, w = _codes(g, (m, k), cuda), _codes(g, (k, n), cuda)
+    xs = x.to(torch.int32).sum(-1, keepdim=True).float()
+    d = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda)
+    z = torch.randint(-10, 10, (n,), generator=g).float().to(cuda)
+    ws = w.to(torch.int32).sum(0).float()
+    b = torch.randn(n, generator=g).to(cuda)
+    args = (x, xs, w, d, z, ws, torch.tensor(0.02, device=cuda),
+            torch.tensor(-3.0, device=cuda), b)
+    before = I8.LAUNCHES["int8_matmul_pre"]
+    got = I8.int8_matmul_pre(*args, out_dtype=out_dtype)
+    assert I8.LAUNCHES["int8_matmul_pre"] == before + 1
+    ref = I8.int8_matmul_pre_plain(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("b,h,cin,n,kk,stride,pads", [
+    (8, 32, 128, 128, 3, 1, ((1, 1), (1, 1))),
+    (4, 8, 1920, 960, 3, 1, ((1, 1), (1, 1))),
+    (2, 5, 20, 37, 3, 1, ((1, 1), (1, 1))),
+    (2, 9, 16, 24, 3, 2, ((0, 1), (0, 1))),
+    (4, 32, 384, 384, 1, 1, ((0, 0), (0, 0)))])
+def test_cuda_int8_conv_acc_matches_plain(cuda, b, h, cin, n, kk, stride,
+                                          pads):
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    g = torch.Generator().manual_seed(cin + n)
+    x, w = _codes(g, (b, h, h, cin), cuda), _codes(g, (kk, kk, cin, n), cuda)
+    before = I8.LAUNCHES["int8_conv2d"]
+    got = I8.int8_conv_acc(x, w, stride, pads)
+    assert I8.LAUNCHES["int8_conv2d"] == before + 1
+    ref = I8.int8_conv_acc_plain(x, w, stride, pads)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_cuda_int8_bmm_acc_matches_plain(cuda):
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    g = torch.Generator().manual_seed(5)
+    a, b = _codes(g, (3, 64, 4099), cuda), _codes(g, (3, 4099, 40), cuda)
+    before = I8.LAUNCHES["int8_bmm"]
+    got = I8.int8_bmm_acc(a, b)
+    assert I8.LAUNCHES["int8_bmm"] == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, I8.int8_bmm_acc_plain(a, b))

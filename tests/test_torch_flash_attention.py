@@ -15,7 +15,17 @@ one level: under 0.5% of outputs off by more than 1e-5, none by more than
 6 levels. The 16-bit softmax route keeps the JAX test's own limit for it
 (5e-3, tests/test_flash_attention.py:351-390), since a level there is
 1/65535 and a one-level flip exceeds 1e-5.
+
+Mode fqk (the bf16 fast deploy) returns bf16: the same one-level rule with
+a softmax quantizer, and without one under 0.5% of outputs off, none by
+more than one bf16 ulp at the output's largest magnitude (2^-7 of it);
+measured bit-equal to JAX's interpreted kernel but for one bf16 ulp in
+one output. The key-block tests (JAX ``block_k=128`` at Tk 256: two key
+blocks, each rounded against its own running max and rebased) keep the
+same rules.
 """
+
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +62,16 @@ def _assert_one_level(got, ref, level):
     d = np.abs(got - ref)
     assert np.mean(d > 1e-5) < 0.005, f"{np.mean(d > 1e-5):.4%} mismatch"
     assert d.max() <= 6.0 * level, d.max()
+
+
+def _assert_bf16_close(got, ref, level=None):
+    """bf16 outputs: the one-level rule with a softmax quantizer, else
+    under 0.5% of outputs off and none by more than 2^-7 of the largest."""
+    d = np.abs(got - ref)
+    assert np.mean(d > 1e-5) < 0.005, f"{np.mean(d > 1e-5):.4%} mismatch"
+    scale = float(np.abs(ref).max())
+    assert d.max() <= max(2.0 ** -7 * scale,
+                          0.0 if level is None else 6.0 * level), d.max()
 
 
 def _both(fn_kwargs_j, fn_kwargs_t, q, k, v, sm):
@@ -195,4 +215,134 @@ def test_flash_auto_stays_materialized_on_cpu():
     assert not t_attn._flash_ok(None, 256, torch.device("cuda"))
     tctx = _ctxs(8)[1]
     tctx.act_mode = "init"
+    assert not t_attn._flash_ok(tctx, 4096, torch.device("cuda"))
+
+
+# ---------------------------------------------------------------------------
+# mode fqk and the key blocks of the softmax quantizer
+# ---------------------------------------------------------------------------
+
+def _bf16(rng, *shape):
+    """bf16 values in both frameworks' bf16 types."""
+    x = jnp.asarray(_rand(rng, *shape)).astype(jnp.bfloat16)
+    return x, torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+FQK_CASES = [  # (tq, tk, h, d, block_k, JAX block_q)
+    (256, 256, 2, 40, 128, None),     # two key blocks
+    (300, 300, 1, 48, 128, 128),      # three q-blocks (JAX scratch reuse)
+    (130, 77, 1, 64, None, None)]     # ragged, Tk != Tq
+P_MODES = [(None, False, False), ((1 / 255.0, 0.0), True, False),
+           ((0.004, 3.0), False, False), ((1 / 255.0, 0.0), True, True),
+           ((0.004, 3.0), False, True)]
+
+
+@pytest.mark.parametrize("tq,tk,h,d,block_k,block_q", FQK_CASES)
+@pytest.mark.parametrize("pw,zp_zero,int8_pv", P_MODES)
+def test_flash_fqk_plain_matches_jax(tq, tk, h, d, block_k, block_q, pw,
+                                     zp_zero, int8_pv):
+    """Mode fqk against JAX's ``flash_attention(..., int8_matmul=False,
+    interpret=True)`` in bf16: without and with the softmax quantizer
+    (always-zero and not), and ``int8_pv`` against ``int8_pv=True``."""
+    rng = np.random.default_rng(tq + tk + d)
+    (jq, tq_), (jk, tk_), (jv, tv_) = (_bf16(rng, 1, h, t, d)
+                                       for t in (tq, tk, tk))
+    common = dict(sm_scale=d ** -0.5, int8_matmul=False, block_k=block_k,
+                  p_always_zero=zp_zero, int8_pv=int8_pv)
+    j = jnp.asarray(j_flash(
+        jq, jk, jv, interpret=True, block_q=block_q,
+        qkv_quant=tuple(tuple(jnp.float32(a) for a in g) for g in GRIDS),
+        p_quant=None if pw is None else tuple(jnp.float32(a) for a in pw),
+        **common).astype(jnp.float32))
+    t = TF.flash_attention(
+        tq_, tk_, tv_,
+        qkv_quant=tuple(tuple(torch.tensor(a) for a in g) for g in GRIDS),
+        p_quant=None if pw is None else tuple(torch.tensor(a) for a in pw),
+        **common)
+    assert t.dtype == torch.bfloat16
+    _assert_bf16_close(t.float().numpy(), np.asarray(j),
+                       None if pw is None else pw[0])
+
+
+@pytest.mark.parametrize("mode", ["pquant", "int8"])
+@pytest.mark.parametrize("pw", [(1 / 255.0, 0.0), (0.004, 3.0)])
+def test_flash_key_blocks_match_jax(mode, pw):
+    """Tk 256 at ``block_k=128``: the softmax quantizer's levels of each
+    key block against that block's running max, rebased (Pallas
+    flash_attention.py:134-163 and :330-368), in modes pquant and int8."""
+    rng = np.random.default_rng(17)
+    q, k, v = (_rand(rng, 1, 2, 256, 40) for _ in range(3))
+    kw = dict(qrange=(0, 255), block_k=128, p_always_zero=pw[1] == 0.0)
+    jkw, tkw = dict(kw), dict(kw)
+    jkw["p_quant"] = tuple(jnp.float32(a) for a in pw)
+    tkw["p_quant"] = tuple(torch.tensor(a) for a in pw)
+    if mode == "int8":
+        jkw["qkv_quant"] = tuple(tuple(jnp.float32(a) for a in g)
+                                 for g in GRIDS)
+        tkw["qkv_quant"] = tuple(tuple(torch.tensor(a) for a in g)
+                                 for g in GRIDS)
+    j, t = _both(jkw, tkw, q, k, v, 40 ** -0.5)
+    _assert_one_level(t, j, pw[0])
+
+
+def _fast_ctxs(softmax_bits=8):
+    """Deployed JAX and port contexts with bf16 carriers (the fast
+    deploy) over act sites q/k/v/w."""
+    out = []
+    for ctx, cast, dt in zip(_ctxs(softmax_bits),
+                             (jnp.float32, lambda x: x),
+                             (jnp.bfloat16, torch.bfloat16)):
+        ctx.deploy = {}
+        ctx.act_out_dtype = dt
+        out.append(ctx)
+    return out
+
+
+def test_fast_deploy_dispatch_takes_fqk(flash_on):
+    """qsm_attention in the fast deploy with flash on: mode fqk on both
+    sides (attention.py:198-227), bf16 out."""
+    rng = np.random.default_rng(3)
+    (jq, tq_), (jk, tk_), (jv, tv_) = (_bf16(rng, 1, 140, 2, 40)
+                                       for _ in range(3))
+    jctx, tctx = _fast_ctxs()
+    sites = {"q": "q", "k": "k", "v": "v", "w": "w"}
+    j = np.asarray(j_attn.qsm_attention(jq, jk, jv, 40 ** -0.5, jctx,
+                                        sites).astype(jnp.float32))
+    with mock.patch.object(TF, "flash_fqk_plain",
+                           wraps=TF.flash_fqk_plain) as fqk:
+        t = t_attn.qsm_attention(tq_, tk_, tv_, 40 ** -0.5, tctx, sites)
+    assert fqk.call_count == 1 and t.dtype == torch.bfloat16
+    _assert_bf16_close(t.float().numpy(), j, 1 / 255.0)
+
+
+def test_fast_deploy_skips_int8_materialized():
+    """Below the flash gate the fast deploy takes the fake-quant
+    materialized path with bf16 operands, the exact deploy
+    ``_int8_materialized`` (tests/test_flash_attention.py:206)."""
+    rng = np.random.default_rng(4)
+    (jq, tq_), (jk, tk_), (jv, tv_) = (_bf16(rng, 2, 64, 1, 32)
+                                       for _ in range(3))
+    sites = {"q": "q", "k": "k", "v": "v", "w": "w"}
+    jctx, tctx = _fast_ctxs()
+    j = np.asarray(j_attn.qsm_attention(jq, jk, jv, 32 ** -0.5, jctx,
+                                        sites).astype(jnp.float32))
+    with mock.patch.object(t_attn, "_int8_materialized",
+                           wraps=t_attn._int8_materialized) as spy:
+        fast = t_attn.qsm_attention(tq_, tk_, tv_, 32 ** -0.5, tctx, sites)
+        assert spy.call_count == 0 and fast.dtype == torch.bfloat16
+        exact_ctx = _ctxs(8)[1]
+        exact_ctx.deploy = {}
+        t_attn.qsm_attention(tq_.float(), tk_.float(), tv_.float(),
+                             32 ** -0.5, exact_ctx, sites)
+        assert spy.call_count == 1
+    _assert_bf16_close(fast.float().numpy(), j, 1 / 255.0)
+
+
+def test_flash_off_under_capture_tape():
+    """JAX's flash gate also requires no capture tape
+    (tfmq_dm_tpu/ops/attention.py:78)."""
+    tctx = _ctxs(8)[1]
+    assert t_attn._flash_ok(tctx, 4096, torch.device("cuda"))
+    tctx.capture = frozenset({"*"})
     assert not t_attn._flash_ok(tctx, 4096, torch.device("cuda"))

@@ -1,23 +1,29 @@
 """Sampling CLI of the port: the ``cifar10`` and class-conditional LDM
-(``cin256_v2``, and its miniature ``tiny_cin``) subset of
-``tfmq_dm_tpu/cli.py``.
+(``cin256_v2``) subset of ``tfmq_dm_tpu/cli.py``, with their CPU
+miniatures ``tiny_ddim`` and ``tiny_cin``.
 
 Quantized sampling with the hand-written kernels, from a calibration
 artifact (either package's):
 
   python -m tfmq_dm_tpu_torch.cli --task cifar10 --ptq --cali_ckpt cali.npz \\
-      --use_aq --int-kernels --int4-serving --timesteps 100 -n 64 \\
-      --batch 64 --out /tmp/c10
+      --use_aq --int-kernels --timesteps 100 -n 64 --batch 64 --out /tmp/c10
 
   python -m tfmq_dm_tpu_torch.cli --task cin256_v2 --ckpt cin256-v2.ckpt \\
-      --ptq --cali_ckpt cali.npz --use_aq --int-kernels --int4-serving \\
-      --classes 1,2 -n 2 --batch 2 --out /tmp/cin
+      --ptq --cali_ckpt cali.npz --use_aq --int-kernels \\
+      --deploy_dtype bfloat16 --classes 1,2 -n 2 --batch 2 --out /tmp/cin
 
-Without ``--int-kernels`` the quantized model runs as a fake-quant
-simulation; without ``--ptq`` it runs in full precision. Class-conditional
-tasks sample with classifier-free guidance (``--scale``, default the
-task's) and cache the cross-attention K/V of the constant class context
-(``--no_kv_cache`` recomputes them every step, as the reference does).
+``--int-kernels`` deploys integer weights: int8 codes run the exact int8
+conv and GEMM, and ``--int4-serving`` packs 4-bit weights for the
+packed-int4 kernels instead. ``--deploy_dtype bfloat16`` (the fast deploy)
+carries bf16 between the deployed layers, casts the FP parameters to bf16
+and takes the ``fqk`` flash kernel; float32 keeps the deployed model exact
+against its fake-quant simulation. ``--wq/--aq/--w_sym`` give the
+artifact's grids. Without ``--int-kernels`` the quantized model runs as a
+fake-quant simulation; without ``--ptq`` it runs in full precision.
+Class-conditional tasks sample with classifier-free guidance (``--scale``,
+default the task's) and cache the cross-attention K/V of the constant
+class context (``--no-kv-cache`` recomputes them every step, as the
+reference does).
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Images in [0, 1], NHWC float32, are written to
 ``<out>/samples.npy``; LDM tasks also write the sampled latents to
@@ -43,9 +49,9 @@ from .pipelines import ptq
 from .pipelines.loading import load_ldm_checkpoint
 from .pipelines.sampling import sample_fid
 from .quant.calibrate import load_cali_model
-from .quant.context import QuantCtx
-from .quant.deploy import deploy_weights, make_deployed_model_fn
-from .quant.fsc import slice_fsc
+from .quant.deploy import (cast_fp_params, deploy_weights,
+                           make_deployed_model_fn, specialize_maps)
+from .quant.inference import make_model_fn
 from .samplers.ldm import group_of_step_from_t, make_cfg_model_fn
 from .utils.schedules import skip_seq
 
@@ -63,7 +69,8 @@ def cifar10_schedule(steps: int = 100):
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("tfmq-torch")
     p.add_argument("--task", required=True,
-                   choices=("cifar10", "cin256_v2", "tiny_cin"))
+                   choices=("cifar10", "cin256_v2", "tiny_cin",
+                            "tiny_ddim"))
     p.add_argument("--ckpt", default=None,
                    help="trained weights: a p::<layer>::<field> npz "
                         "(cifar10, default runs/cifar10_ddpm.npz) or the "
@@ -71,6 +78,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--ptq", action="store_true")
+    p.add_argument("--wq", type=int, default=4,
+                   help="weight bits of the artifact")
+    p.add_argument("--aq", type=int, default=8,
+                   help="activation bits of the artifact")
+    p.add_argument("--w_sym", action="store_true",
+                   help="symmetric weight grids (the int8 deployment "
+                        "then skips the activation-sum correction)")
     p.add_argument("--cali_ckpt", default=None)
     p.add_argument("--use_aq", action="store_true")
     p.add_argument("--softmax_a_bit", type=int, default=8,
@@ -78,12 +92,21 @@ def build_argparser() -> argparse.ArgumentParser:
                         "must match the artifact's")
     p.add_argument("--int-kernels", dest="int_kernels",
                    action="store_true",
-                   help="deploy integer weights (needs --int4-serving)")
+                   help="deploy integer weights: the exact int8 conv and "
+                        "GEMM kernels")
     p.add_argument("--int4-serving", dest="int4_serving",
                    action="store_true",
                    help="nibble-packed 4-bit weights, run by the "
                         "packed-int4 CUDA kernels")
-    p.add_argument("--no_kv_cache", action="store_true",
+    p.add_argument("--deploy_dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="carrier dtype between deployed layers: float32 "
+                        "is exact against the fake-quant simulation; "
+                        "bfloat16 (the fast deploy) runs the FP layers and "
+                        "glue ops in bf16 and attention through the fqk "
+                        "kernel")
+    p.add_argument("--no-kv-cache", "--no_kv_cache", dest="no_kv_cache",
+                   action="store_true",
                    help="recompute the cross-attention K/V of the "
                         "constant class context at every step")
     p.add_argument("--timesteps", type=int, default=None,
@@ -105,8 +128,11 @@ def _load_artifact(args, device):
     if not args.cali_ckpt:
         raise SystemExit("--ptq sampling needs --cali_ckpt")
     wstate, astate, meta = load_cali_model(args.cali_ckpt, device=device)
-    if meta.get("wq", 4) != 4 or meta.get("aq", 8) != 8:
-        raise SystemExit("the port samples w4a8 artifacts only")
+    if meta.get("wq", args.wq) != args.wq or \
+            meta.get("aq", args.aq) != args.aq:
+        raise SystemExit(f"artifact calibrated w{meta.get('wq')}a"
+                         f"{meta.get('aq')}, asked for w{args.wq}a"
+                         f"{args.aq} (--wq/--aq)")
     if meta.get("softmax_a_bit", 8) != args.softmax_a_bit:
         raise SystemExit(f"artifact calibrated with softmax_a_bit "
                          f"{meta.get('softmax_a_bit', 8)}, asked for "
@@ -114,35 +140,44 @@ def _load_artifact(args, device):
     return wstate, astate, meta
 
 
+def deploy(args, adapter, params, wstate, example_args):
+    """(deployed weights, params, carrier dtype) of ``--int-kernels``:
+    integer weights with their border maps specialized to the sampled
+    geometry, and under ``--deploy_dtype bfloat16`` the FP parameters in
+    bf16 (cli.py:343-366)."""
+    deployed = deploy_weights(adapter.policy, params, wstate,
+                              int4_serving=args.int4_serving)
+    deployed = specialize_maps(adapter, params, deployed,
+                               example_args=example_args,
+                               use_aq=args.use_aq)
+    if args.deploy_dtype == "bfloat16":
+        return deployed, cast_fp_params(params), torch.bfloat16
+    return deployed, params, None
+
+
 def build_model_fn(args, params, cfg, sample_t, device):
     """model_fn(x, t, step) of the cifar10 task for the requested path."""
     if not args.ptq:
         return lambda x, t, step: ddim_unet.apply(params, cfg, x, t)
     wstate, astate, meta = _load_artifact(args, device)
-    adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8,
-                                       softmax_a_bit=args.softmax_a_bit)
+    adapter = ddim_units.build_adapter(cfg, w_bits=args.wq, a_bits=args.aq,
+                                       softmax_a_bit=args.softmax_a_bit,
+                                       w_sym=args.w_sym)
     gos = None
     if astate is not None and "cali_t" in meta:
         gos = group_of_step_from_t(meta["cali_t"], sample_t)
     if args.int_kernels:
-        if not args.int4_serving:
-            raise SystemExit("--int-kernels without --int4-serving needs "
-                             "the int8 deployment, not ported yet")
-        deployed = deploy_weights(adapter.policy, params, wstate,
-                                  int4_serving=True)
+        ex = (torch.zeros((1, cfg.resolution, cfg.resolution,
+                           cfg.in_channels), device=device),
+              torch.zeros((1,), dtype=torch.int32, device=device))
+        deployed, params, act_dtype = deploy(args, adapter, params, wstate,
+                                             ex)
         return make_deployed_model_fn(adapter, params, deployed, astate,
                                       use_aq=args.use_aq,
-                                      group_of_step=gos)
-
-    def sim_fn(x, t, step):
-        ast = {}
-        if args.use_aq and astate:
-            ast = slice_fsc(astate, step if gos is None else int(gos[step]))
-        ctx = QuantCtx(adapter.policy, wstate=wstate, astate=ast,
-                       use_wq=True, use_aq=args.use_aq)
-        return ddim_unet.apply(params, cfg, x, t, ctx)
-
-    return sim_fn
+                                      group_of_step=gos,
+                                      act_dtype=act_dtype)
+    return make_model_fn(adapter, params, wstate, astate,
+                         use_aq=args.use_aq, group_of_step=gos)
 
 
 def class_context(cond_params, classes, n: int, device):
@@ -168,48 +203,48 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
     c_in = torch.cat([uc, ctx])
     scale = task.cfg_scale if args.scale is None else args.scale
 
-    make_ctx = None
-    if args.ptq:
-        wstate, astate, meta = _load_artifact(args, device)
-        adapter = ldm_units.build_adapter(
-            cfg, w_bits=4, a_bits=8, softmax_a_bit=args.softmax_a_bit,
-            use_aq=args.use_aq)
-        gos = None
-        if astate is not None and "cali_t" in meta:
-            gos = group_of_step_from_t(meta["cali_t"], sample_t)
-        deployed = None
-        if args.int_kernels:
-            if not args.int4_serving:
-                raise SystemExit("--int-kernels without --int4-serving "
-                                 "needs the int8 deployment, not ported "
-                                 "yet")
-            deployed = deploy_weights(adapter.policy, params, wstate,
-                                      int4_serving=True)
+    if not args.ptq:
+        kv = None if args.no_kv_cache else \
+            ldm_unet.build_cross_kv(params, cfg, c_in)
 
-        def make_ctx(step):
-            ast = {}
-            if args.use_aq and astate:
-                ast = slice_fsc(astate,
-                                step if gos is None else int(gos[step]))
-            if deployed is not None:
-                return QuantCtx(adapter.policy, wstate={}, astate=ast,
-                                use_wq=True, use_aq=args.use_aq,
-                                deploy=deployed, flash=True)
-            return QuantCtx(adapter.policy, wstate=wstate, astate=ast,
-                            use_wq=True, use_aq=args.use_aq, flash=True)
+        def apply_fn(x, t, c, step):
+            return ldm_unet.apply(params, cfg, x, t, context=c, kv_cache=kv)
+
+        return make_cfg_model_fn(apply_fn, ctx, uc, scale)
+
+    wstate, astate, meta = _load_artifact(args, device)
+    adapter = ldm_units.build_adapter(
+        cfg, w_bits=args.wq, a_bits=args.aq,
+        softmax_a_bit=args.softmax_a_bit, use_aq=args.use_aq,
+        w_sym=args.w_sym)
+    gos = None
+    if astate is not None and "cali_t" in meta:
+        gos = group_of_step_from_t(meta["cali_t"], sample_t)
+    if args.int_kernels:
+        ex = (torch.zeros((1, cfg.image_size, cfg.image_size,
+                           cfg.in_channels), device=device),
+              torch.zeros((1,), dtype=torch.int32, device=device), ctx[:1])
+        deployed, params, act_dtype = deploy(args, adapter, params, wstate,
+                                             ex)
 
     # the class context is constant over the rollout: its to_k/to_v
-    # projections run once, under the FSC group of step 0
-    kv = None
-    if not args.no_kv_cache:
-        kv = ldm_unet.build_cross_kv(
-            params, cfg, c_in, qctx=None if make_ctx is None
-            else make_ctx(0))
+    # projections run once, in the model function's group-0 context (the
+    # context-fed sites see the same input in every FSC group)
+    def kv_cache_fn(qctx):
+        return ldm_unet.build_cross_kv(params, cfg, c_in, qctx=qctx)
+
+    kv_fn = None if args.no_kv_cache else kv_cache_fn
+    if args.int_kernels:
+        model_fn = make_deployed_model_fn(
+            adapter, params, deployed, astate, use_aq=args.use_aq,
+            group_of_step=gos, act_dtype=act_dtype, kv_cache_fn=kv_fn)
+    else:
+        model_fn = make_model_fn(adapter, params, wstate, astate,
+                                 use_aq=args.use_aq, group_of_step=gos,
+                                 kv_cache_fn=kv_fn)
 
     def apply_fn(x, t, c, step):
-        qctx = None if make_ctx is None else make_ctx(step)
-        return ldm_unet.apply(params, cfg, x, t, context=c, qctx=qctx,
-                              kv_cache=kv)
+        return model_fn(x, t, step, c)
 
     return make_cfg_model_fn(apply_fn, ctx, uc, scale)
 
@@ -225,12 +260,18 @@ def sample(args, latents: list = None) -> np.ndarray:
     if args.int4_serving and not (args.ptq and args.int_kernels):
         log.warning("--int4-serving has no effect without --ptq "
                     "--int-kernels")
+    if args.deploy_dtype == "bfloat16" and not (args.ptq
+                                                and args.int_kernels):
+        log.warning("--deploy_dtype bfloat16 has no effect without --ptq "
+                    "--int-kernels; running the default path")
     exact_f32()
     task = get_task(args.task)
     sampler_fn, sample_t = ptq.make_schedule(task, steps=args.timesteps,
                                              eta=args.eta)
     vae_params = None
     if task.family == "ddim":
+        if not args.ckpt and task.name != "cifar10":
+            raise SystemExit(f"--task {task.name} needs --ckpt")
         params, _ = load_params(args.ckpt or str(DEFAULT_CKPT),
                                 device=device)
         model_fn = build_model_fn(args, params, task.unet, sample_t, device)

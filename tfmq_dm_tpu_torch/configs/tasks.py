@@ -46,6 +46,14 @@ def cifar10() -> TaskConfig:
         cali_n=256, interval_length=5)
 
 
+def tiny_ddim() -> TaskConfig:
+    """A CPU-runnable miniature of the ddim family (tasks.py:206-211)."""
+    return TaskConfig(
+        name="tiny_ddim", family="ddim", unet=ddim_unet.tiny_config(),
+        sampler="generalized", steps=5, eta=0.0, skip_type="uniform",
+        num_timesteps=100, cali_n=4, interval_length=1, recon_batch=4)
+
+
 _LDM_VQ4_VAE = vae_mod.VAEConfig(
     ch=128, out_ch=3, in_channels=3, z_channels=3, ch_mult=(1, 2, 4),
     num_res_blocks=2, attn_resolutions=(), resolution=256,
@@ -70,7 +78,8 @@ def tiny_cin() -> TaskConfig:
         use_ema=False)
 
 
-TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "tiny_cin": tiny_cin}
+TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "tiny_cin": tiny_cin,
+         "tiny_ddim": tiny_ddim}
 
 def get_task(name: str) -> TaskConfig:
     return TASKS[name]()

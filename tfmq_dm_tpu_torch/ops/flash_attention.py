@@ -4,27 +4,31 @@
 - ``flash_fp``      replaces mode ``fp``     (``_fp_kernel``)
 - ``flash_pquant``  replaces mode ``pquant`` (``_quant_kernel``)
 - ``flash_int8``    replaces mode ``int8``   (``_int8_kernel``)
+- ``flash_fqk``     replaces mode ``fqk``    (``_fqk_kernel``)
 
-All three are CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built
+All four are CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``), built
 with ``nvcc`` into ``_build/`` at first use and called through a plain C
-interface with ``ctypes``. Each wrapper takes (B*H, T, D) float32 tensors
-and dispatches on their device: a CPU tensor takes the plain PyTorch
-version beside it (the tests use it); a CUDA tensor launches the kernel,
-or raises. Nothing falls back from one to the other. The kernels take
-head dims up to ``MAX_HEAD_DIM``; a larger one raises.
+interface with ``ctypes``. The first three take (B*H, T, D) float32
+tensors (int8 codes for ``flash_int8``), ``flash_fqk`` bf16 ones; each
+dispatches on the device: a CPU tensor takes the plain PyTorch version
+beside it (the tests use it); a CUDA tensor launches the kernel, or
+raises. Nothing falls back from one to the other. The kernels take head
+dims up to ``MAX_HEAD_DIM``; a larger one raises.
 
 The plain versions materialize the (T, T) scores and round where the
-kernels round. The kernels take the softmax quantizer's operand as
-``round(exp(s - m) * (1 / (l * delta)))`` with the final row max ``m``
-and denominator ``l`` (they recompute the scores in a second pass rather
-than cache them), which for Tk <= 2048 is the Pallas kernel's own operand;
-the plain versions take the same. They differ from the kernels in the
-order of f32 sums only, so a quantized probability at a rounding boundary
-may flip by one level.
+kernels round. The softmax quantizer's operand is the Pallas kernels' own:
+over key blocks of ``block_k`` (default 2048, narrowed to Tk rounded up to
+128), e = exp(s - m_b) against the running row max m_b after each block,
+rebased by one row-scalar factor exp(m_b - m) / (l delta) and rounded
+(flash_attention.py:134-163). The kernels recompute the scores in a
+second pass instead of caching e, and keep the block maxes m_b. Kernels
+and plain versions differ in the order of f32 sums only, so a quantized
+probability at a rounding boundary may flip by one level.
 
-``flash_attention`` over (B, H, T, D) mirrors the JAX entry point: it
-quantizes q/k/v to centered int8 codes with their row sums outside the
-kernel (``_quant_i8``), as the JAX call does, and picks the mode.
+``flash_attention`` over (B, H, T, D) mirrors the JAX entry point: mode
+int8 quantizes q/k/v to centered int8 codes with their row sums outside
+the kernel (``_quant_i8``), as the JAX call does; mode fqk fake-quantizes
+them inside the kernel.
 """
 
 from __future__ import annotations
@@ -40,17 +44,25 @@ from .cuda_build import CudaLibrary, check, launch_check, ptr
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / \
     "flash_attention.cu"
 MAX_HEAD_DIM = 384
+# the Pallas call's default key block (flash_attention.py:582-583), and
+# the most key blocks the kernels keep row maxes for
+BLOCK_K = 2048
+MAX_KEY_BLOCKS = 64
 
 # launches of each kernel since the last reset (chip_smoke.py reads these)
-LAUNCHES = {"flash_fp": 0, "flash_pquant": 0, "flash_int8": 0}
+LAUNCHES = {"flash_fp": 0, "flash_pquant": 0, "flash_int8": 0,
+            "flash_fqk": 0}
 
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tfmq_flash_f32.argtypes = [p] * 5 + [i] * 4 + [f, i, f, f, i, i, p]
+    lib.tfmq_flash_f32.argtypes = [p] * 5 + [i] * 5 + [f, i, f, f, i, i, p]
     lib.tfmq_flash_f32.restype = i
-    lib.tfmq_flash_int8.argtypes = [p] * 8 + [i] * 4 + [f, i, f, f, i, p]
+    lib.tfmq_flash_int8.argtypes = [p] * 8 + [i] * 5 + [f, i, f, f, i, p]
     lib.tfmq_flash_int8.restype = i
+    lib.tfmq_flash_fqk.argtypes = [p] * 5 + [i] * 5 + [f, i, i] + [f] * 8 \
+        + [i, p]
+    lib.tfmq_flash_fqk.restype = i
 
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
@@ -94,6 +106,15 @@ def _stream(dev):
 # plain versions (materialized, the kernels' rounding points)
 # ---------------------------------------------------------------------------
 
+NEG_INF = -1e30
+
+
+def key_block(tk: int, block_k: int = BLOCK_K) -> int:
+    """The key block the Pallas call takes: ``block_k``, but no wider than
+    Tk rounded up to 128 (flash_attention.py:591-592)."""
+    return min(block_k, -(-tk // 128) * 128)
+
+
 def _row_softmax_parts(s: torch.Tensor):
     """e = exp(s - rowmax), l = sum e."""
     m = s.amax(dim=-1, keepdim=True)
@@ -101,11 +122,36 @@ def _row_softmax_parts(s: torch.Tensor):
     return e, e.sum(dim=-1, keepdim=True)
 
 
-def _p_levels(e, l, delta, zp, qrange, zp_zero):
-    """Quantized softmax levels (p_q - zp) of e / l on the (delta, zp)
-    grid, as ``_quant_kernel``: one divide per row, then round."""
+def _blocked_softmax(s: torch.Tensor, bk: int):
+    """The fill pass of the Pallas kernels (flash_attention.py:134-149,
+    242-253) over key blocks of ``bk`` columns: e = exp(s - m_b) against
+    the running row max m_b after each block, the denominator l rescaled
+    block by block, and the rebase factor exp(m_b - m) of each block's
+    columns to the final max m. Returns (e, rebase, l)."""
+    m = s.new_full(s.shape[:-1] + (1,), NEG_INF)
+    l = s.new_zeros(s.shape[:-1] + (1,))
+    es, ms = [], []
+    for c0 in range(0, s.shape[-1], bk):
+        sb = s[..., c0:c0 + bk]
+        m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        e = torch.exp(sb - m_new)
+        l = l * torch.exp(m - m_new) + e.sum(dim=-1, keepdim=True)
+        m = m_new
+        es.append(e)
+        ms.append(m_new.expand_as(e))
+    return torch.cat(es, -1), torch.exp(torch.cat(ms, -1) - m), l
+
+
+def _p_round(e, rebase, inv):
+    """round(e f) with f = exp(m_b - m) inv, the Pallas kernels' operand
+    of the softmax quantizer (one row-scalar factor per key block)."""
+    return torch.round(e * (rebase * inv))
+
+
+def _p_levels(x, zp, qrange, zp_zero):
+    """Quantized softmax levels (p_q - zp) of round(p / delta) = ``x``:
+    clip(x + zp) - zp, or min(x, pb) for an always-zero grid."""
     nb, pb = qrange
-    x = torch.round(e * (1.0 / (l * delta)))
     if zp_zero:
         return torch.clamp(x, max=pb)
     return torch.clamp(x + zp, nb, pb) - zp
@@ -118,11 +164,13 @@ def flash_fp_plain(q, k, v, sm_scale: float) -> torch.Tensor:
 
 
 def flash_pquant_plain(q, k, v, sm_scale: float, dz: torch.Tensor,
-                       qrange, zp_zero: bool) -> torch.Tensor:
+                       qrange, zp_zero: bool,
+                       block_k: int = BLOCK_K) -> torch.Tensor:
     s = (q @ k.transpose(1, 2)) * sm_scale
-    e, l = _row_softmax_parts(s)
+    e, rebase, l = _blocked_softmax(s, key_block(k.shape[1], block_k))
     delta, zp = dz[0], dz[1]
-    return delta * (_p_levels(e, l, delta, zp, qrange, zp_zero) @ v)
+    x = _p_round(e, rebase, 1.0 / (l * delta))
+    return delta * (_p_levels(x, zp, qrange, zp_zero) @ v)
 
 
 def _int8_scores(q8, k8, qsum, ksum, sc, sm_scale):
@@ -137,44 +185,101 @@ def _int8_scores(q8, k8, qsum, ksum, sc, sm_scale):
     return ((dq * dk) * x) * sm_scale
 
 
+def _int8_pv(p_q, zw, v8, zv, scale) -> torch.Tensor:
+    """scale * sum_j (p_q - zw)(v_q - zv) over the real keys, exact in
+    float64 (v8 = v_q - 128)."""
+    corr = (p_q - zw).double() @ (v8.double() - (zv.double() - 128.0))
+    return scale * corr.float()
+
+
 def flash_int8_plain(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
-                     qrange=None) -> torch.Tensor:
+                     qrange=None, block_k: int = BLOCK_K) -> torch.Tensor:
     """``qrange`` None: no softmax quantizer (p stays f32, v dequantized);
     else p levels and v codes, summed exactly."""
     s = _int8_scores(q8, k8, qsum, ksum, sc, sm_scale)
-    e, l = _row_softmax_parts(s)
     dv, zv, dw, zw = sc[4], sc[5], sc[6], sc[7]
     if qrange is None:
+        e, l = _row_softmax_parts(s)
         vdq = dv * (v8.float() - (zv - 128.0))
         return (e @ vdq) / l
     nb, pb = qrange
-    p_q = torch.clamp(torch.round(e * (1.0 / (l * dw))) + zw, nb, pb)
-    corr = (p_q - zw).double() @ (v8.double() - (zv.double() - 128.0))
-    return (dw * dv) * corr.float()
+    e, rebase, l = _blocked_softmax(s, key_block(k8.shape[1], block_k))
+    p_q = torch.clamp(_p_round(e, rebase, 1.0 / (l * dw)) + zw, nb, pb)
+    return _int8_pv(p_q, zw, v8, zv, dw * dv)
+
+
+def fake_quant_tile(x, delta, zp, qrange, dtype):
+    """``_fq``: f32 q/dq of x on (delta, zp) with clamp range ``qrange``,
+    the result cast to ``dtype`` (flash_attention.py:64-69)."""
+    nb, pb = qrange
+    xq = torch.clamp(torch.round(x.float() * (1.0 / delta)) + zp, nb, pb)
+    return (delta * (xq - zp)).to(dtype)
+
+
+def flash_fqk_plain(q, k, v, sc, sm_scale: float, ranges, qrange=None,
+                    zp_zero: bool = False, int8_pv: bool = False,
+                    block_k: int = BLOCK_K) -> torch.Tensor:
+    """Mode ``fqk`` (``_fqk_kernel``): q/k/v fake-quantized to their
+    carrier dtype, products of those values with f32 sums, the softmax
+    quantizer's levels (``qrange``) or p cast to the carrier dtype before
+    P @ V; ``int8_pv``: P @ V on p levels and v codes, exact."""
+    mdt = q.dtype
+    dq, zq, dk, zk, dv, zv, dw, zw = (sc[i] for i in range(8))
+    qf = fake_quant_tile(q, dq, zq, ranges[0], mdt)
+    kf = fake_quant_tile(k, dk, zk, ranges[1], mdt)
+    s = (qf.float() @ kf.float().transpose(1, 2)) * sm_scale
+    e, rebase, l = _blocked_softmax(s, key_block(k.shape[1], block_k))
+    if qrange is not None and int8_pv:
+        v8 = quant_i8(v.float(), dv, zv, ranges[2])
+        nb, pb = qrange
+        x = _p_round(e, rebase, 1.0 / (l * dw))
+        p_q = torch.clamp(x, max=pb) if zp_zero else \
+            torch.clamp(x + zw, nb, pb)
+        return _int8_pv(p_q, zw, v8, zv, dw * dv).to(mdt)
+    vf = fake_quant_tile(v, dv, zv, ranges[2], mdt).float()
+    if qrange is not None:
+        x = _p_round(e, rebase, 1.0 / (l * dw))
+        p = _p_levels(x, zw, qrange, zp_zero)
+        return (dw * (p.to(mdt).float() @ vf)).to(mdt)
+    p = e * (rebase * (1.0 / l))
+    return (p.to(mdt).float() @ vf).to(mdt)
 
 
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _n_blocks(name: str, tk: int, block_k: int) -> int:
+    bk = key_block(tk, block_k)
+    if bk % 32:
+        raise ValueError(f"{name}: key block {bk} is not a multiple of 32")
+    nk = -(-tk // bk)
+    if nk > MAX_KEY_BLOCKS:
+        raise ValueError(f"{name}: {nk} key blocks > {MAX_KEY_BLOCKS}")
+    return bk
+
+
 def flash_fp(q, k, v, sm_scale: float) -> torch.Tensor:
     """softmax(q k^T sm_scale) v over (B*H, T, D) float32."""
     if not _device_or_raise("flash_fp", q):
         return flash_fp_plain(q, k, v, sm_scale)
-    return _launch_f32("flash_fp", q, k, v, sm_scale, None, None, False)
+    return _launch_f32("flash_fp", q, k, v, sm_scale, None, None, False,
+                       BLOCK_K)
 
 
 def flash_pquant(q, k, v, sm_scale: float, dz: torch.Tensor, qrange,
-                 zp_zero: bool = False) -> torch.Tensor:
+                 zp_zero: bool = False,
+                 block_k: int = BLOCK_K) -> torch.Tensor:
     """Softmax output fake-quantized on the grid ``dz`` = [delta, zp]
     (device tensor) with clamp range ``qrange``, then @ v."""
     if not _device_or_raise("flash_pquant", q):
-        return flash_pquant_plain(q, k, v, sm_scale, dz, qrange, zp_zero)
+        return flash_pquant_plain(q, k, v, sm_scale, dz, qrange, zp_zero,
+                                  block_k)
     return _launch_f32("flash_pquant", q, k, v, sm_scale, dz, qrange,
-                       zp_zero)
+                       zp_zero, block_k)
 
 
-def _launch_f32(name, q, k, v, sm_scale, dz, qrange, zp_zero):
+def _launch_f32(name, q, k, v, sm_scale, dz, qrange, zp_zero, block_k):
     bh, tq, tk, d = _check_dims(name, q, k, v)
     dev = q.device
     check("q", q, torch.float32, (bh, tq, d), dev)
@@ -182,20 +287,22 @@ def _launch_f32(name, q, k, v, sm_scale, dz, qrange, zp_zero):
     check("v", v, torch.float32, (bh, tk, d), dev)
     if dz is not None:
         check("dz", dz, torch.float32, (2,), dev)
+    bk = _n_blocks(name, tk, block_k)
     nb, pb = qrange if qrange is not None else (0, 0)
     lib = build()
     out = torch.empty((bh, tq, d), dtype=torch.float32, device=dev)
     err = lib.tfmq_flash_f32(ptr(q), ptr(k), ptr(v), ptr(dz), ptr(out), bh,
-                             tq, tk, d, float(sm_scale), int(dz is not None),
-                             float(nb), float(pb), int(bool(zp_zero)),
-                             dev.index or 0, _stream(dev))
+                             tq, tk, d, bk, float(sm_scale),
+                             int(dz is not None), float(nb), float(pb),
+                             int(bool(zp_zero)), dev.index or 0,
+                             _stream(dev))
     launch_check(name, err)
     LAUNCHES[name] += 1
     return out
 
 
 def flash_int8(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
-               qrange=None) -> torch.Tensor:
+               qrange=None, block_k: int = BLOCK_K) -> torch.Tensor:
     """Attention on centered int8 codes (B*H, T, D) with their row sums
     ``qsum`` (B*H, Tq) and ``ksum`` (B*H, Tk) f32, the column sums of v
     ``vsum`` (B*H, D) int32, and the grids ``sc`` = [dq, zq, dk, zk, dv,
@@ -203,7 +310,7 @@ def flash_int8(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
     range, or None for none."""
     if not _device_or_raise("flash_int8", q8):
         return flash_int8_plain(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale,
-                                qrange)
+                                qrange, block_k)
     bh, tq, tk, d = _check_dims("flash_int8", q8, k8, v8)
     dev = q8.device
     check("q8", q8, torch.int8, (bh, tq, d), dev)
@@ -216,16 +323,54 @@ def flash_int8(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
     if qrange is not None and not (qrange[0] == 0 and qrange[1] <= 255):
         raise ValueError(f"flash_int8: softmax grid {qrange} does not fit "
                          "centered int8 levels")
+    bk = _n_blocks("flash_int8", tk, block_k)
     nb, pb = qrange if qrange is not None else (0, 0)
     lib = build()
     out = torch.empty((bh, tq, d), dtype=torch.float32, device=dev)
     err = lib.tfmq_flash_int8(ptr(q8), ptr(k8), ptr(v8), ptr(qsum),
                               ptr(ksum), ptr(vsum), ptr(sc), ptr(out), bh,
-                              tq, tk, d, float(sm_scale),
+                              tq, tk, d, bk, float(sm_scale),
                               int(qrange is not None), float(nb), float(pb),
                               dev.index or 0, _stream(dev))
     launch_check("flash_int8", err)
     LAUNCHES["flash_int8"] += 1
+    return out
+
+
+def flash_fqk(q, k, v, sc, sm_scale: float, ranges, qrange=None,
+              zp_zero: bool = False, int8_pv: bool = False,
+              block_k: int = BLOCK_K) -> torch.Tensor:
+    """Mode ``fqk`` over (B*H, T, D) bf16 q/k/v with the grids ``sc`` =
+    [dq, zq, dk, zk, dv, zv, dw, zw] (device tensor), the q/k/v clamp
+    ranges ``ranges`` and the softmax quantizer's clamp range ``qrange``
+    (None: no softmax quantizer) -> bf16. ``int8_pv`` (8-bit softmax and
+    v grids): P @ V on p levels and v codes."""
+    if not _device_or_raise("flash_fqk", q):
+        return flash_fqk_plain(q, k, v, sc, sm_scale, ranges, qrange,
+                               zp_zero, int8_pv, block_k)
+    bh, tq, tk, d = _check_dims("flash_fqk", q, k, v)
+    dev = q.device
+    check("q", q, torch.bfloat16, (bh, tq, d), dev)
+    check("k", k, torch.bfloat16, (bh, tk, d), dev)
+    check("v", v, torch.bfloat16, (bh, tk, d), dev)
+    check("sc", sc, torch.float32, (8,), dev)
+    if int8_pv and not (qrange is not None and qrange[0] == 0
+                        and qrange[1] <= 255 and ranges[2][0] == 0
+                        and ranges[2][1] <= 255):
+        raise ValueError("flash_fqk: int8_pv needs 8-bit softmax and v "
+                         "grids")
+    bk = _n_blocks("flash_fqk", tk, block_k)
+    wnb, wpb = qrange if qrange is not None else (0, 0)
+    r = [float(a) for rg in ranges for a in rg]
+    mode = 0 if qrange is None else (2 if int8_pv else 1)
+    lib = build()
+    out = torch.empty((bh, tq, d), dtype=torch.bfloat16, device=dev)
+    err = lib.tfmq_flash_fqk(ptr(q), ptr(k), ptr(v), ptr(sc), ptr(out),
+                             bh, tq, tk, d, bk, float(sm_scale), mode,
+                             int(bool(zp_zero)), *r, float(wnb), float(wpb),
+                             dev.index or 0, _stream(dev))
+    launch_check("flash_fqk", err)
+    LAUNCHES["flash_fqk"] += 1
     return out
 
 
@@ -263,36 +408,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     qkv_quant: Optional[Tuple] = None,
                     qrange: Optional[Tuple[int, int]] = None,
                     qkv_ranges: Optional[Tuple] = None,
-                    p_always_zero: bool = False) -> torch.Tensor:
-    """Blockwise attention over (B, H, T, D) float32 tensors.
+                    int8_matmul: bool = True,
+                    block_k: Optional[int] = None,
+                    p_always_zero: bool = False,
+                    int8_pv: bool = False) -> torch.Tensor:
+    """Blockwise attention over (B, H, T, D) tensors.
 
     ``p_quant``: optional (delta, zp) of the softmax-output quantizer, with
     clamp range ``qrange`` (default (0, 255)). ``qkv_quant``: optional
     ((dq, zq), (dk, zk), (dv, zv)) per-tensor grids with ranges
     ``qkv_ranges`` (default (0, 255) each): q/k/v are quantized to int8
-    codes and both products run on them (mode int8); without it, mode fp
-    or, with ``p_quant``, pquant."""
+    codes and both products run on them (mode int8), or, with
+    ``int8_matmul=False``, fake-quantized to their own dtype (bf16 in the
+    fast deploy) in the kernel with products of those values (mode fqk;
+    ``int8_pv``: P @ V on levels and codes where both grids fit 8 bits).
+    Without ``qkv_quant``: mode fp or, with ``p_quant``, pquant, on f32
+    operands. ``block_k``: the key block of the softmax quantizer's
+    rounding (default 2048, as the Pallas call)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     dev = q.device
-    qf = q.reshape(b * h, tq, d).float().contiguous()
-    kf = k.reshape(b * h, tk, d).float().contiguous()
-    vf = v.reshape(b * h, tk, d).float().contiguous()
+    block_k = BLOCK_K if block_k is None else block_k
     if qrange is None and p_quant is not None:
         qrange = (0, 255)
-    if qkv_quant is not None:
+    qr = None if p_quant is None else tuple(qrange)
+    dw, zw = p_quant if p_quant is not None else (1.0, 0.0)
+    if qkv_quant is not None and not int8_matmul:
         qkv_ranges = qkv_ranges or ((0, 255),) * 3
-        ops = int8_operands(qf, kf, vf, qkv_quant, qkv_ranges)
-        dw, zw = p_quant if p_quant is not None else (1.0, 0.0)
         sc = torch.stack([_scalar(a, dev) for pair in qkv_quant
                           for a in pair] + [_scalar(dw, dev),
                                             _scalar(zw, dev)])
-        out = flash_int8(*ops, sc, sm_scale,
-                         None if p_quant is None else tuple(qrange))
+        use_pv = bool(int8_pv and qr is not None and qr[0] == 0
+                      and qr[1] <= 255 and qkv_ranges[2][0] == 0
+                      and qkv_ranges[2][1] <= 255)
+        out = flash_fqk(*(x.reshape(b * h, -1, d).contiguous()
+                          for x in (q, k, v)), sc, sm_scale,
+                        tuple(tuple(r) for r in qkv_ranges), qr,
+                        zp_zero=p_always_zero, int8_pv=use_pv,
+                        block_k=block_k)
+        return out.reshape(b, h, tq, d)
+    qf = q.reshape(b * h, tq, d).float().contiguous()
+    kf = k.reshape(b * h, tk, d).float().contiguous()
+    vf = v.reshape(b * h, tk, d).float().contiguous()
+    if qkv_quant is not None:
+        qkv_ranges = qkv_ranges or ((0, 255),) * 3
+        ops = int8_operands(qf, kf, vf, qkv_quant, qkv_ranges)
+        sc = torch.stack([_scalar(a, dev) for pair in qkv_quant
+                          for a in pair] + [_scalar(dw, dev),
+                                            _scalar(zw, dev)])
+        out = flash_int8(*ops, sc, sm_scale, qr, block_k=block_k)
     elif p_quant is not None:
         dz = torch.stack([_scalar(p_quant[0], dev), _scalar(p_quant[1], dev)])
-        out = flash_pquant(qf, kf, vf, sm_scale, dz, tuple(qrange),
-                           zp_zero=p_always_zero)
+        out = flash_pquant(qf, kf, vf, sm_scale, dz, qr,
+                           zp_zero=p_always_zero, block_k=block_k)
     else:
         out = flash_fp(qf, kf, vf, sm_scale)
     return out.reshape(b, h, tq, d)

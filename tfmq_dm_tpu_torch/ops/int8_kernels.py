@@ -1,0 +1,247 @@
+"""Exact int8 GEMM: the port's counterpart of ``int8_matmul_pre`` in
+``tfmq_dm_tpu/ops/pallas_kernels.py`` (``_int8_mm_pre_kernel``), and the
+int32 products the JAX package leaves to XLA.
+
+- ``int8_matmul_pre``  centered int8 codes x (M, K) @ w (K, N), int32
+  sums on the tensor cores, then the zero-point corrections, the dequant
+  scale and the bias fused in the epilogue (f32 or bf16 out);
+- ``int8_conv_acc``    the int32 accumulator of a conv on zero-padded
+  codes: an im2col of the codes (K padded with zero codes to a multiple
+  of 16) through the same kernel;
+- ``int8_bmm_acc``     batched int32 products of codes (the attention
+  products above the f32-exact bound).
+
+The kernel is CUDA C++ for ``sm_90a`` (``csrc/int8_kernels.cu``), built
+with ``nvcc`` into ``_build/`` at first use and called through a plain C
+interface with ``ctypes``. Each wrapper dispatches on its input's device:
+a CPU tensor takes the plain PyTorch version beside it (the tests use it);
+a CUDA tensor launches the kernel, or raises. The plain versions sum the
+codes in float64, which is exact for these sums (|x w| <= 2^14, K < 2^39),
+so kernel and plain agree bit for bit on the accumulators and, with the
+epilogue evaluated in the same order, on the outputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .cuda_build import CudaLibrary, check, launch_check, ptr
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_kernels.cu"
+
+# launches of each wrapper since the last reset (chip_smoke.py reads these)
+LAUNCHES = {"int8_matmul_pre": 0, "int8_conv2d": 0, "int8_bmm": 0}
+
+_MODES = {None: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tfmq_int8_gemm.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.tfmq_int8_gemm.restype = i
+
+
+LIBRARY = CudaLibrary(SOURCE, _bind)
+BUILD_LOG = LIBRARY.log
+
+
+def build(force: bool = False):
+    """Compile ``csrc/int8_kernels.cu`` (once per source content) and load
+    it. ``force`` removes its built library first, for a cold build."""
+    return LIBRARY.load(force)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cuda(name: str, t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def _launch(name, x, w, m, k, n, batch, out_dtype, xsum=None, delta=None,
+            zp_c=None, wsum=None, bias=None, sc=None) -> torch.Tensor:
+    dev = x.device
+    check("x", x, torch.int8, (batch, m, k) if batch > 1 else (m, k), dev)
+    check("w", w, torch.int8, (batch, k, n) if batch > 1 else (k, n), dev)
+    shape = (batch, m, n) if batch > 1 else (m, n)
+    if out_dtype is None:
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+    else:
+        check("xsum", xsum, torch.float32, (m, 1), dev)
+        for nm, t in (("delta", delta), ("zp_c", zp_c), ("wsum", wsum)):
+            check(nm, t, torch.float32, (n,), dev)
+        if bias is not None:
+            check("bias", bias, torch.float32, (n,), dev)
+        check("sc", sc, torch.float32, (2,), dev)
+        out = torch.empty(shape, dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    lib = build()
+    err = lib.tfmq_int8_gemm(ptr(x), ptr(w), ptr(xsum), ptr(delta),
+                             ptr(zp_c), ptr(wsum), ptr(bias), ptr(sc),
+                             ptr(out), m, k, n, batch, _MODES[out_dtype],
+                             dev.index or 0,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    launch_check(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _acc_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of int8 codes, through float64."""
+    return (x.double() @ w.double()).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_pre
+# ---------------------------------------------------------------------------
+
+def _scalars(dx, zp_xc, dev) -> torch.Tensor:
+    return torch.stack([torch.as_tensor(a, dtype=torch.float32,
+                                        device=dev).reshape(())
+                        for a in (dx, zp_xc)])
+
+
+def int8_matmul_pre_plain(x_q, xsum, w_q, delta_w, zp_wc, wsum, dx, zp_xc,
+                          bias=None, out_dtype=torch.float32):
+    """The kernel's arithmetic in PyTorch ops: the exact int32 product,
+    then the epilogue of ``_int8_mm_pre_kernel`` in its order."""
+    k = x_q.shape[1]
+    acc = _acc_plain(x_q, w_q).float()
+    corr = acc - zp_wc * xsum
+    corr = corr - zp_xc * wsum
+    corr = corr + (k * zp_xc) * zp_wc
+    out = (dx * delta_w) * corr
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def int8_matmul_pre(x_q: torch.Tensor, xsum: torch.Tensor,
+                    w_q: torch.Tensor, delta_w: torch.Tensor,
+                    zp_wc: torch.Tensor, wsum: torch.Tensor, dx, zp_xc,
+                    bias: Optional[torch.Tensor] = None,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """x_q (M, K) centered int8 codes, xsum (M, 1) f32 row sums of x_q,
+    w_q (K, N) centered int8, per-channel delta_w / zp_wc / wsum (N,) f32,
+    scalar act grid (dx, zp_xc), optional f32 bias (N,) ->
+    dx dw (x_q w_q - zp_wc xsum - zp_xc wsum + K zp_xc zp_wc) + b as
+    ``out_dtype`` (f32 or bf16)."""
+    if not _on_cuda("int8_matmul_pre", x_q):
+        return int8_matmul_pre_plain(x_q, xsum, w_q, delta_w, zp_wc, wsum,
+                                     dx, zp_xc, bias, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_matmul_pre: out_dtype {out_dtype}")
+    m, k = x_q.shape
+    n = w_q.shape[1]
+    return _launch("int8_matmul_pre", x_q, w_q, m, k, n, 1, out_dtype,
+                   xsum, delta_w, zp_wc, wsum, bias,
+                   _scalars(dx, zp_xc, x_q.device))
+
+
+# ---------------------------------------------------------------------------
+# int32 accumulators: batched products and the conv on an im2col
+# ---------------------------------------------------------------------------
+
+def int8_bmm_acc_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _acc_plain(a, b)
+
+
+def int8_bmm_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 a (Bt, M, K) @ b (Bt, K, N) of int8 codes, exact."""
+    if not _on_cuda("int8_bmm", a):
+        return int8_bmm_acc_plain(a, b)
+    bt, m, k = a.shape
+    n = b.shape[2]
+    if bt == 1:
+        return _launch("int8_bmm", a[0], b[0], m, k, n, 1, None)[None]
+    return _launch("int8_bmm", a, b, m, k, n, bt, None)
+
+
+def conv_pads(padding, kh: int, kw: int):
+    """((top, bottom), (left, right)) of "SAME" (odd kernels), "VALID" or
+    explicit pads."""
+    if padding == "SAME":
+        return ((kh // 2, kh // 2), (kw // 2, kw // 2))
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    (pt, pb), (pl, pr) = padding
+    return ((int(pt), int(pb)), (int(pl), int(pr)))
+
+
+def windows(x: torch.Tensor, kh: int, kw: int, stride: int, pads):
+    """Zero-pad NHWC ``x`` and view its (kh, kw) windows:
+    (B, Ho, Wo, kh, kw, C), no copy of the padded tensor."""
+    (pt, pb), (pl, pr) = pads
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    b, hp, wp, c = xp.shape
+    ho = (hp - kh) // stride + 1
+    wo = (wp - kw) // stride + 1
+    sb, sh, sw, sc = xp.stride()
+    return xp.as_strided((b, ho, wo, kh, kw, c),
+                         (sb, sh * stride, sw * stride, sh, sw, sc))
+
+
+def im2col(x_q: torch.Tensor, kh: int, kw: int, stride: int, pads,
+           align: int = 16) -> torch.Tensor:
+    """(B*Ho*Wo, Kp) int8 columns of the zero-padded codes in (kh, kw, C)
+    order (HWIO's flattening), K = kh kw C padded with zero codes to a
+    multiple of ``align``."""
+    win = windows(x_q, kh, kw, stride, pads)
+    b, ho, wo = win.shape[:3]
+    k = kh * kw * x_q.shape[3]
+    kp = -(-k // align) * align
+    cols = torch.zeros((b, ho, wo, kp), dtype=torch.int8,
+                       device=x_q.device)
+    cols[..., :k].view(win.shape).copy_(win)
+    return cols.view(b * ho * wo, kp)
+
+
+def _conv_operands(x_q, w_q, stride, pads):
+    kh, kw, cin, n = w_q.shape
+    cols = im2col(x_q, kh, kw, stride, pads)
+    k = kh * kw * cin
+    w2 = w_q.reshape(k, n)
+    if cols.shape[1] != k:
+        w2 = torch.cat([w2, w2.new_zeros((cols.shape[1] - k, n))])
+    return cols, w2.contiguous()
+
+
+def _conv_shape(x_q, w_q, stride, pads):
+    (pt, pb), (pl, pr) = pads
+    kh, kw = w_q.shape[:2]
+    return (x_q.shape[0], (x_q.shape[1] + pt + pb - kh) // stride + 1,
+            (x_q.shape[2] + pl + pr - kw) // stride + 1, w_q.shape[3])
+
+
+def int8_conv_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor,
+                        stride: int = 1,
+                        pads=((1, 1), (1, 1))) -> torch.Tensor:
+    cols, w2 = _conv_operands(x_q, w_q, stride, pads)
+    return _acc_plain(cols, w2).view(_conv_shape(x_q, w_q, stride, pads))
+
+
+def int8_conv_acc(x_q: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
+                  pads=((1, 1), (1, 1))) -> torch.Tensor:
+    """int32 conv of NHWC int8 codes with HWIO int8 codes, zero padding
+    ``pads``: (B, Ho, Wo, N)."""
+    if not _on_cuda("int8_conv2d", x_q):
+        return int8_conv_acc_plain(x_q, w_q, stride, pads)
+    shape = _conv_shape(x_q, w_q, stride, pads)
+    cols, w2 = _conv_operands(x_q.contiguous(), w_q.contiguous(), stride,
+                              pads)
+    m, kp = cols.shape
+    return _launch("int8_conv2d", cols, w2, m, kp, shape[3], 1,
+                   None).view(shape)

@@ -75,23 +75,40 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis as the JAX package writes it
-    (``ldm_unet._lnorm``): var = mean((x - mean)^2)."""
-    mu = x.mean(dim=-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    (``ldm_unet._lnorm``: jnp.mean and jnp.var, which compute in f32 for
+    bf16 inputs and round their results to the input's dtype)."""
+    xf = x.float()
+    mu_f = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu_f) ** 2).mean(dim=-1, keepdim=True).to(x.dtype)
+    mu = mu_f.to(x.dtype)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU. In bf16 it takes ``jax.nn.gelu``'s form,
+    0.5 x erfc(-x sqrt(1/2)), rounded to bf16 at each step as XLA does."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x)
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=x.dtype)
+    return (0.5 * x) * torch.special.erfc(-x * sqrt_half)
 
 
 def geglu(h: torch.Tensor) -> torch.Tensor:
     """GEGLU (attention.py GEGLU): split in two halves, h * gelu(gate)
     with the exact (erf) GELU."""
     h, gate = h.chunk(2, dim=-1)
-    return h * F.gelu(gate)
+    return h * gelu(gate)
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(x)
+    """x * sigmoid(x). In bf16 the sigmoid is 1 / (1 + exp(-x)) rounded to
+    bf16 at each step, where XLA expands the logistic so; torch.sigmoid
+    rounds once and differs in a third of bf16 values."""
+    if x.dtype != torch.bfloat16:
+        return x * torch.sigmoid(x)
+    return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:

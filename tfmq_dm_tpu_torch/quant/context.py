@@ -10,10 +10,17 @@ It carries the static ``policy``, the weight state ``wstate`` ({layer:
   ``out_astate`` (the FSC init pass, fsc.py:30-38);
 - ``deploy``: {layer: deployed weight} — the call sites execute the
   deployed integer weights (quant/deploy.py) instead of fake-quant;
+- ``act_out_dtype``: the carrier dtype of deployed layers' outputs
+  (None: the input's; bfloat16: the fast deploy, ``--deploy_dtype
+  bfloat16``);
 - ``flash``: opt in to the flash-attention kernels (inference contexts;
-  see ``ops/attention.py``).
+  see ``ops/attention.py``);
+- ``shape_tape``: when a dict, deployed int8 conv sites record their
+  geometry {layer: (in_hw, stride, pads)} (``deploy.specialize_maps``);
+- ``capture``: the reconstruction tape's unit set; None here (the tape
+  belongs to the calibration slice), and the flash dispatch requires it.
 
-The reconstruction tape and the EMA pass belong to the calibration slice.
+The EMA pass belongs to the calibration slice.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ class QuantCtx:
                  act_mode: Optional[str] = None,  # None | "init"
                  act_scaler: str = "mse",
                  deploy: Optional[dict] = None,
+                 act_out_dtype: Optional[torch.dtype] = None,
                  flash: bool = False):
         if act_mode not in (None, "init"):
             raise ValueError(f"act_mode {act_mode!r}: only None or 'init'")
@@ -62,7 +70,10 @@ class QuantCtx:
         self.act_scaler = act_scaler
         self.out_astate: Dict[str, dict] = {}
         self.deploy = deploy
+        self.act_out_dtype = act_out_dtype
         self.flash = flash
+        self.shape_tape: Optional[dict] = None
+        self.capture = None
 
     def qweight(self, name: str, w: torch.Tensor) -> torch.Tensor:
         if not self.use_wq:

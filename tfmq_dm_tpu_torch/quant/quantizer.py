@@ -44,11 +44,22 @@ class QCfg:
         return 0, self.level - 1
 
 
+def _promote(x: torch.Tensor, p) -> torch.Tensor:
+    """x in JAX's result type of (x, p): a bf16 tensor against f32
+    quantizer parameters computes in f32 there, where PyTorch would keep
+    bf16 for a 0-dim ``p``."""
+    if isinstance(p, torch.Tensor):
+        return x.to(torch.promote_types(x.dtype, p.dtype))
+    return x
+
+
 def fake_quant(x: torch.Tensor, delta: torch.Tensor,
                zero_point: torch.Tensor, cfg: QCfg) -> torch.Tensor:
-    """Quantize-dequantize (quant_layer.py:223-227); keeps x's dtype."""
+    """Quantize-dequantize (quant_layer.py:223-227); keeps x's dtype, with
+    the q/dq arithmetic in the promoted precision (f32 for bf16 x)."""
     nb, pb = cfg.qrange
-    x_q = torch.clamp(torch.round(x * (1.0 / delta)) + zero_point, nb, pb)
+    xp = _promote(x, delta)
+    x_q = torch.clamp(torch.round(xp * (1.0 / delta)) + zero_point, nb, pb)
     return (delta * (x_q - zero_point)).to(x.dtype)
 
 
@@ -57,7 +68,8 @@ def quant_int(x: torch.Tensor, delta: torch.Tensor,
               dtype=torch.int8) -> torch.Tensor:
     """Integer codes (no dequant)."""
     nb, pb = cfg.qrange
-    x_q = torch.clamp(torch.round(x * (1.0 / delta)) + zero_point, nb, pb)
+    x_q = torch.clamp(torch.round(_promote(x, delta) * (1.0 / delta))
+                      + zero_point, nb, pb)
     return x_q.to(dtype)
 
 

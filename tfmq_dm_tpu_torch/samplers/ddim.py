@@ -53,7 +53,10 @@ def generalized_scan(model_fn: ModelFn, betas: np.ndarray, seq: np.ndarray,
         at, at_next = at_arr[i], atn_arr[i]
         t_b = torch.full((n,), int(t_arr[i]), dtype=torch.int32,
                          device=x.device)
+        # a bf16 eps (the fast deploy) meets the f32 step scalars in f32,
+        # as JAX promotes it
         et = model_fn(xt, t_b, i)
+        et = et.to(torch.promote_types(et.dtype, xt.dtype))
         x0_t = (xt - et * float(np.sqrt(one - at))) / float(np.sqrt(at))
         c1 = np.float32(eta) * np.sqrt((one - at / at_next)
                                        * (one - at_next) / (one - at))

@@ -95,7 +95,10 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
     for i in range(sched.num_steps):
         t_b = torch.full((n,), int(sched.t[i]), dtype=torch.int32,
                          device=x.device)
+        # a bf16 eps (the fast deploy) meets the f32 step scalars in f32,
+        # as JAX promotes it
         e_t = model_fn(xt, t_b, i)
+        e_t = e_t.to(torch.promote_types(e_t.dtype, xt.dtype))
         pred_x0 = (xt - float(s1ma[i]) * e_t) / float(np.sqrt(a_t[i]))
         dir_xt = float(np.sqrt(np.maximum(
             f32(1.0) - a_prev[i] - sigma[i] ** 2, f32(0.0)))) * e_t
