@@ -7,7 +7,7 @@ Phases, each with a time budget (the script raises and exits non-zero
 when one is exceeded):
 
 1. device   - a CUDA card must be present; prints its name and power limit.
-2. build    - compiles the three CUDA sources cold (nvcc, sm_90a), the
+2. build    - compiles the four CUDA sources cold (nvcc, sm_90a), the
               nvcc processes at once; prints each kernel's registers and
               shared memory.
 3. kernels  - every distinct conv and linear geometry of the CIFAR-10
@@ -16,11 +16,19 @@ when one is exceeded):
               (``int8_matmul_pre``, and the int8 conv on its im2col, sym
               and asym grids), and the four flash-attention kernels at the
               cin256 and SD shapes (fqk with and without the softmax
-              quantizer, with int8_pv, over two key blocks): each CUDA
-              kernel against its plain PyTorch version on the same inputs;
-              then times kernel, plain version and one PyTorch library
-              call on the device (calls captured in a CUDA graph), and the
+              quantizer, with int8_pv, over two key blocks), the fused
+              int8 GEMM (``int8_matmul_fused``) on the linear geometries
+              and the fused GroupNorm + SiLU + int8 quantization
+              (``gn_swish_quant_int8``) at the cin256 and CIFAR-10
+              GroupNorms and SD's resblock shapes: each CUDA kernel
+              against its plain PyTorch version on the same inputs; then
+              times kernel, plain version and one PyTorch library call on
+              the device (calls captured in a CUDA graph), and the
               kernel's wall time per eager call, beside the card's bound.
+              No model path of the JAX package reaches the last two
+              kernels (tests and ``scripts/micro_gn.py`` only): their
+              launches are counted over this phase's timing runs, which
+              include the port's twin of ``scripts/micro_gn.py``.
 4. main     - the full-width CIFAR-10 w4a8 int4-serving path: trained
               weights from runs/cifar10_ddpm.npz, minmax weight grids, a
               10-step calibration harvest at batch 8, the FSC init pass,
@@ -75,6 +83,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
+
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
                   "ldm": 420, "deploy": 360}
 
@@ -109,11 +119,19 @@ FORWARD_NOISE, FORWARD_NOISE_FACTOR = 1e-7, 5.0
 # plain latents' largest magnitude
 MIN_LATENT_PSNR_DB = 30.0
 
-# dense bf16 and int8 tensor-core peaks and the HBM rate (NVIDIA data
-# sheet, SXM part)
-CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "hbm": 3.35e12}}
+# dense bf16 and int8 tensor-core peaks, the f32 rate outside the tensor
+# cores and the HBM rate (NVIDIA data sheet, SXM part)
+CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+                       "hbm": 3.35e12}}
+# the fused GroupNorm's codes against its plain version: the statistics
+# are summed in another order, so a code at a rounding boundary may move
+# one level (the JAX package's own rule, tests/test_pallas_kernels.py)
+GN_MAX_LEVELS, GN_MAX_SHARE = 1, 1e-4
 
 STEPS, BATCH, SEED = 10, 8, 1234
+NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
+                 "scripts/micro_gn.py); launches of the kernels phase's "
+                 "timing runs, the micro_gn twin's included")
 # cin256 images per batch (the UNet sees twice as many: CFG)
 CIN_N = 2
 
@@ -147,47 +165,6 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def wall_ms(fn, iters: int = 20) -> float:
-    """Wall time per eager call, back to back: host work (argument checks,
-    allocation, launch) included."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
-
-
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call: ``iters`` calls captured in one CUDA graph,
-    replayed and timed with CUDA events, so no host work is counted."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm-up off the capture
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (3 * iters)
-    del graph
-    return ms
 
 
 def psnr(a, b) -> float:
@@ -343,20 +320,21 @@ def plain_kernels():
             setattr(m, n, f)
 
 
-def reset_all_counts() -> None:
+def kernel_modules():
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
     from tfmq_dm_tpu_torch.ops import int8_kernels as I8
-    K.reset_launch_counts()
-    FA.reset_launch_counts()
-    I8.reset_launch_counts()
+    return K, FA, I8, G
+
+
+def reset_all_counts() -> None:
+    for mod in kernel_modules():
+        mod.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    from tfmq_dm_tpu_torch.ops import flash_attention as FA
-    from tfmq_dm_tpu_torch.ops import int4_kernels as K
-    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
-    return {**K.LAUNCHES, **FA.LAUNCHES, **I8.LAUNCHES}
+    return {k: v for mod in kernel_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def sync(dev) -> None:
@@ -1095,6 +1073,223 @@ def time_fqk(g, dev, peaks) -> dict:
     return tm
 
 
+# ---------------------------------------------------------------------------
+# the fused int8 GEMM and the fused GroupNorm (no model path)
+# ---------------------------------------------------------------------------
+
+def check_fused(g, dev, errs, linears) -> None:
+    """``int8_matmul_fused`` on f32 and bf16 x, f32 and bf16 out, with and
+    without bias, against its plain version and against
+    ``int8_matmul_pre`` on ``quantize_act_int8``'s codes: bit-equal to
+    both (the same quantization, exact int32 sums, the same epilogue)."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    cfg = QCfg(bits=8)
+    dx, zx = torch.tensor(0.021, device=dev), torch.tensor(-3.0, device=dev)
+    for (m, k, n) in linears:
+        iw = int8_weight(g, k, n, False, dev)
+        ws = iw.wsum.float()
+        b = torch.randn(n, generator=g).to(dev)
+        x32 = (torch.randn(m, k, generator=g) * 1.5).to(dev)
+        for xd in (torch.float32, torch.bfloat16):
+            x = x32.to(xd)
+            xq, zc = int_ops.quantize_act_int8(x, dx, zx + 128.0, cfg)
+            xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+            for od in (torch.float32, torch.bfloat16):
+                for bias in (b, None):
+                    args = (x, iw.w_q, iw.delta, iw.zp_c, ws, dx, zx, bias)
+                    got = I8.int8_matmul_fused(*args, out_dtype=od)
+                    refs = (I8.int8_matmul_fused_plain(*args, out_dtype=od),
+                            I8.int8_matmul_pre(xq, xs, iw.w_q, iw.delta,
+                                               iw.zp_c, ws, dx, zc, bias,
+                                               out_dtype=od))
+                    torch.cuda.synchronize()
+                    for what, ref in zip(("plain", "quantize + pre"), refs):
+                        if not torch.equal(got, ref):
+                            raise AssertionError(
+                                f"int8_matmul_fused M{m} {k}->{n} x {xd} "
+                                f"out {od} bias {bias is not None}: differs "
+                                f"from {what}")
+        errs["int8_matmul_fused"].append(0.0)
+        print(f"   int8_matmul_fused M{m} {k}->{n}: bit-equal to its plain "
+              "version and to quantize + int8_matmul_pre (x f32/bf16, out "
+              "f32/bf16, bias on/off)", flush=True)
+
+
+def gn_geometries():
+    """(batch, res, C, eps, dtype) of every distinct GroupNorm of the
+    cin256 UNet (batch 2 x CFG, bf16 as in its fast deploy) and of the
+    CIFAR-10 UNet (batch 8, f32); groups 32 throughout."""
+    import torch
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.models import ddim_unet, ldm_unet
+    cin = get_task("cin256_v2").unet
+    inputs, middle, outputs = ldm_unet.build_structure(cin)
+    res, norms = cin.image_size, {(cin.image_size, cin.model_channels)}
+    for group in list(inputs) + [middle] + list(outputs):
+        for sub in group:
+            if sub.kind == "res":
+                norms |= {(res, sub.c_in), (res, sub.c_out)}
+            elif sub.kind == "strans":
+                norms.add((res, sub.c_in))
+            elif sub.kind == "down":
+                res //= 2
+            elif sub.kind == "up":
+                res *= 2
+    out = [(2 * CIN_N, r, c, 1e-5, torch.bfloat16) for r, c in sorted(norms)]
+    cfg = ddim_unet.cifar10_config()
+    res, norms = cfg.resolution, set()
+    for kind, name, shape in ddim_unet.iter_layers(cfg):
+        if name.endswith("downsample.conv"):
+            res //= 2
+        elif name.endswith("upsample.conv"):
+            res *= 2
+        elif kind == "norm":
+            norms.add((res, shape))
+    out += [(BATCH, r, c, 1e-6, torch.float32) for r, c in sorted(norms)]
+    return out
+
+
+def check_gn(g, dev, errs) -> None:
+    """``gn_swish_quant_int8`` against its plain version at SD's resblock
+    shapes (the micro_gn twin's), every cin256 and CIFAR-10 GroupNorm, and
+    odd shapes (hw not a multiple of 512, C not a multiple of 128), with
+    and without SiLU and the scale-shift pair: codes at most
+    GN_MAX_LEVELS apart on under GN_MAX_SHARE of them, zp_c equal."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    from tfmq_dm_tpu_torch.scripts import micro_gn
+    cfg = QCfg(bits=8)
+    shapes = [(b, h, w, c, 1e-5, torch.bfloat16)
+              for b, h, w, c in micro_gn.SHAPES]
+    shapes += [(b, r, r, c, eps, dt) for b, r, c, eps, dt in gn_geometries()]
+    shapes += [(2, 33, 17, 96, 1e-5, torch.bfloat16),
+               (3, 5, 7, 64, 1e-6, torch.float32)]
+    delta, zp = torch.tensor(0.02, device=dev), torch.tensor(117.0, device=dev)
+    worst = (0, 0.0)
+    for b, h, w, c, eps, dt in shapes:
+        x = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.3).to(dt).to(dev)
+        gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        beta = (0.1 * torch.randn(c, generator=g)).to(dev)
+        ss = tuple((0.1 * torch.randn(b, c, generator=g)).to(dev)
+                   for _ in range(2))
+        for swish in (True, False):
+            for pair in (None, ss):
+                kw = dict(eps=eps, do_swish=swish, ss=pair)
+                got, gz = G.gn_swish_quant_int8(x, gamma, beta, delta, zp,
+                                                cfg, **kw)
+                ref, rz = G.gn_swish_quant_int8_plain(x, gamma, beta, delta,
+                                                      zp, cfg, **kw)
+                torch.cuda.synchronize()
+                diff = (got.int() - ref.int()).abs()
+                levels, share = int(diff.max()), float((diff > 0).float()
+                                                       .mean())
+                worst = max(worst, (levels, share))
+                errs["gn_swish_quant_int8"].append(levels)
+                if not (levels <= GN_MAX_LEVELS and share < GN_MAX_SHARE
+                        and float(gz) == float(rz)):
+                    raise AssertionError(
+                        f"gn_swish_quant_int8 {(b, h, w, c)} {dt} swish "
+                        f"{swish} ss {pair is not None}: {levels} levels, "
+                        f"{share:.2e} of codes off, zp_c {float(gz)} / "
+                        f"{float(rz)}")
+    print(f"   gn_swish_quant_int8 {len(shapes)} shapes x (SiLU, ss): worst "
+          f"{worst[0]} level(s), {worst[1]:.2e} of codes off", flush=True)
+
+
+def time_fused(g, dev, peaks) -> dict:
+    """``int8_matmul_fused`` at cin256's ``ff.net.0.proj`` (M 4096, 384 ->
+    3072, bf16 x and out; ``int8_matmul_pre``'s timing shape): kernel,
+    plain version, and as the library call the quantization in PyTorch
+    ops, ``torch._int_mm`` and the epilogue in PyTorch ops; also the port's
+    current pair, ``quantize_act_int8`` + ``int8_matmul_pre``."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    cfg = QCfg(bits=8)
+    m, k, n = 2 * CIN_N * 1024, 384, 3072
+    iw = int8_weight(g, k, n, False, dev)
+    ws = iw.wsum.float()
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(dev)
+    dx, zx = torch.tensor(0.021, device=dev), torch.tensor(-3.0, device=dev)
+    b = torch.randn(n, generator=g).to(dev)
+    args = (x, iw.w_q, iw.delta, iw.zp_c, ws, dx, zx, b)
+    w_cm = iw.w_q.t().contiguous().t()       # column-major for cuBLASLt
+
+    def library():
+        xq = (torch.clamp(torch.round(x.float() * (1.0 / dx)) + (zx + 128.0),
+                          0.0, 255.0) - 128.0).to(torch.int8)
+        xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+        corr = torch._int_mm(xq, w_cm).float() - iw.zp_c * xs - zx * ws \
+            + (k * zx) * iw.zp_c
+        return ((dx * iw.delta) * corr + b).to(torch.bfloat16)
+
+    def pair():
+        xq, zc = int_ops.quantize_act_int8(x, dx, zx + 128.0, cfg)
+        xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+        return I8.int8_matmul_pre(xq, xs, iw.w_q, iw.delta, iw.zp_c, ws, dx,
+                                  zc, b, out_dtype=torch.bfloat16)
+
+    flops = 2 * m * n * k
+    nbytes = 2 * m * k + k * n + 4 * 4 * n + 8 + 2 * m * n
+    tm = timings(lambda: I8.int8_matmul_fused(*args, out_dtype=torch.bfloat16),
+                 lambda: I8.int8_matmul_fused_plain(*args,
+                                                    out_dtype=torch.bfloat16),
+                 library, flops, nbytes, peaks, rate="int8")
+    tm["library"] = "quantize in PyTorch ops + torch._int_mm + epilogue"
+    tm["pair_ms"] = device_ms(pair)
+    tm["pair"] = "int_ops.quantize_act_int8 + int8_matmul_pre"
+    print(f"   int8_matmul_fused M{m} {k}->{n} bf16: " + timing_line(tm)
+          + f"; quantize + int8_matmul_pre {tm['pair_ms']:.4f} "
+          f"({tm['pair_ms'] / tm['ms']:.2f}x the fused kernel)", flush=True)
+    return tm
+
+
+def time_gn(dev, peaks) -> list:
+    """``gn_swish_quant_int8`` at SD's resblock shapes in bf16 through the
+    micro_gn twin's inputs: kernel, plain version, and as the library
+    call ``F.group_norm`` on the NCHW view + ``F.silu`` + the quantization
+    in PyTorch ops; then the twin's own timing of the port's unfused chain
+    against the kernel (``micro_gn.time_shape``)."""
+    import torch
+    import torch.nn.functional as F
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    from tfmq_dm_tpu_torch.scripts import micro_gn
+    out = []
+    for shape in micro_gn.SHAPES:
+        x, gamma, beta, delta, zp = micro_gn.inputs(shape, dev)
+        args = (x, gamma, beta, delta, zp, micro_gn.CFG)
+        xn = x.permute(0, 3, 1, 2)      # NHWC memory: channels_last
+        gb, bb = gamma.to(torch.bfloat16), beta.to(torch.bfloat16)
+
+        def library():
+            y = F.silu(F.group_norm(xn, micro_gn.GROUPS, gb, bb,
+                                    micro_gn.EPS))
+            return (torch.clamp(torch.round(y.float() * (1.0 / delta)) + zp,
+                                0.0, 255.0) - 128.0).to(torch.int8)
+
+        numel = x.numel()
+        # per element: two sums, the affine, SiLU (~8 with exp), quantize
+        tm = timings(lambda: G.gn_swish_quant_int8(*args),
+                     lambda: G.gn_swish_quant_int8_plain(*args), library,
+                     16 * numel, 2 * numel + numel, peaks, rate="f32")
+        tm["library"] = "F.group_norm + F.silu + quantize in PyTorch ops"
+        twin = micro_gn.time_shape(shape, dev)
+        tm["shape"] = f"{shape} bf16"
+        tm["unfused_chain_ms"] = twin["unfused_ms"]
+        tm["unfused_vs_fused"] = twin["ratio"]
+        print(f"   gn_swish_quant_int8 {shape} bf16: " + timing_line(tm)
+              + f"; micro_gn twin: unfused chain {twin['unfused_ms']:.4f}, "
+              f"fused {twin['fused_ms']:.4f} ({twin['ratio']:.2f}x)",
+              flush=True)
+        out.append(tm)
+    return out
+
+
 def forward_counts(fn, args) -> dict:
     """Launch counts of one call ``fn(*args)``."""
     import torch
@@ -1257,17 +1452,15 @@ def run() -> None:
 
     with phase("build"):
         from concurrent.futures import ThreadPoolExecutor
-        from tfmq_dm_tpu_torch.ops import flash_attention as FA
-        from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+        mods = kernel_modules()
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:   # one nvcc per source, at once
-            for fut in [pool.submit(m.build, True) for m in (K, FA, I8)]:
+        with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source
+            for fut in [pool.submit(m.build, True) for m in mods]:
                 fut.result()
-        print(f"   nvcc builds {time.perf_counter() - t0:.2f} s (int4 "
-              f"{K.BUILD_LOG['seconds']:.2f} s, flash "
-              f"{FA.BUILD_LOG['seconds']:.2f} s, int8 "
-              f"{I8.BUILD_LOG['seconds']:.2f} s, in parallel)", flush=True)
-        for mod in (K, FA, I8):
+        print(f"   nvcc builds {time.perf_counter() - t0:.2f} s ("
+              + ", ".join(f"{m.SOURCE.name} {m.BUILD_LOG['seconds']:.2f} s"
+                          for m in mods) + ", in parallel)", flush=True)
+        for mod in mods:
             for line in mod.BUILD_LOG["ptxas"].splitlines():
                 if ("registers" in line or "Compiling entry" in line
                         or "spill" in line):
@@ -1281,7 +1474,8 @@ def run() -> None:
         g = torch.Generator().manual_seed(0)
         errs = {"int4_conv2d": [], "int4_linear": [], "flash_fp": [],
                 "flash_pquant": [], "flash_int8": [], "flash_fqk": [],
-                "int8_matmul_pre": []}
+                "int8_matmul_pre": [], "int8_matmul_fused": [],
+                "gn_swish_quant_int8": []}
         conv_shapes = [(BATCH, r, k, ci, co) for (r, k, ci, co) in convs]
         conv_shapes += [(2, 5, 3, 20, 37), (1, 7, 1, 48, 10)]
         cin_convs, cin_linears = cin_geometries(get_task("cin256_v2").unet)
@@ -1303,6 +1497,8 @@ def run() -> None:
         check_flash(g, dev, errs)
         check_int8(g, dev, errs, lin_shapes, conv_shapes)
         check_fqk(g, dev, errs)
+        check_fused(g, dev, errs, lin_shapes)
+        check_gn(g, dev, errs)
 
         print("   timing, ms per call (device: kernel / plain / library; "
               "kernel wall per eager call; bound):", flush=True)
@@ -1322,6 +1518,15 @@ def run() -> None:
         measured.update(time_flash(g, dev, peaks))
         measured["int8"] = time_int8(g, dev, peaks)
         measured["flash_fqk"] = time_fqk(g, dev, peaks)
+        # no model path reaches these two: their launches are those of
+        # their timing runs (the micro_gn twin's included)
+        reset_all_counts()
+        measured["int8_matmul_fused"] = time_fused(g, dev, peaks)
+        measured["gn_swish_quant_int8"] = time_gn(dev, peaks)
+        no_path = all_counts()
+        for name in ("int8_matmul_fused", "gn_swish_quant_int8"):
+            if not no_path[name] > 0:
+                raise AssertionError(f"{name}: no launch in its timing runs")
 
     # checkpoints, artifacts and samples shared by the phases below
     tmp = Path(tempfile.mkdtemp(prefix="tfmq_chip_smoke_"))
@@ -1399,7 +1604,26 @@ def run() -> None:
          "launches": cin_dep["launches"]["flash_fqk"],
          "launches_path": "cin256 cli.main --int-kernels --deploy_dtype "
                           "bfloat16",
-         "max_abs_err": max(errs["flash_fqk"]), **measured["flash_fqk"]}]}
+         "max_abs_err": max(errs["flash_fqk"]), **measured["flash_fqk"]},
+        {"name": "int8_matmul_fused", "route": "cuda",
+         "source": "tfmq_dm_tpu_torch/csrc/int8_kernels.cu",
+         "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:76",
+         "tpu": "int8_matmul_fused",
+         "shape": f"x ({2 * CIN_N * 1024},384) bf16, 384->3072, bf16 out",
+         "launches": no_path["int8_matmul_fused"],
+         "launches_path": NO_MODEL_PATH,
+         "max_abs_err": max(errs["int8_matmul_fused"]),
+         **measured["int8_matmul_fused"]},
+        {"name": "gn_swish_quant_int8", "route": "cuda",
+         "source": "tfmq_dm_tpu_torch/csrc/gn_kernels.cu",
+         "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:431",
+         "tpu": "gn_swish_quant_int8",
+         "launches": no_path["gn_swish_quant_int8"],
+         "launches_path": NO_MODEL_PATH,
+         "max_abs_err": max(errs["gn_swish_quant_int8"]),
+         "max_abs_err_unit": "int8 levels",
+         **measured["gn_swish_quant_int8"][0],
+         "micro_gn": measured["gn_swish_quant_int8"][1:]}]}
     print(json.dumps({"e2e_s": main_path["e2e_s"], "images": BATCH,
                       "steps": STEPS, "psnr_kernel_vs_plain_db":
                       main_path["psnr_kernel_vs_plain"],

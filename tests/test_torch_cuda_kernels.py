@@ -1,5 +1,7 @@
 """The port's CUDA kernels (packed-int4 conv and linear, flash attention,
-the exact int8 GEMM) against their plain PyTorch versions, on the card. Skips where
+the exact int8 GEMM and its fused-quantization variant, the fused
+GroupNorm + SiLU + int8 quantization) against their plain PyTorch
+versions, on the card. Skips where
 torch.cuda.is_available() is false. The file imports no JAX, so that it
 runs on a machine without it:
 
@@ -8,7 +10,10 @@ runs on a machine without it:
 (tests/conftest.py imports JAX.) Tolerance: the kernel and its plain
 version round at the same points and differ only in how the f32 sums are
 taken; the conv's tensor cores do not round to nearest after every
-addition. 2e-5 of the output's largest magnitude.
+addition. 2e-5 of the output's largest magnitude. The int8 GEMMs are
+bit-equal (exact int32 sums). The fused GroupNorm's codes may move one
+level where its statistics, summed in another order, put a value at a
+rounding boundary: at most 1 level, on under 1e-4 of the codes.
 """
 
 import pytest
@@ -291,3 +296,95 @@ def test_cuda_int8_bmm_acc_matches_plain(cuda):
     assert I8.LAUNCHES["int8_bmm"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, I8.int8_bmm_acc_plain(a, b))
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_fused: bit-equal to its plain version and to
+# int8_matmul_pre on quantize_act_int8's codes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(3, 100, 37), (1, 64, 128),
+                                   (130, 1100, 70), (77, 1536, 960),
+                                   (4096, 384, 3072)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_matmul_fused_matches_plain(cuda, m, k, n, x_dtype,
+                                              out_dtype):
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    g = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=g) * 1.5).to(x_dtype).to(cuda)
+    w = _codes(g, (k, n), cuda)
+    d = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda)
+    z = torch.randint(-10, 10, (n,), generator=g).float().to(cuda)
+    ws = w.to(torch.int32).sum(0).float()
+    b = torch.randn(n, generator=g).to(cuda)
+    dx, zx = torch.tensor(0.021, device=cuda), torch.tensor(-3.0, device=cuda)
+    xq, zc = int_ops.quantize_act_int8(x, dx, zx + 128.0, QCfg(bits=8))
+    xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+    for bias in (b, None):
+        args = (x, w, d, z, ws, dx, zx, bias)
+        before = I8.LAUNCHES["int8_matmul_fused"]
+        got = I8.int8_matmul_fused(*args, out_dtype=out_dtype)
+        assert I8.LAUNCHES["int8_matmul_fused"] == before + 1
+        ref = I8.int8_matmul_fused_plain(*args, out_dtype=out_dtype)
+        pre = I8.int8_matmul_pre(xq, xs, w, d, z, ws, dx, zc, bias,
+                                 out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        assert torch.equal(got, ref) and torch.equal(got, pre)
+
+
+# ---------------------------------------------------------------------------
+# gn_swish_quant_int8: codes within one level of the plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,w,c,eps,dtype", [
+    (8, 64, 64, 320, 1e-5, torch.bfloat16),     # SD v1.4, micro_gn
+    (4, 8, 8, 1920, 1e-5, torch.bfloat16),      # cin256's widest concat
+    (8, 4, 4, 512, 1e-6, torch.float32),        # CIFAR-10
+    (2, 33, 17, 96, 1e-5, torch.bfloat16),      # hw 561: not % 512
+    (3, 5, 7, 64, 1e-6, torch.float32)])
+@pytest.mark.parametrize("swish,use_ss", [(True, False), (True, True),
+                                          (False, False), (False, True)])
+def test_cuda_gn_swish_quant_int8_matches_plain(cuda, b, h, w, c, eps, dtype,
+                                                swish, use_ss):
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    g = torch.Generator().manual_seed(b * h * w + c)
+    x = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.3).to(dtype).to(cuda)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(cuda)
+    beta = (0.1 * torch.randn(c, generator=g)).to(cuda)
+    ss = tuple((0.1 * torch.randn(b, c, generator=g)).to(cuda)
+               for _ in range(2)) if use_ss else None
+    args = (x, gamma, beta, torch.tensor(0.02, device=cuda),
+            torch.tensor(117.0, device=cuda), QCfg(bits=8))
+    kw = dict(eps=eps, do_swish=swish, ss=ss)
+    before = G.LAUNCHES["gn_swish_quant_int8"]
+    got, gz = G.gn_swish_quant_int8(*args, **kw)
+    assert G.LAUNCHES["gn_swish_quant_int8"] == before + 1
+    ref, rz = G.gn_swish_quant_int8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    diff = (got.int() - ref.int()).abs()
+    assert got.dtype == torch.int8 and got.shape == x.shape
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-4
+    assert float(gz) == float(rz) == 117.0 - 128
+
+
+def test_cuda_fused_wrappers_reject_bad_inputs(cuda):
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    w = torch.zeros(64, 32, dtype=torch.int8, device=cuda)
+    v = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError, match="x dtype"):
+        I8.int8_matmul_fused(torch.zeros(4, 64, device=cuda).half(), w, v,
+                             v, v, 0.1, 0.0)
+    with pytest.raises(ValueError, match="w: expected"):
+        I8.int8_matmul_fused(torch.zeros(4, 64, device=cuda), w[:32], v, v,
+                             v, 0.1, 0.0)
+    x = torch.zeros(1, 4, 4, 48, device=cuda)
+    with pytest.raises(ValueError, match="48 channels in 32 groups"):
+        G.gn_swish_quant_int8(x, torch.ones(48), torch.zeros(48), 0.1, 0.0,
+                              QCfg(bits=8))

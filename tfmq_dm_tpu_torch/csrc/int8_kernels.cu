@@ -1,7 +1,7 @@
 // Exact int8 GEMM for Hopper (sm_90a), bound to PyTorch through a plain C
 // interface (ctypes; see ops/int8_kernels.py).
 //
-// Counterpart of the Pallas kernel in tfmq_dm_tpu/ops/pallas_kernels.py:
+// Counterparts of the Pallas kernels in tfmq_dm_tpu/ops/pallas_kernels.py:
 //   tfmq_int8_gemm, f32 / bf16 epilogue  <- int8_matmul_pre
 //                                           (_int8_mm_pre_kernel)
 //   tfmq_int8_gemm, int32 accumulator    <- the int32 products that the
@@ -10,6 +10,8 @@
 //                                           on an im2col, and the
 //                                           attention products above the
 //                                           f32-exact bound)
+//   tfmq_int8_gemm_fused                 <- int8_matmul_fused
+//                                           (_int8_mm_kernel)
 //
 // Operands: centered int8 codes x (M, K) row-major and w (K, N)
 // row-major, optionally `batch` such pairs back to back. The products run
@@ -36,10 +38,27 @@
 // int8 tensor-core rate bounds it (1979 TOP/s); the conv's im2col GEMM
 // (M = 4 x 64 x 64, K = 9 x 192) likewise. A one-stage mma.sync loop
 // without cp.async reaches a fraction of that; PERF.md has the times.
+//
+// The fused variant (int8_matmul_fused) takes f32 or bf16 x and
+// quantizes each A tile in registers on its way to shared memory, as
+// _int8_mm_kernel does in VMEM: code = clip(rint(x * (1/dx)) + zp_xc +
+// 128, 0, 255) - 128, with 1/dx rounded once (IEEE division; the build
+// has no --use_fast_math) and rintf, which rounds half to even as
+// jnp.round does (roundf would not). Each thread sums the codes it
+// quantizes into its rows' int32 sums over the real K (masked positions
+// are code 0, not quantize(0)); four lanes share a row and add theirs
+// with shuffles before the epilogue, which is int8_matmul_pre's. Like the
+// TPU kernel, each N-tile re-quantizes its x rows (N / 64 times per row;
+// the re-reads come from L2). Its bound at cin256's ff.net.0.proj (M 4096,
+// 384 -> 3072, bf16 x and out) is bytes: 3.1 MB of x + 1.2 MB of w +
+// 25 MB of output, about 8.8 us at 3.35 TB/s; the 9.7 G operations take
+// about 4.9 us at the 1979 TOP/s int8 peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -58,9 +77,58 @@ __device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// One f32 x value -> its centered int8 code (the fused A-tile path).
+__device__ __forceinline__ int quant_code(float v, float inv_dx, float zp) {
+  float r = __fadd_rn(rintf(__fmul_rn(v, inv_dx)), zp);
+  r = fminf(fmaxf(r, 0.f), 255.f);
+  return (int)r - 128;
+}
+
+// 16 consecutive x values of row m from column k, zero past M and K.
+__device__ __forceinline__ void load16(const float* x, int m, int k, int M,
+                                       int K, int vec, float* v) {
+  if (vec && m < M && k + 16 <= K) {
+    const float4* p = reinterpret_cast<const float4*>(x + (size_t)m * K + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 f = p[j];
+      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e] = (m < M && k + e < K) ? x[(size_t)m * K + k + e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* x, int m, int k,
+                                       int M, int K, int vec, float* v) {
+  if (vec && m < M && k + 16 <= K) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint4 u = p[j];
+      const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {   // bf16 -> f32 is exact: a shift
+        v[8 * j + 2 * h] = __uint_as_float(wd[h] << 16);
+        v[8 * j + 2 * h + 1] = __uint_as_float(wd[h] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e] = (m < M && k + e < K) ? __bfloat162float(x[(size_t)m * K + k + e])
+                                  : 0.f;
+  }
+}
+
+// AT int8_t: x holds codes (modes 0-2); AT float / __nv_bfloat16: x is
+// quantized on the way in and xsum summed in the kernel (modes 1-2).
 // mode 0: int32 accumulator; 1: f32 epilogue; 2: bf16 epilogue
+template <typename AT>
 __global__ void __launch_bounds__(NTHREADS)
-int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+int8_gemm_kernel(const AT* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ xsum,
                  const float* __restrict__ delta,
                  const float* __restrict__ zpc,
@@ -70,6 +138,8 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  int M, int K, int N, int mode, int vec_x, int vec_w) {
   __shared__ __align__(16) int8_t As[BM][LD];
   __shared__ __align__(16) int8_t Bs[BN][LD];
+  constexpr bool kFused = !std::is_same<AT, int8_t>::value;
+  __shared__ int xs_sh[kFused ? BM : 1];   // the fused rows' code sums
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -89,16 +159,43 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
+  float inv_dx = 0.f, zp_x = 0.f;   // fused: 1/dx, zp_xc + 128
+  if constexpr (kFused) {
+    inv_dx = 1.0f / sc[0];
+    zp_x = __fadd_rn(sc[1], 128.f);
+  }
+  int rsum[4] = {0, 0, 0, 0};      // fused: code sums of rows r + 32 i
+
   for (int k0 = 0; k0 < K; k0 += BKT) {
     __syncthreads();  // the previous step's fragments are consumed
-    // A: 128 rows x 64 bytes = 512 chunks of 16 bytes, 4 per thread
+    // A: 128 rows x 64 bytes = 512 chunks of 16 bytes, 4 per thread; the
+    // thread's chunk i lies in row (tid >> 2) + 32 i at every K step
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int idx = tid + i * NTHREADS;
       const int r = idx >> 2, c = (idx & 3) * 16;
       const int m = m_base + r, k = k0 + c;
       int8_t* dst = &As[r][c];
-      if (vec_x && m < M && k + 16 <= K) {
+      if constexpr (kFused) {
+        float v[16];
+        load16(x, m, k, M, K, vec_x, v);
+        uint32_t packed[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t p = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kk = k + 4 * j + e;
+            const int q =
+                (m < M && kk < K) ? quant_code(v[4 * j + e], inv_dx, zp_x) : 0;
+            rsum[i] += q;
+            p |= (uint32_t)(q & 0xff) << (8 * e);
+          }
+          packed[j] = p;
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      } else if (vec_x && m < M && k + 16 <= K) {
         *reinterpret_cast<uint4*>(dst) =
             *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
       } else {
@@ -154,6 +251,18 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   }
 
+  if constexpr (kFused) {
+    // the four lanes of a row add their sums; one writes the row's total
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      int t = rsum[i];
+      t += __shfl_xor_sync(0xffffffffu, t, 1);
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      if ((tid & 3) == 0) xs_sh[(tid >> 2) + 32 * i] = t;
+    }
+    __syncthreads();
+  }
+
   float dx = 0.f, zp_xc = 0.f, kzx = 0.f;
   if (mode != 0) {
     dx = sc[0];
@@ -167,7 +276,11 @@ int8_gemm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int h = 0; h < 2; ++h) {
       const int m = m_base + wm + i * 16 + g + 8 * h;
       if (m >= M) continue;
-      const float xs = mode != 0 ? xsum[z * (size_t)M + m] : 0.f;
+      float xs = 0.f;
+      if constexpr (kFused)
+        xs = (float)xs_sh[m - m_base];
+      else if (mode != 0)
+        xs = xsum[z * (size_t)M + m];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -215,10 +328,39 @@ int tfmq_int8_gemm(const void* x, const void* w, const void* xsum,
   const int vec_x = (K % 16 == 0) && ((uintptr_t)x % 16 == 0);
   const int vec_w = (N % 4 == 0) && ((uintptr_t)w % 4 == 0);
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, batch);
-  int8_gemm_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  int8_gemm_kernel<int8_t><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)x, (const int8_t*)w, (const float*)xsum,
       (const float*)delta, (const float*)zp_c, (const float*)wsum,
       (const float*)bias, (const float*)sc, out, M, K, N, mode, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+// int8_matmul_fused: x (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1),
+// quantized in the kernel with sc = [dx, zp_xc]; mode 1 (f32) or 2 (bf16)
+// output.
+int tfmq_int8_gemm_fused(const void* x, int x_bf16, const void* w,
+                         const void* delta, const void* zp_c,
+                         const void* wsum, const void* bias, const void* sc,
+                         void* out, int M, int K, int N, int mode, int device,
+                         void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (mode < 1 || mode > 2) return (int)cudaErrorInvalidValue;
+  const int vec_x = (K % 16 == 0) && ((uintptr_t)x % 16 == 0);
+  const int vec_w = (N % 4 == 0) && ((uintptr_t)w % 4 == 0);
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, 1);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_bf16)
+    int8_gemm_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
+        (const __nv_bfloat16*)x, (const int8_t*)w, nullptr,
+        (const float*)delta, (const float*)zp_c, (const float*)wsum,
+        (const float*)bias, (const float*)sc, out, M, K, N, mode, vec_x,
+        vec_w);
+  else
+    int8_gemm_kernel<float><<<grid, NTHREADS, 0, st>>>(
+        (const float*)x, (const int8_t*)w, nullptr, (const float*)delta,
+        (const float*)zp_c, (const float*)wsum, (const float*)bias,
+        (const float*)sc, out, M, K, N, mode, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 

@@ -5,6 +5,10 @@ int32 products the JAX package leaves to XLA.
 - ``int8_matmul_pre``  centered int8 codes x (M, K) @ w (K, N), int32
   sums on the tensor cores, then the zero-point corrections, the dequant
   scale and the bias fused in the epilogue (f32 or bf16 out);
+- ``int8_matmul_fused``  the same from f32 or bf16 x, quantized per
+  tensor inside the kernel (``int8_matmul_fused`` / ``_int8_mm_kernel``):
+  by construction equal to ``int_ops.quantize_act_int8`` followed by
+  ``int8_matmul_pre``, bit for bit;
 - ``int8_conv_acc``    the int32 accumulator of a conv on zero-padded
   codes: an im2col of the codes (K padded with zero codes to a multiple
   of 16) through the same kernel;
@@ -35,7 +39,8 @@ from .cuda_build import CudaLibrary, check, launch_check, ptr
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_kernels.cu"
 
 # launches of each wrapper since the last reset (chip_smoke.py reads these)
-LAUNCHES = {"int8_matmul_pre": 0, "int8_conv2d": 0, "int8_bmm": 0}
+LAUNCHES = {"int8_matmul_pre": 0, "int8_matmul_fused": 0, "int8_conv2d": 0,
+            "int8_bmm": 0}
 
 _MODES = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -44,6 +49,8 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tfmq_int8_gemm.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.tfmq_int8_gemm.restype = i
+    lib.tfmq_int8_gemm_fused.argtypes = [p, i] + [p] * 7 + [i] * 5 + [p]
+    lib.tfmq_int8_gemm_fused.restype = i
 
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
@@ -149,6 +156,65 @@ def int8_matmul_pre(x_q: torch.Tensor, xsum: torch.Tensor,
     return _launch("int8_matmul_pre", x_q, w_q, m, k, n, 1, out_dtype,
                    xsum, delta_w, zp_wc, wsum, bias,
                    _scalars(dx, zp_xc, x_q.device))
+
+
+# ---------------------------------------------------------------------------
+# int8_matmul_fused
+# ---------------------------------------------------------------------------
+
+def int8_matmul_fused_plain(x, w_q, delta_w, zp_wc, wsum, dx, zp_xc,
+                            bias=None, out_dtype=torch.float32):
+    """The kernel's arithmetic in PyTorch ops: ``_int8_mm_kernel``'s
+    quantization, clip(round(x (1/dx)) + zp_xc + 128, 0, 255) - 128 with
+    1/dx rounded once to f32, the codes' row sums over K, then
+    ``int8_matmul_pre_plain``."""
+    dx = torch.as_tensor(dx, dtype=torch.float32, device=x.device)
+    zp_xc = torch.as_tensor(zp_xc, dtype=torch.float32, device=x.device)
+    x_q = (torch.clamp(torch.round(x.float() * (1.0 / dx)) + (zp_xc + 128.0),
+                       0.0, 255.0) - 128.0).to(torch.int8)
+    xsum = x_q.to(torch.int32).sum(-1, keepdim=True).float()
+    return int8_matmul_pre_plain(x_q, xsum, w_q, delta_w, zp_wc, wsum, dx,
+                                 zp_xc, bias, out_dtype)
+
+
+def int8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,
+                      delta_w: torch.Tensor, zp_wc: torch.Tensor,
+                      wsum: torch.Tensor, dx, zp_xc,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """x (M, K) f32 or bf16, quantized per tensor to centered int8 codes
+    with the 8-bit grid (dx, zp_xc + 128) inside the kernel; then as
+    ``int8_matmul_pre``: w_q (K, N) centered int8, per-channel delta_w /
+    zp_wc / wsum (N,) f32, optional f32 bias (N,), ``out_dtype`` f32 or
+    bf16. The TPU block sizes are not taken: the kernel tiles by itself."""
+    if not _on_cuda("int8_matmul_fused", x):
+        return int8_matmul_fused_plain(x, w_q, delta_w, zp_wc, wsum, dx,
+                                       zp_xc, bias, out_dtype)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_matmul_fused: out_dtype {out_dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"int8_matmul_fused: x dtype {x.dtype}")
+    m, k = x.shape
+    n = w_q.shape[1]
+    dev = x.device
+    check("x", x, x.dtype, (m, k), dev)
+    check("w", w_q, torch.int8, (k, n), dev)
+    for nm, t in (("delta", delta_w), ("zp_c", zp_wc), ("wsum", wsum)):
+        check(nm, t, torch.float32, (n,), dev)
+    if bias is not None:
+        check("bias", bias, torch.float32, (n,), dev)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    if m == 0 or n == 0:
+        return out
+    sc = _scalars(dx, zp_xc, dev)
+    err = build().tfmq_int8_gemm_fused(
+        ptr(x), int(x.dtype == torch.bfloat16), ptr(w_q), ptr(delta_w),
+        ptr(zp_wc), ptr(wsum), ptr(bias), ptr(sc), ptr(out), m, k, n,
+        _MODES[out_dtype], dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream)
+    launch_check("int8_matmul_fused", err)
+    LAUNCHES["int8_matmul_fused"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

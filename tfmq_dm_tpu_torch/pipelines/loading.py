@@ -4,11 +4,23 @@
 ``model.diffusion_model.`` / ``first_stage_model.`` /
 ``cond_stage_model.``, and LitEma weights under ``model_ema.*`` with the
 dots stripped from their names (ldm/modules/ema.py). The CIFAR-10 ``p::``
-npz loader stays in ``convert.py``."""
+npz loader stays in ``convert.py``.
+
+A Lightning checkpoint pickles more than tensors: ``callbacks`` (the
+CompVis SD v1.x files carry a ``ModelCheckpoint``), ``hyper_parameters``
+and loop state, as objects of Lightning's classes. ``torch.load`` with
+``weights_only=True`` refuses such a file, and ``weights_only=False``, as
+the JAX package loads it, needs Lightning installed to rebuild those
+objects. ``load_checkpoint`` takes a third way: it unpickles PyTorch's own
+globals (tensors, storages, dtypes) and ``OrderedDict`` as they are and
+puts an inert stand-in in place of every other global, so the tensors of
+any such file load, with or without Lightning, and nothing outside
+PyTorch is imported or called."""
 
 from __future__ import annotations
 
 import logging
+import pickle
 from typing import Dict, Optional
 
 import torch
@@ -18,6 +30,39 @@ from ..models import ldm_unet, vae as vae_mod
 from ..utils.torch_convert import convert_state_dict
 
 logger = logging.getLogger(__name__)
+
+
+class _Skipped(dict):
+    """Stand-in for a global outside PyTorch: takes any constructor
+    arguments and any pickled state (a numpy array's is a tuple); a dict,
+    so that it also takes the items of a pickled dict subclass
+    (Lightning's ``AttributeDict``)."""
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _TensorsOnly:
+    """A ``pickle_module`` for ``torch.load`` (see the module docstring)."""
+
+    load = pickle.load
+
+    class Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module == "torch" or module.startswith("torch.") or \
+                    (module == "collections" and name == "OrderedDict"):
+                return super().find_class(module, name)
+            return _Skipped
+
+
+def load_checkpoint(path: str) -> Dict:
+    """The checkpoint's pickled object with its tensors on the CPU and
+    every non-PyTorch object replaced by an inert stand-in."""
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=_TensorsOnly)
 
 
 def _strip_prefix(sd: Dict, prefix: str) -> Dict:
@@ -46,7 +91,7 @@ def load_ldm_checkpoint(path: str, task: TaskConfig,
                         use_ema: Optional[bool] = None, device="cuda"):
     """-> (unet_params, vae_params, cond_params or None), tensors on
     ``device``. The first stage's decoder side only (the port decodes)."""
-    full = torch.load(path, map_location="cpu", weights_only=True)
+    full = load_checkpoint(path)
     sd = full.get("state_dict", full)
     unet_sd = _strip_prefix(sd, "model.diffusion_model.")
     if task.use_ema if use_ema is None else use_ema:
