@@ -21,10 +21,17 @@ when one is exceeded):
               and the fused GroupNorm + SiLU + int8 quantization
               (``gn_swish_quant_int8``) at the cin256 and CIFAR-10
               GroupNorms and SD's resblock shapes: each CUDA kernel
-              against its plain PyTorch version on the same inputs; then
+              against its plain PyTorch version on the same inputs (and
+              ``int4_linear`` against itself: two calls bit-identical;
+              the fqk pre-pass bit-equal to its plain version); then
               times kernel, plain version and one PyTorch library call on
               the device (calls captured in a CUDA graph), and the
-              kernel's wall time per eager call, beside the card's bound.
+              kernel's wall time per eager call, beside the card's bound:
+              ``int4_linear`` at every distinct cin256 geometry and
+              CIFAR-10's, ``flash_fqk`` in its three modes at cin256 and
+              SD's 64x64, each printed beside its earlier design's device
+              time where one was taken (``EARLIER_MS``; not in the
+              ``kernels`` line, which holds this run's numbers only).
               No model path of the JAX package reaches the last two
               kernels (tests and ``scripts/micro_gn.py`` only): their
               launches are counted over this phase's timing runs, which
@@ -127,6 +134,13 @@ CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
 # are summed in another order, so a code at a rounding boundary may move
 # one level (the JAX package's own rule, tests/test_pallas_kernels.py)
 GN_MAX_LEVELS, GN_MAX_SHARE = 1, 1e-4
+
+# device ms of the kernels before their redesign for the tensor cores
+# (PERF.md section 6: chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W),
+# at the shapes where they were taken; printed for reading only
+EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
+              ("int4_linear", 4096, 384, 3072): 0.7676,
+              ("flash_fqk", "cin256", "p levels"): 1.6757}
 
 STEPS, BATCH, SEED = 10, 8, 1234
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
@@ -244,8 +258,10 @@ def timings(kernel, plain, library, flops, nbytes, peaks,
     """Device ms per call of the kernel, its plain version and the library
     call; the kernel's wall ms per eager call; the bound: the larger of the
     operations over the tensor-core peak for their type (``rate``) and
-    the bytes over the memory rate."""
-    t_ops = flops / peaks[rate] * 1e3
+    the bytes over the memory rate. ``flops`` may be {type: operations}
+    for work of several types, each over its own peak."""
+    ops = flops if isinstance(flops, dict) else {rate: flops}
+    t_ops = sum(f / peaks[r] for r, f in ops.items()) * 1e3
     t_bytes = nbytes / peaks["hbm"] * 1e3
     return {"ms": device_ms(kernel), "wall_ms": wall_ms(kernel),
             "plain_ms": device_ms(plain, 5),
@@ -280,6 +296,13 @@ def time_conv(case, peaks) -> dict:
                    lambda: K.int4_conv2d_plain(*case),
                    lambda: F.conv2d(xn, wd, bd, padding=p),
                    flops, nbytes, peaks)
+
+
+def timed_linear_shapes(cin_linears) -> list:
+    """(M, K, N) of the timed ``int4_linear`` runs: CIFAR-10 at batch 64
+    and 8, and every distinct cin256 geometry at batch 2 x CFG."""
+    return [(64, 512, 256), (BATCH, 512, 256)] + sorted(
+        {(2 * CIN_N * m, k, n) for (m, k, n) in cin_linears})
 
 
 def time_linear(case, peaks) -> dict:
@@ -940,8 +963,8 @@ def check_equal(label, got, ref, errors) -> None:
     errors.append(err)
 
 
-# (label, B*H, T, D, block_k): cin256 at batch 2 x CFG, and SD's 64x64
-# self-attention over two key blocks
+# (label, B*H, T, D): cin256 at batch 2 x CFG, and SD's 64x64
+# self-attention over two key blocks (the default block_k 2048)
 FQK_SHAPES = [("cin256", 4, 1024, 384), ("sd 64x64", 16, 4096, 40)]
 
 
@@ -962,6 +985,18 @@ def check_fqk(g, dev, errs) -> None:
         q, k, v = (x.to(torch.bfloat16)
                    for x in flash_case(g, bh, t, t, d, dev))
         tag = f"{label} bh{bh} T{t} d{d}"
+        for pv in (False, True):
+            sc = fqk_sc(P_GRIDS[0], dev)
+            got = FA.fqk_prepass(k, v, sc, ((0, 255),) * 3, pv)
+            ref = FA.fqk_prepass_plain(k, v, sc, ((0, 255),) * 3, pv)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.contiguous(), b)
+                       for a, b in zip(got, ref)):
+                raise AssertionError(f"fqk pre-pass int8_pv {pv} {tag}: "
+                                     "differs from its plain version")
+        print(f"   fqk pre-pass {tag}: bit-equal to its plain version "
+              "(bf16 k/v; v codes transposed and their column sums)",
+              flush=True)
         for pw, zz, pv in ((None, False, False), (P_GRIDS[0], True, False),
                            (P_GRIDS[1], False, False),
                            (P_GRIDS[0], True, True)):
@@ -1046,31 +1081,67 @@ def time_int8(g, dev, peaks) -> dict:
     return out
 
 
+# mode label -> (softmax grid or None, zp_zero, int8_pv)
+FQK_MODES = {"no p": (None, False, False),
+             "p levels": (P_GRIDS[0], True, False),
+             "int8_pv": (P_GRIDS[0], True, True)}
+
+
+def fqk_args(g, bh, t, d, mode, dev) -> tuple:
+    """``flash_fqk``'s arguments at (B*H, T, D) in one of ``FQK_MODES``:
+    bf16 q/k/v, the cin256 grids, the 8-bit ranges."""
+    import torch
+    pw, zz, pv = FQK_MODES[mode]
+    q, k, v = (x.to(torch.bfloat16) for x in flash_case(g, bh, t, t, d, dev))
+    return (q, k, v, fqk_sc(pw, dev), d ** -0.5, ((0, 255),) * 3,
+            None if pw is None else (0, 255), zz, pv)
+
+
 def time_fqk(g, dev, peaks) -> dict:
-    """``flash_fqk`` at cin256 (B*H 4, T 1024, D 384, bf16, 8-bit softmax
-    grid): kernel, plain version and bf16 ``scaled_dot_product_attention``
-    on q/k/v fake-quantized ahead of time."""
+    """``flash_fqk`` (pre-pass + main kernel) at cin256 (B*H 4, T 1024,
+    D 384) and SD's 64x64 (B*H 16, T 4096, D 40), bf16, in its three
+    modes: no softmax quantizer, 8-bit softmax levels (the cin256 bf16
+    deploy's), int8 P @ V; kernel, plain version and bf16
+    ``scaled_dot_product_attention`` on q/k/v fake-quantized ahead of
+    time. Returns {(label, mode): timings}."""
     import torch
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
-    _, bh, t, d = FQK_SHAPES[0]
-    q, k, v = (x.to(torch.bfloat16) for x in flash_case(g, bh, t, t, d, dev))
-    sc = fqk_sc(P_GRIDS[0], dev)
-    args = (q, k, v, sc, d ** -0.5, ((0, 255),) * 3, (0, 255), True, False)
-    fq = [FA.fake_quant_tile(x, sc[2 * i], sc[2 * i + 1], (0, 255),
-                             torch.bfloat16)[:, None]
-          for i, x in enumerate((q, k, v))]
-    flops = 2 * 2 * bh * t * t * d
-    nbytes = 2 * 4 * bh * t * d + 4 * 8
-    tm = timings(lambda: FA.flash_fqk(*args),
-                 lambda: FA.flash_fqk_plain(*args),
-                 lambda: F.scaled_dot_product_attention(*fq, scale=d ** -0.5),
-                 flops, nbytes, peaks)
-    tm["library"] = ("scaled_dot_product_attention bf16 "
-                     f"({sdpa_backend(*fq)})")
-    print(f"   flash_fqk cin256 bh{bh} T{t} d{d}: " + timing_line(tm),
-          flush=True)
-    return tm
+    out = {}
+    for label, bh, t, d in FQK_SHAPES:
+        # S = QK^T in bf16; P @ V in bf16, or in int8 for int8_pv
+        products = 2 * bh * t * t * d
+        nbytes = 2 * 4 * bh * t * d + 4 * 8
+        for mode in FQK_MODES:
+            args = fqk_args(g, bh, t, d, mode, dev)
+            sc = args[3]
+            fq = [FA.fake_quant_tile(x, sc[2 * i], sc[2 * i + 1], (0, 255),
+                                     torch.bfloat16)[:, None]
+                  for i, x in enumerate(args[:3])]
+            flops = {"bf16": products, "int8": products} if args[-1] \
+                else {"bf16": 2 * products}
+            tm = timings(lambda: FA.flash_fqk(*args),
+                         lambda: FA.flash_fqk_plain(*args),
+                         lambda: F.scaled_dot_product_attention(
+                             *fq, scale=d ** -0.5),
+                         flops, nbytes, peaks)
+            tm["library"] = ("scaled_dot_product_attention bf16 "
+                             f"({sdpa_backend(*fq)})")
+            tm["shape"] = f"(B*H {bh}, T {t}, D {d}), bf16, {mode}"
+            out[(label, mode)] = tm
+            print(f"   flash_fqk {label} bh{bh} T{t} d{d} {mode}: "
+                  + timing_line(tm)
+                  + earlier_note(tm, ("flash_fqk", label, mode)), flush=True)
+            del fq, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def earlier_note(tm: dict, key) -> str:
+    """The earlier design's device time at this shape, for reading."""
+    e = EARLIER_MS.get(key)
+    return "" if e is None else \
+        f"; earlier design {e:.4f} ({e / tm['ms']:.1f}x this)"
 
 
 # ---------------------------------------------------------------------------
@@ -1491,9 +1562,13 @@ def run() -> None:
         lin_shapes += [(2 * CIN_N * m, k, n) for (m, k, n) in cin_linears]
         for (m, k, n) in lin_shapes:
             case = linear_case(g, m, k, n, dev)
-            check_close(f"int4_linear M{m} {k}->{n}", K.int4_linear(*case),
+            got = K.int4_linear(*case)
+            check_close(f"int4_linear M{m} {k}->{n}", got,
                         K.int4_linear_plain(*case), errs["int4_linear"],
                         depth=k)
+            if not torch.equal(got, K.int4_linear(*case)):
+                raise AssertionError(f"int4_linear M{m} {k}->{n}: two calls "
+                                     "differ (the split-K order is fixed)")
         check_flash(g, dev, errs)
         check_int8(g, dev, errs, lin_shapes, conv_shapes)
         check_fqk(g, dev, errs)
@@ -1509,12 +1584,11 @@ def run() -> None:
                 conv_case(g, b, r, 3, ci, ci, dev), peaks)
             print(f"   int4_conv2d b{b} {r}x{r} 3x3 {ci}->{ci}: "
                   + timing_line(t), flush=True)
-        for m, k, n in ((64, 512, 256), (BATCH, 512, 256),
-                        (2 * CIN_N * 1024, 384, 3072)):
-            measured[("linear", m)] = t = time_linear(
+        for m, k, n in timed_linear_shapes(cin_linears):
+            measured[("linear", m, k, n)] = t = time_linear(
                 linear_case(g, m, k, n, dev), peaks)
-            print(f"   int4_linear M{m} {k}->{n}: " + timing_line(t),
-                  flush=True)
+            print(f"   int4_linear M{m} {k}->{n}: " + timing_line(t)
+                  + earlier_note(t, ("int4_linear", m, k, n)), flush=True)
         measured.update(time_flash(g, dev, peaks))
         measured["int8"] = time_int8(g, dev, peaks)
         measured["flash_fqk"] = time_fqk(g, dev, peaks)
@@ -1542,7 +1616,8 @@ def run() -> None:
     launches = main_path["launches"]
     runs = ldm["runs"]
     tc = measured[("conv", BATCH, 32, 128)]
-    tl = measured[("linear", BATCH)]
+    tl = measured[("linear", BATCH, 512, 256)]
+    fqk = measured["flash_fqk"]
     flash_rows = [
         ("flash_fp", "tfmq_dm_tpu/ops/flash_attention.py:79", "fp",
          "fp", "q/k/v f32"),
@@ -1570,7 +1645,9 @@ def run() -> None:
          "launches": launches["int4_linear"],
          "launches_cin256": runs["deployed"]["launches"]["int4_linear"],
          "max_abs_err": max(errs["int4_linear"]), **tl,
-         "cin256": measured[("linear", 2 * CIN_N * 1024)]},
+         "cin256": measured[("linear", 2 * CIN_N * 1024, 384, 3072)],
+         "shapes": [{"shape": list(key[1:]), **v}
+                    for key, v in measured.items() if key[0] == "linear"]},
     ] + [
         {"name": name, "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/flash_attention.cu",
@@ -1599,12 +1676,13 @@ def run() -> None:
          "source": "tfmq_dm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tfmq_dm_tpu/ops/flash_attention.py:175",
          "tpu": "flash_attention mode fqk",
-         "shape": f"(B*H {bh}, T {t_cin}, D {d_cin}), q/k/v bf16, 8-bit "
-                  "softmax grid",
          "launches": cin_dep["launches"]["flash_fqk"],
          "launches_path": "cin256 cli.main --int-kernels --deploy_dtype "
                           "bfloat16",
-         "max_abs_err": max(errs["flash_fqk"]), **measured["flash_fqk"]},
+         "max_abs_err": max(errs["flash_fqk"]),
+         **fqk[("cin256", "p levels")],
+         "modes": {f"{label} {mode}": tm for (label, mode), tm in fqk.items()
+                   if (label, mode) != ("cin256", "p levels")}},
         {"name": "int8_matmul_fused", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/int8_kernels.cu",
          "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:76",

@@ -9,11 +9,12 @@ runs on a machine without it:
 
 (tests/conftest.py imports JAX.) Tolerance: the kernel and its plain
 version round at the same points and differ only in how the f32 sums are
-taken; the conv's tensor cores do not round to nearest after every
-addition. 2e-5 of the output's largest magnitude. The int8 GEMMs are
-bit-equal (exact int32 sums). The fused GroupNorm's codes may move one
-level where its statistics, summed in another order, put a value at a
-rounding boundary: at most 1 level, on under 1e-4 of the codes.
+taken; the tensor cores (the conv, the linear) do not round to nearest
+after every addition. 2e-5 of the output's largest magnitude. The int8
+GEMMs are bit-equal (exact int32 sums). The fused GroupNorm's codes may
+move one level where its statistics, summed in another order, put a
+value at a rounding boundary: at most 1 level, on under 1e-4 of the
+codes.
 """
 
 import pytest
@@ -72,6 +73,33 @@ def test_cuda_int4_conv2d_matches_plain(cuda, b, h, cin, n, kk, padding):
     assert K.LAUNCHES["int4_conv2d"] == before + 1
     _assert_close(got, K.int4_conv2d_plain(x, wp, d, z, kk, kk, bias,
                                            padding))
+
+
+@pytest.mark.parametrize("m", [4, 4096, 4100])
+@pytest.mark.parametrize("k", [384, 1536, 1100])
+@pytest.mark.parametrize("n", [70, 3072, 7680])
+def test_cuda_int4_linear_tile_shapes(cuda, m, k, n):
+    """The tensor-core linear at both tile variants, with and without
+    split K, ragged M, K and N."""
+    g = torch.Generator().manual_seed(m + k + n)
+    wp, d, z, b = _weights(g, (k,), n, cuda)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    before = K.LAUNCHES["int4_linear"]
+    got = K.int4_linear(x, wp, d, z, b)
+    assert K.LAUNCHES["int4_linear"] == before + 1
+    _assert_close(got, K.int4_linear_plain(x, wp, d, z, b))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (4, 768, 960),
+                                   (256, 3840, 960), (4096, 384, 3072)])
+def test_cuda_int4_linear_reruns_bit_identical(cuda, m, k, n):
+    """Split-K partial sums are added in a fixed order (no atomics): two
+    calls give the same bits."""
+    g = torch.Generator().manual_seed(k)
+    wp, d, z, b = _weights(g, (k,), n, cuda)
+    x = torch.randn(m, k, generator=g).to(cuda)
+    first = K.int4_linear(x, wp, d, z, b)
+    assert torch.equal(first, K.int4_linear(x, wp, d, z, b))
 
 
 def test_cuda_wrappers_reject_bad_inputs(cuda):
@@ -208,6 +236,57 @@ def test_cuda_flash_fqk_matches_plain(cuda, bh, tq, tk, d, pw, zp_zero,
         assert float(diff.max()) <= 2.0 ** -7 * float(ref.abs().max())
     else:
         _assert_one_level(got, ref, pw[0])
+
+
+FQK_SC = [0.031, 130.0, 0.029, 120.0, 0.033, 125.0]
+
+
+@pytest.mark.parametrize("d", [40, 80, 384])
+@pytest.mark.parametrize("tk", [1000, 4096])
+@pytest.mark.parametrize("pw,zp_zero,int8_pv", [
+    (None, False, False), ((1 / 255.0, 0.0), True, False),
+    ((0.004, 3.0), False, False), ((1 / 255.0, 0.0), True, True)])
+def test_cuda_flash_fqk_tiles_match_plain(cuda, d, tk, pw, zp_zero,
+                                          int8_pv):
+    """The pre-pass + tensor-core fqk kernel at each padded head dim
+    (40 -> 48, 80, 384), a ragged Tk and Tk 4096 over two key blocks, in
+    the four mode / zp_zero / int8_pv combinations; the same rules as
+    above."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = (x.to(torch.bfloat16)
+               for x in _qkv(d + tk, 2, 512, tk, d, cuda))
+    dw, zw = pw if pw is not None else (1.0, 0.0)
+    sc = torch.tensor(FQK_SC + [dw, zw], device=cuda)
+    qrange = None if pw is None else A8
+    args = (q, k, v, sc, d ** -0.5, (A8,) * 3, qrange, zp_zero, int8_pv)
+    before = FA.LAUNCHES["flash_fqk"]
+    got = FA.flash_fqk(*args).float()
+    assert FA.LAUNCHES["flash_fqk"] == before + 1
+    ref = FA.flash_fqk_plain(*args).float()
+    if pw is None:
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        assert float((diff > 1e-5).float().mean()) < 0.005
+        assert float(diff.max()) <= 2.0 ** -7 * float(ref.abs().max())
+    else:
+        _assert_one_level(got, ref, pw[0])
+
+
+@pytest.mark.parametrize("d", [40, 80, 384])
+@pytest.mark.parametrize("int8_pv", [False, True])
+def test_cuda_fqk_prepass_matches_plain(cuda, d, int8_pv):
+    """The pre-pass kernel against ``fqk_prepass_plain``, bit for bit, at
+    a ragged Tk: bf16 K/V, or the transposed v codes and their column
+    sums over the real keys."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    _, k, v = (x.to(torch.bfloat16) for x in _qkv(d, 3, 8, 1000, d, cuda))
+    sc = torch.tensor(FQK_SC + [1 / 255.0, 0.0], device=cuda)
+    ranges = ((0, 255), (10, 240), (3, 200))
+    got = FA.fqk_prepass(k, v, sc, ranges, int8_pv)
+    ref = FA.fqk_prepass_plain(k, v, sc, ranges, int8_pv)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a.contiguous(), b)
 
 
 @pytest.mark.parametrize("mode", ["pquant", "int8", "fqk"])

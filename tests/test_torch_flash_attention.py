@@ -232,7 +232,9 @@ def _bf16(rng, *shape):
 FQK_CASES = [  # (tq, tk, h, d, block_k, JAX block_q)
     (256, 256, 2, 40, 128, None),     # two key blocks
     (300, 300, 1, 48, 128, 128),      # three q-blocks (JAX scratch reuse)
-    (130, 77, 1, 64, None, None)]     # ragged, Tk != Tq
+    (130, 77, 1, 64, None, None),     # ragged, Tk != Tq
+    (130, 77, 2, 40, 2048, None),     # one key block past a ragged Tk
+    (64, 300, 1, 384, 128, None)]     # cin256's head dim, ragged key block
 P_MODES = [(None, False, False), ((1 / 255.0, 0.0), True, False),
            ((0.004, 3.0), False, False), ((1 / 255.0, 0.0), True, True),
            ((0.004, 3.0), False, True)]
@@ -346,3 +348,70 @@ def test_flash_off_under_capture_tape():
     assert t_attn._flash_ok(tctx, 4096, torch.device("cuda"))
     tctx.capture = frozenset({"*"})
     assert not t_attn._flash_ok(tctx, 4096, torch.device("cuda"))
+
+
+# ---------------------------------------------------------------------------
+# the fqk pre-pass: k/v fake-quantized once per head
+# ---------------------------------------------------------------------------
+
+PREPASS_RANGES = ((0, 255), (0, 255), (0, 255))
+
+
+def _fqk_sc(pw=(1 / 255.0, 0.0)):
+    return torch.tensor([a for g in GRIDS for a in g] + list(pw),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("tk,d", [(77, 40), (1000, 384)])
+@pytest.mark.parametrize("ranges", [PREPASS_RANGES,
+                                    ((0, 255), (10, 240), (3, 200))])
+def test_fqk_prepass_plain_matches_jax(tk, d, ranges):
+    """``fqk_prepass_plain`` bit for bit against JAX's ``_fq`` and
+    ``_quant_i8`` (flash_attention.py:64-76) at a ragged Tk: bf16 K and V,
+    and the centered v codes transposed with their column sums over the
+    real keys."""
+    from tfmq_dm_tpu.ops.flash_attention import _fq, _quant_i8
+    rng = np.random.default_rng(tk + d)
+    (jk, tk_), (jv, tv_) = (_bf16(rng, 2, tk, d) for _ in range(2))
+    (dk, zk), (dv, zv) = GRIDS[1], GRIDS[2]
+    sc = _fqk_sc()
+    kf, vf = TF.fqk_prepass_plain(tk_, tv_, sc, ranges)
+    assert kf.dtype == vf.dtype == torch.bfloat16
+
+    def f32(x):
+        return np.asarray(x.astype(jnp.float32))
+
+    j_kf = _fq(jk, jnp.float32(dk), jnp.float32(zk), *ranges[1],
+               jnp.bfloat16)
+    j_vf = _fq(jv, jnp.float32(dv), jnp.float32(zv), *ranges[2],
+               jnp.bfloat16)
+    np.testing.assert_array_equal(kf.float().numpy(), f32(j_kf))
+    np.testing.assert_array_equal(vf.float().numpy(), f32(j_vf))
+    kf8, vt, vsum = TF.fqk_prepass_plain(tk_, tv_, sc, ranges, True)
+    assert torch.equal(kf8, kf)
+    j8 = np.asarray(_quant_i8(jv, jnp.float32(dv), jnp.float32(zv),
+                              *ranges[2]))
+    assert vt.shape == (2, d, tk) and vt.dtype == torch.int8
+    np.testing.assert_array_equal(vt.numpy(), j8.transpose(0, 2, 1))
+    assert vsum.dtype == torch.int32
+    np.testing.assert_array_equal(vsum.numpy(),
+                                  j8.astype(np.int32).sum(axis=1))
+
+
+@pytest.mark.parametrize("tk,d,int8_pv,dp,tkp", [
+    (1000, 40, False, 48, 1024), (4096, 384, True, 384, 4096),
+    (77, 64, True, 80, 128), (130, 160, False, 160, 192)])
+def test_fqk_scratch_pads_keys_and_head_dim(tk, d, int8_pv, dp, tkp):
+    """The pre-pass scratch: head dim padded to the kernel's template
+    width, keys to a multiple of 64; int8_pv's codes transposed, with one
+    column-sum row per 64 keys."""
+    got_dp, got_tkp, (kf, vf, vt, vpart) = TF.fqk_scratch(
+        3, tk, d, int8_pv, torch.device("cpu"))
+    assert (got_dp, got_tkp) == (dp, tkp)
+    assert kf.shape == (3, tkp, dp) and kf.dtype == torch.bfloat16
+    if int8_pv:
+        assert vf is None and vt.shape == (3, dp, tkp)
+        assert vpart.shape == (3, tkp // 64, dp)
+        assert vpart.dtype == torch.int32
+    else:
+        assert vt is None and vpart is None and vf.shape == kf.shape

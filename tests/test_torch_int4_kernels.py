@@ -150,3 +150,31 @@ def test_wrappers_refuse_other_devices():
         K.int4_linear(x, x, x, x)
     with pytest.raises(ValueError, match="unsupported device"):
         K.int4_conv2d(torch.zeros(1, 2, 2, 4, device="meta"), x, x, x, 1, 1)
+
+
+# every distinct geometry of chip_smoke.py's int4_linear checks (CIFAR-10
+# at batch 8, cin256 at batch 2 x CFG, odd shapes) and the card tests'
+PLAN_SHAPES = [(8, 512, 256), (1, 512, 256), (3, 100, 37), (64, 512, 256),
+               (4, 768, 768), (4, 512, 384), (4, 768, 960), (4096, 384, 384),
+               (4096, 384, 3072), (4096, 1536, 384), (1024, 576, 4608),
+               (256, 960, 960), (256, 3840, 960), (13, 1100, 70),
+               (4100, 1100, 7680), (4, 1536, 70)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_int4_linear_plan_partitions_k(m, k, n):
+    """The split-K plan: the small tile for M <= 64; K cut into whole
+    32-deep steps, every split non-empty; splits only where the output
+    tiles fill under half the card, and then enough blocks for at least
+    half of it where K allows."""
+    small, chunk, splits = K.linear_plan(m, k, n, sms=132)
+    assert small == (m <= 64)
+    assert chunk % 32 == 0 and (splits - 1) * chunk < k <= splits * chunk
+    bm, bn, min_chunk = K._TILES[small]
+    tiles = -(-m // bm) * -(-n // bn)
+    if 2 * tiles >= 132:
+        assert splits == 1
+    else:
+        assert splits <= K.MAX_SPLITS
+        assert 2 * tiles * splits >= min(
+            132, tiles * min(k // min_chunk, K.MAX_SPLITS))

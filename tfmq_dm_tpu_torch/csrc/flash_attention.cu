@@ -45,24 +45,48 @@
 // and the rank-1 corrections are folded over the real keys only, in
 // 64-bit integers (exact), so padded keys contribute nothing.
 //
-// fqk (the bf16 fast deploy): q/k/v arrive in bf16 and are fake-quantized
-// as each tile is loaded (_fq: f32 q/dq, then bf16), into f32 shared
-// memory; the products of two bf16 values are exact in f32, so the scalar
-// FMA products equal bf16 matrix products with f32 sums up to order. The
-// TPU kernel fake-quantizes k/v once per row into VMEM; here each block
-// fake-quantizes the tiles it loads, which gives the same values. Always
-// two passes: p (bf16), the softmax quantizer's levels, or (int8_pv)
-// integer PV on p levels and v codes with exact rank-1 corrections.
-//
-// What bounds them: at cin256 (B*H = 4, T = 1024, D = 384) each product
-// is 3.2 GFLOP and q/k/v/o move 25 MB, so the card's bound is ~7.5 us of
-// memory traffic. These kernels run their products on the FP32/INT32
-// pipes with scalar FMA / dp4a from shared memory, far from that bound;
-// tensor-core tiles (mma.sync / wgmma) are later work.
+// fqk (the bf16 fast deploy): q/k/v arrive in bf16. What bounds it on this
+// card: at cin256 (B*H 4, T 1024, D 384) its three products (S in two
+// passes, P @ V) are 9.7 GFLOP against 6.3 MB of q/k/v/o, so the bf16
+// tensor-core rate bounds it (~0.01 ms); at SD's D 40 the expf of the two
+// passes weighs as much as the products. Its first version ran the
+// products as scalar FMA from f32 shared memory and fake-quantized every
+// K/V tile in each block and in both passes. This one:
+//   - a pre-pass kernel (fqk_prepass_kernel, one launch per call, grid
+//     over key tiles, head-dim tiles and B*H) fake-quantizes K and V once
+//     per head (_fq: f32 q/dq, then bf16) into bf16 scratch (B*H, Tk
+//     padded to 64, D padded to DP), zero past Tk and D; for int8_pv it
+//     writes the centered v codes transposed, (B*H, DP, Tk padded), so
+//     that the s8 B fragments of m16n8k32 are rows of keys, and per-tile
+//     column sums of the codes over the real keys. A block takes 64 keys
+//     x 64 columns with 16-byte loads and stores (the codes are
+//     transposed in shared memory), so the pass is spread over the card.
+//     The TPU kernel does the same work once per (b, h) into VMEM
+//     scratch (_fqk_kernel's _prep);
+//   - the main kernel (flash_fqk_kernel<DP, MODE>) fake-quantizes its Q
+//     tile once into bf16 shared memory, brings the K (and V or v-code)
+//     tiles of the scratch into a two-stage cp.async ring, and runs
+//     S = Q K^T on mma.sync m16n8k16 (bf16 -> f32, ldmatrix fragments).
+//     A block holds RG groups of 16 query rows; the NC warps of a row
+//     group split the key tile for S (each keeps its own running max and
+//     denominator, combined after pass 1; a key block's max m_b is the
+//     max over the warps, exact) and split the head dim for P @ V, so the
+//     O accumulators stay at DP / NC columns a warp (96 at D 384). P is
+//     bf16 p (mode 0) or the softmax quantizer's levels (mode 1, exact in
+//     bf16) on m16n8k16, or (int8_pv) levels - 128 as int8 on m16n8k32
+//     s8 with the exact int64 rank-1 corrections of the v zero point over
+//     the real keys. P goes through shared memory between the two
+//     products, except where one warp holds a row group and P is bf16:
+//     there the S accumulators, laid out as A fragments, stay in
+//     registers.
+//   Pass 2 recomputes S with the same code on the same tiles, so it is bit
+//   for bit pass 1's, and the block maxes m_b apply.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -512,195 +536,610 @@ __device__ __forceinline__ float fq_value(float x, float delta, float inv,
   return bf16r(__fmul_rn(delta, __fsub_rn(xq, zp)));
 }
 
-// 32 rows from row0 of a (rows, d) bf16 matrix, fake-quantized, as f32
-// with row stride `stride`; zero past the last row and past column d
-__device__ __forceinline__ void load_fq_tile(float* dst, int stride,
-                                             const __nv_bfloat16* src,
-                                             int row0, int rows, int d,
-                                             int dp, float delta, float zp,
-                                             float nb, float pb) {
-  const float inv = 1.f / delta;
-  for (int idx = threadIdx.x; idx < 32 * dp; idx += NTHREADS) {
-    const int r = idx / dp, c = idx - r * dp;
-    const int row = row0 + r;
-    dst[r * stride + c] =
-        (row < rows && c < d)
-            ? fq_value(__bfloat162float(src[(size_t)row * d + c]), delta,
-                       inv, zp, nb, pb)
-            : 0.f;
+__device__ __forceinline__ float fq_code(float x, float inv, float zp,
+                                         float nb, float pb) {
+  return fminf(fmaxf(__fadd_rn(rintf(__fmul_rn(x, inv)), zp), nb), pb);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a,
+                                             const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Keys are padded to FQK_KPAD in the scratch (a multiple of every key
+// tile); a pre-pass block takes FQK_KPAD keys and FQK_PD head-dim columns.
+constexpr int FQK_KPAD = 64;
+constexpr int FQK_PD = 64;
+constexpr int FQK_PRE_THREADS = 256;
+
+// 8 consecutive values of row `key`, columns c0.. of a (rows, d) bf16
+// matrix as f32, 0 past tk and d
+__device__ __forceinline__ void load8(float* out, const __nv_bfloat16* m,
+                                      int key, int c0, int tk, int d,
+                                      bool vec) {
+  if (key < tk && vec && c0 + 8 <= d) {
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(m + (size_t)key * d + c0);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      out[i] = (key < tk && c0 + i < d)
+                   ? __bfloat162float(m[(size_t)key * d + c0 + i])
+                   : 0.f;
   }
 }
 
-// the same rows as centered int8 codes clip(round(x / delta) + zp) - 128
-__device__ __forceinline__ void load_code_tile(int8_t* dst, int stride,
-                                               const __nv_bfloat16* src,
-                                               int row0, int rows, int d,
-                                               int dp, float delta, float zp,
-                                               float nb, float pb) {
-  const float inv = 1.f / delta;
-  for (int idx = threadIdx.x; idx < 32 * dp; idx += NTHREADS) {
-    const int r = idx / dp, c = idx - r * dp;
-    const int row = row0 + r;
-    int8_t code = 0;
-    if (row < rows && c < d) {
-      const float x = __bfloat162float(src[(size_t)row * d + c]);
-      const float xq =
-          fminf(fmaxf(__fadd_rn(rintf(__fmul_rn(x, inv)), zp), nb), pb);
-      code = (int8_t)(int)(xq - 128.f);
+// 8 values fake-quantized (_fq), 0 past tk and d, stored as 8 bf16
+__device__ __forceinline__ void store_fq8(__nv_bfloat16* dst, const float* x,
+                                          int key, int c0, int tk, int d,
+                                          float delta, float inv, float zp,
+                                          float nb, float pb) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 2 * i + h;
+      f[h] = (key < tk && c < d)
+                 ? fq_value(x[2 * i + h], delta, inv, zp, nb, pb)
+                 : 0.f;
     }
-    dst[r * stride + c] = code;
+    __nv_bfloat162 v2 = __floats2bfloat162_rn(f[0], f[1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&v2);
   }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
+
+// One block: keys [t0, t0 + 64) x columns [c_base, c_base + 64) of one
+// head. k -> kf (bf16, _fq); v -> vf (bf16, _fq), or for int8_pv v -> vt,
+// the centered codes transposed (DP, Tkp) through shared memory, and
+// vpart, this tile's column sums of the codes over the real keys. Zero
+// past tk and d. 16-byte loads and stores where d allows.
+__global__ void __launch_bounds__(FQK_PRE_THREADS)
+fqk_prepass_kernel(const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   const float* __restrict__ sc,
+                   __nv_bfloat16* __restrict__ kf,
+                   __nv_bfloat16* __restrict__ vf, int8_t* __restrict__ vt,
+                   int* __restrict__ vpart, int tk, int tkp, int d, int dp,
+                   int int8_pv, FqkRanges rg) {
+  __shared__ __align__(16) int8_t codes[FQK_PD][FQK_KPAD + 16];
+  const int bh = blockIdx.z, t0 = blockIdx.x * FQK_KPAD;
+  const int c_base = blockIdx.y * FQK_PD;
+  // sc = [dq, zq, dk, zk, dv, zv, dw, zw]
+  const float dk = sc[2], zk = sc[3], dv = sc[4], zv = sc[5];
+  const float ik = 1.f / dk, iv = 1.f / dv;
+  const __nv_bfloat16* kb = k + (size_t)bh * tk * d;
+  const __nv_bfloat16* vb = v + (size_t)bh * tk * d;
+  const bool vec = d % 8 == 0 && ((uintptr_t)k % 16 == 0) &&
+                   ((uintptr_t)v % 16 == 0);
+  for (int i = threadIdx.x; i < FQK_KPAD * FQK_PD / 8;
+       i += FQK_PRE_THREADS) {
+    const int r = i / (FQK_PD / 8), cl = (i % (FQK_PD / 8)) * 8;
+    const int c0 = c_base + cl, key = t0 + r;
+    if (c0 >= dp) continue;
+    const size_t o = ((size_t)bh * tkp + key) * dp + c0;
+    float x[8];
+    load8(x, kb, key, c0, tk, d, vec);
+    store_fq8(kf + o, x, key, c0, tk, d, dk, ik, zk, rg.knb, rg.kpb);
+    load8(x, vb, key, c0, tk, d, vec);
+    if (!int8_pv) {
+      store_fq8(vf + o, x, key, c0, tk, d, dv, iv, zv, rg.vnb, rg.vpb);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        int code = 0;
+        if (key < tk && c0 + e < d)
+          code = (int)(fq_code(x[e], iv, zv, rg.vnb, rg.vpb) - 128.f);
+        codes[cl + e][r] = (int8_t)code;
+      }
+    }
+  }
+  if (!int8_pv) return;
+  __syncthreads();
+  // thread: column cl = tid / 4, keys 16 q4 .. 16 q4 + 15
+  const int cl = threadIdx.x >> 2, q4 = threadIdx.x & 3;
+  const int c = c_base + cl;
+  int sum = 0;
+  if (c < dp) {
+    const uint4 w = *reinterpret_cast<const uint4*>(&codes[cl][q4 * 16]);
+    *reinterpret_cast<uint4*>(vt + ((size_t)bh * dp + c) * tkp + t0 +
+                              q4 * 16) = w;
+    const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      sum += (int)(int8_t)((ws[i >> 2] >> (8 * (i & 3))) & 0xffu);
+  }
+  sum += __shfl_xor_sync(FULL, sum, 1);
+  sum += __shfl_xor_sync(FULL, sum, 2);
+  if (q4 == 0 && c < dp)
+    vpart[((size_t)bh * gridDim.x + blockIdx.x) * dp + c] = sum;
+}
+
+// Per padded head dim: NC warps share a row group of 16 query rows (they
+// split the key tile for S and the head dim for P @ V), RG row groups a
+// block, key tiles of BK.
+template <int DP> struct FqkCfg;
+template <> struct FqkCfg<48> { static constexpr int NC = 1, RG = 4, BK = 64; };
+template <> struct FqkCfg<80> { static constexpr int NC = 1, RG = 4, BK = 64; };
+template <> struct FqkCfg<160> { static constexpr int NC = 2, RG = 2, BK = 64; };
+template <> struct FqkCfg<384> { static constexpr int NC = 4, RG = 2, BK = 32; };
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+template <int DP>
+struct FqkShape {
+  static constexpr int NC = FqkCfg<DP>::NC, RG = FqkCfg<DP>::RG,
+                       BK = FqkCfg<DP>::BK;
+  static constexpr int THREADS = 32 * NC * RG;
+  static constexpr int BQ = 16 * RG;    // query rows a block
+  static constexpr int KW = BK / NC;    // keys a warp scores per tile
+  static constexpr int DC = DP / NC;    // head-dim columns a warp owns
+  static constexpr int QP = DP + 8;     // bf16 pitch of Q, K, V tiles
+  static constexpr int PP = BK + 8;     // bf16 pitch of the P tile
+  static constexpr int BP = BK + 16;    // byte pitch of the int8 P / v tiles
+  static constexpr int Q_BYTES = BQ * QP * 2;
+  static constexpr int K_BYTES = BK * QP * 2;                    // a stage
+  static constexpr int V_BYTES = cmax(BK * QP * 2, DP * BP);     // a stage
+  static constexpr int P_BYTES = RG * 16 * PP * 2;
+  // P stays in registers with one warp a row group and bf16 P (mode != 2)
+  __host__ __device__ static constexpr bool preg(int mode) {
+    return NC == 1 && mode != 2;
+  }
+  // bytes of shared memory for nkb key blocks (the block maxes last)
+  static constexpr int smem(int mode, int nkb) {
+    return Q_BYTES + 2 * K_BYTES + 2 * V_BYTES + (preg(mode) ? 0 : P_BYTES) +
+           4 * (3 * NC * BQ + DP + NC * BQ * nkb);
+  }
+  static_assert(KW % 8 == 0 && DC % 16 == 0 && BK % 32 == 0, "tiles");
+  static_assert(FQK_KPAD % BK == 0 && DP % 16 == 0, "padding");
+  static_assert(2 * PP >= BP, "int8 P tile fits the bf16 one");
+};
 
 // MODE 0: p cast to bf16; 1: softmax-quantizer levels (p_q - zw);
 // 2 (int8_pv): integer P @ V on p_q - 128 and v codes, exact corrections
-template <int NC, int MODE>
-__global__ void __launch_bounds__(NTHREADS)
+template <int DP, int MODE>
+__global__ void __launch_bounds__(FqkShape<DP>::THREADS)
 flash_fqk_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const float* __restrict__ sc,
-                 __nv_bfloat16* __restrict__ o, int tq, int tk, int d,
-                 int bk, float sm_scale, int zp_zero, FqkRanges rg) {
-  extern __shared__ __align__(16) float smem[];
-  const int dp = (d + 3) & ~3;
-  const int ksd = dp + 4;
-  float* qs = smem;
-  float* ks = qs + BQ * dp;
-  float* mblk = ks + BK * ksd;          // [BQ][MAX_KB]
-  float* vs = mblk + BQ * MAX_KB;       // f32 values, or int8 codes
-  int8_t* vs8 = reinterpret_cast<int8_t*>(vs);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                 const __nv_bfloat16* __restrict__ kf,
+                 const __nv_bfloat16* __restrict__ vf,
+                 const int8_t* __restrict__ vt,
+                 const int* __restrict__ vpart, const float* __restrict__ sc,
+                 __nv_bfloat16* __restrict__ o, int tq, int tk, int tkp,
+                 int d, int bk, int npre, float sm_scale, int zp_zero,
+                 FqkRanges rg) {
+  using S = FqkShape<DP>;
+  constexpr int NC = S::NC, BQ = S::BQ, BK = S::BK, KW = S::KW, DC = S::DC;
+  constexpr int QP = S::QP, PP = S::PP, BP = S::BP;
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_u8);
+  __nv_bfloat16* Ks =
+      reinterpret_cast<__nv_bfloat16*>(smem_u8 + S::Q_BYTES);  // [2][BK][QP]
+  unsigned char* Vst = smem_u8 + S::Q_BYTES + 2 * S::K_BYTES;   // 2 stages
+  constexpr bool PREG = S::preg(MODE);
+  unsigned char* Pt = Vst + 2 * S::V_BYTES;                     // [RG][16][.]
+  float* mred = reinterpret_cast<float*>(Pt + (PREG ? 0 : S::P_BYTES));
+  float* lred = mred + NC * BQ;                                 // [NC][BQ]
+  int* pred = reinterpret_cast<int*>(lred + NC * BQ);           // [NC][BQ]
+  int* vsum_s = pred + NC * BQ;                                 // [DP]
+  float* mpart = reinterpret_cast<float*>(vsum_s + DP);         // [NC][BQ][nkb]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rgi = warp / NC, cw = warp % NC;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = rgi * 16;  // this warp's first row in the block
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const __nv_bfloat16* qb = q + (size_t)bh * tq * d;
-  const __nv_bfloat16* kb_ = k + (size_t)bh * tk * d;
-  const __nv_bfloat16* vb = v + (size_t)bh * tk * d;
-  // sc = [dq, zq, dk, zk, dv, zv, dw, zw]
-  const float dk = sc[2], zk = sc[3], dv = sc[4], zv = sc[5];
   const float dw = sc[6], zw = sc[7];
-  load_fq_tile(qs, dp, qb, q0, tq, d, dp, sc[0], sc[1], rg.qnb, rg.qpb);
 
-  float m[RPW], l[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-  }
-  const int nkt = (tk + BK - 1) / BK;
-
-  // pass 1: row max, denominator and the block maxes
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_fq_tile(ks, ksd, kb_, kt * BK, tk, d, dp, dk, zk, rg.knb, rg.kpb);
-    __syncthreads();
-    float s[RPW];
-    scores_f32<NC>(s, qs, ks, dp, ksd, warp, lane, kt * BK + lane, tk,
-                   sm_scale);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(s[r]));
-      l[r] = l[r] * expf(m[r] - m_new) + warp_sum(expf(s[r] - m_new));
-      m[r] = m_new;
+  // the Q tile, fake-quantized once (zero past tq and d)
+  {
+    const float dq = sc[0], zq = sc[1], iq = 1.f / dq;
+    const __nv_bfloat16* qb = q + (size_t)bh * tq * d;
+    for (int idx = tid; idx < BQ * DP; idx += S::THREADS) {
+      const int r = idx / DP, c = idx - r * DP;
+      const int row = q0 + r;
+      Qs[r * QP + c] = __float2bfloat16_rn(
+          (row < tq && c < d)
+              ? fq_value(__bfloat162float(qb[(size_t)row * d + c]), dq, iq,
+                         zq, rg.qnb, rg.qpb)
+              : 0.f);
     }
-    record_block_max(mblk, m, warp, lane, kt, nkt, bk);
   }
 
-  float inv[RPW], acc[RPW][NC];
-  int pvi[RPW][MODE == 2 ? NC : 1], psum[RPW], vsum[MODE == 2 ? NC : 1];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    inv[r] = MODE == 0 ? 1.f / l[r] : 1.f / (l[r] * dw);
-    psum[r] = 0;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < (MODE == 2 ? NC : 1); ++i) pvi[r][i] = 0;
-  }
-#pragma unroll
-  for (int i = 0; i < (MODE == 2 ? NC : 1); ++i) vsum[i] = 0;
+  const __nv_bfloat16* kbase = kf + (size_t)bh * tkp * DP;
+  auto load_k = [&](int kt, int stage) {
+    const __nv_bfloat16* src = kbase + (size_t)kt * BK * DP;
+    __nv_bfloat16* dst = Ks + stage * BK * QP;
+    for (int i = tid; i < BK * DP / 8; i += S::THREADS) {
+      const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
+      cp_async16(dst + r * QP + c, src + r * DP + c);
+    }
+  };
+  auto load_v = [&](int kt, int stage) {
+    if constexpr (MODE == 2) {
+      const int8_t* src = vt + (size_t)bh * DP * tkp + kt * BK;
+      int8_t* dst = reinterpret_cast<int8_t*>(Vst + stage * S::V_BYTES);
+      for (int i = tid; i < DP * BK / 16; i += S::THREADS) {
+        const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
+        cp_async16(dst + r * BP + c, src + (size_t)r * tkp + c);
+      }
+    } else {
+      const __nv_bfloat16* src = vf + ((size_t)bh * tkp + kt * BK) * DP;
+      __nv_bfloat16* dst =
+          reinterpret_cast<__nv_bfloat16*>(Vst + stage * S::V_BYTES);
+      for (int i = tid; i < BK * DP / 8; i += S::THREADS) {
+        const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
+        cp_async16(dst + r * QP + c, src + r * DP + c);
+      }
+    }
+  };
 
-  // pass 2: recompute s, p against its block's max, P @ V
+  // S of this warp's 16 rows and its KW keys of tile kt (in `stage`):
+  // s[j][e] is row g + 8 (e >> 1), key kt*BK + cw*KW + 8j + 2 t4 + (e & 1)
+  // (a warp with one n8 tile sums even and odd k16 steps in two chains,
+  // added at the end, so that two mma are in flight)
+  constexpr int CH = KW / 8 == 1 ? 2 : 1;
+  float s[KW / 8][4];
+  auto scores = [&](int stage, int kt) {
+    float sa[CH][KW / 8][4];
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[c][j][e] = 0.f;
+    const __nv_bfloat16* ks = Ks + stage * BK * QP + cw * KW * QP;
+    static_assert(DP % (16 * CH) == 0, "chains");
+#pragma unroll 2
+    for (int k2 = 0; k2 < DP; k2 += 16 * CH)
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int kk = k2 + 16 * c;
+      float (&acc)[KW / 8][4] = sa[c];
+      uint32_t a[4];
+      ldsm_x4(a, Qs + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * QP + kk +
+                     (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j + 1 < KW / 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * QP + kk +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(acc[j], a, b);
+        mma_bf16_16816(acc[j + 1], a, b + 2);
+      }
+      if constexpr ((KW / 8) % 2 == 1) {
+        uint32_t b[2];
+        ldsm_x2(b, ks + ((KW / 8 - 1) * 8 + (lane & 7)) * QP + kk +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16_16816(acc[KW / 8 - 1], a, b);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * BK + cw * KW + j * 8 + 2 * t4 + (e & 1);
+        const float v = CH == 2 ? sa[0][j][e] + sa[CH - 1][j][e]
+                                : sa[0][j][e];
+        s[j][e] = key < tk ? v * sm_scale : NEG_INF;
+      }
+  };
+  auto key_ok = [&](int kt, int j, int e) {
+    return (kt + 1) * BK <= tk ||
+           kt * BK + cw * KW + j * 8 + 2 * t4 + (e & 1) < tk;
+  };
+
+  const int nkt = (tk + BK - 1) / BK;
+  const int nkb = ((nkt - 1) * BK) / bk + 1;
+
+  // pass 1: each warp's running max and denominator over its keys, and its
+  // running max at the end of each key block
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  load_k(0, 0);
+  cp_async_commit();
   for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_k(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_fq_tile(ks, ksd, kb_, kt * BK, tk, d, dp, dk, zk, rg.knb, rg.kpb);
-    if (MODE == 2)
-      load_code_tile(vs8, dp, vb, kt * BK, tk, d, dp, dv, zv, rg.vnb,
-                     rg.vpb);
-    else
-      load_fq_tile(vs, dp, vb, kt * BK, tk, d, dp, dv, zv, rg.vnb, rg.vpb);
-    __syncthreads();
-    float s[RPW];
-    scores_f32<NC>(s, qs, ks, dp, ksd, warp, lane, kt * BK + lane, tk,
-                   sm_scale);
-    const bool valid = kt * BK + lane < tk;
-    const int kb = kt * BK / bk;
-    int p8[RPW];
+    scores(kt & 1, kt);
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float mb = mblk[(warp * RPW + r) * MAX_KB + kb];
-      const float x = __fmul_rn(expf(s[r] - mb),
-                                __fmul_rn(expf(mb - m[r]), inv[r]));
-      p8[r] = 0;
-      if (MODE == 0) {
-        s[r] = valid ? bf16r(x) : 0.f;
-      } else {
-        const float xr = rintf(x);
-        const float pq =
-            zp_zero ? fminf(xr, rg.wpb)
-                    : fminf(fmaxf(__fadd_rn(xr, zw), rg.wnb), rg.wpb);
-        if (MODE == 1) {
-          s[r] = valid ? (zp_zero ? pq : __fsub_rn(pq, zw)) : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m_r[h], mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (key_ok(kt, j, e)) sum += expf(s[j][2 * h + e] - m_new);
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l_r[h] = l_r[h] * expf(m_r[h] - m_new) + sum;
+      m_r[h] = m_new;
+    }
+    if (t4 == 0 && (((kt + 1) * BK) % bk == 0 || kt == nkt - 1)) {
+      const int kb = kt * BK / bk;
+      mpart[(cw * BQ + row0 + g) * nkb + kb] = m_r[0];
+      mpart[(cw * BQ + row0 + g + 8) * nkb + kb] = m_r[1];
+    }
+    __syncthreads();
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mred[cw * BQ + row0 + g + 8 * h] = m_r[h];
+      lred[cw * BQ + row0 + g + 8 * h] = l_r[h];
+    }
+  }
+  __syncthreads();
+  // the row's max, its denominator (warps in order) and the block maxes
+  float m_f[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    float m = mred[r];
+#pragma unroll
+    for (int c = 1; c < NC; ++c) m = fmaxf(m, mred[c * BQ + r]);
+    float l = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      l += lred[c * BQ + r] * expf(mred[c * BQ + r] - m);
+    m_f[h] = m;
+    inv[h] = MODE == 0 ? 1.f / l : 1.f / (l * dw);
+  }
+  for (int i = tid; i < BQ * nkb; i += S::THREADS) {
+    const int r = i / nkb, kb = i - r * nkb;
+    float mb = mpart[r * nkb + kb];
+#pragma unroll
+    for (int c = 1; c < NC; ++c)
+      mb = fmaxf(mb, mpart[(c * BQ + r) * nkb + kb]);
+    mpart[r * nkb + kb] = mb;
+  }
+
+  // pass 2: recompute S, p against its block's max, P through shared
+  // memory, P @ V on this warp's head-dim columns
+  using Acc = typename std::conditional<MODE == 2, int, float>::type;
+  Acc acc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  int psum[2] = {0, 0};
+  // one warp a row group (NC 1) and bf16 P: the S accumulators of two
+  // neighbouring n8 tiles are an m16n8k16 A fragment, so P stays in
+  // registers (pk[j][h]: row g + 8h, keys 8j + 2t4, +1)
+  uint32_t pk[KW / 8][2];
+  __nv_bfloat16* Pb = reinterpret_cast<__nv_bfloat16*>(Pt) + rgi * 16 * PP;
+  int8_t* P8 = reinterpret_cast<int8_t*>(Pt) + rgi * 16 * BP;
+
+  load_k(0, 0);
+  load_v(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nkt) {
+      load_k(kt + 1, st ^ 1);
+      load_v(kt + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    scores(st, kt);
+    const int kb = kt * BK / bk;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mb = mpart[(row0 + g + 8 * h) * nkb + kb];
+      const float f = __fmul_rn(expf(mb - m_f[h]), inv[h]);
+      const int r = g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < KW / 8; ++j) {
+        float pv[2];
+        int p8[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool valid = key_ok(kt, j, e);
+          const float x = __fmul_rn(expf(s[j][2 * h + e] - mb), f);
+          pv[e] = 0.f;
+          p8[e] = 0;
+          if (MODE == 0) {
+            pv[e] = valid ? x : 0.f;
+          } else {
+            const float xr = rintf(x);
+            const float pq =
+                zp_zero ? fminf(xr, rg.wpb)
+                        : fminf(fmaxf(__fadd_rn(xr, zw), rg.wnb), rg.wpb);
+            if (MODE == 1)
+              pv[e] = valid ? (zp_zero ? pq : __fsub_rn(pq, zw)) : 0.f;
+            else
+              p8[e] = valid ? (int)(pq - 128.f) : 0;
+          }
+        }
+        const int col = cw * KW + j * 8 + 2 * t4;
+        if constexpr (MODE == 2) {
+          psum[h] += p8[0] + p8[1];
+          *reinterpret_cast<uint16_t*>(P8 + r * BP + col) =
+              (uint16_t)((uint8_t)(int8_t)p8[0] |
+                         ((uint16_t)(uint8_t)(int8_t)p8[1] << 8));
         } else {
-          p8[r] = valid ? (int)(pq - 128.f) : 0;
-          psum[r] += warp_sum_int(p8[r]);
+          __nv_bfloat162 v2 = __floats2bfloat162_rn(pv[0], pv[1]);
+          if constexpr (PREG)
+            pk[j][h] = *reinterpret_cast<uint32_t*>(&v2);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(Pb + r * PP + col) = v2;
         }
       }
     }
-    const int nkeys = min(BK, tk - kt * BK);
+    if constexpr (!PREG) __syncthreads();
     if constexpr (MODE == 2) {
-      for (int j = 0; j < nkeys; ++j) {
-        int pj[RPW];
+      const int8_t* vs = reinterpret_cast<const int8_t*>(Vst + st * S::V_BYTES);
 #pragma unroll
-        for (int r = 0; r < RPW; ++r) pj[r] = __shfl_sync(FULL, p8[r], j);
-        const int8_t* vr = vs8 + j * dp;
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t a[4];
+        ldsm_x4(a, P8 + ((lane & 7) + ((lane >> 3) & 1) * 8) * BP + kk +
+                       (lane >> 4) * 16);
 #pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int vv = vr[min(lane + 32 * i, dp - 1)];
-          vsum[i] += vv;
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) pvi[r][i] += pj[r] * vv;
+        for (int j = 0; j < DC / 8; j += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, vs +
+                         (cw * DC + j * 8 + (lane & 7) + (lane >> 4) * 8) * BP +
+                         kk + ((lane >> 3) & 1) * 16);
+          mma_s8_16832(acc[j], a, b);
+          mma_s8_16832(acc[j + 1], a, b + 2);
         }
       }
     } else {
-      pv_f32<NC>(acc, s, vs, dp, d, lane, nkeys);
+      const __nv_bfloat16* vs =
+          reinterpret_cast<const __nv_bfloat16*>(Vst + st * S::V_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t a[4];
+        if constexpr (PREG) {
+          a[0] = pk[kk / 8][0];
+          a[1] = pk[kk / 8][1];
+          a[2] = pk[kk / 8 + 1][0];
+          a[3] = pk[kk / 8 + 1][1];
+        } else {
+          ldsm_x4(a, Pb + ((lane & 7) + ((lane >> 3) & 1) * 8) * PP + kk +
+                         (lane >> 4) * 8);
+        }
+#pragma unroll
+        for (int j = 0; j < DC / 8; j += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, vs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * QP +
+                               cw * DC + j * 8 + (lane >> 4) * 8);
+          mma_bf16_16816(acc[j], a, b);
+          mma_bf16_16816(acc[j + 1], a, b + 2);
+        }
+      }
     }
+    __syncthreads();
   }
 
-  const long long zvc = __float2ll_rn(zv - 128.f);
-  const long long wz = 128 - __float2ll_rn(zw);
-  const float dwdv = __fmul_rn(dw, dv);
+  if constexpr (MODE == 2) {
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
+    for (int h = 0; h < 2; ++h) {
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 1);
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 2);
+      if (t4 == 0) pred[cw * BQ + row0 + g + 8 * h] = psum[h];
+    }
+    for (int c = tid; c < DP; c += S::THREADS) {
+      int sum = 0;
+      for (int t = 0; t < npre; ++t)
+        sum += vpart[((size_t)bh * npre + t) * DP + c];
+      vsum_s[c] = sum;
+    }
+    __syncthreads();
+  }
+
+  const long long zvc = __float2ll_rn(sc[5] - 128.f);
+  const long long wz = 128 - __float2ll_rn(zw);
+  const float dwdv = __fmul_rn(dw, sc[4]);
+  const bool pair = (d & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    const int row = q0 + r;
     if (row >= tq) continue;
+    long long ps = 0;
+    if constexpr (MODE == 2) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) ps += pred[c * BQ + r];
+    }
     __nv_bfloat16* orow = o + ((size_t)bh * tq + row) * d;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int cc = lane + 32 * i;
-      if (cc >= d) continue;
-      float val;
-      if constexpr (MODE == 2) {
-        // sum over real keys of (p_q - zw)(v_q - zv), exact in 64 bits
-        const long long corr = (long long)pvi[r][i] -
-                               zvc * (long long)psum[r] +
-                               wz * (long long)vsum[i] - wz * zvc * tk;
-        val = __fmul_rn(dwdv, (float)corr);
-      } else if constexpr (MODE == 1) {
-        val = __fmul_rn(dw, acc[r][i]);
-      } else {
-        val = acc[r][i];
+    for (int j = 0; j < DC / 8; ++j) {
+      const int col = cw * DC + j * 8 + 2 * t4;
+      float val[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (MODE == 2) {
+          // sum over real keys of (p_q - zw)(v_q - zv), exact in 64 bits
+          const long long vs = col + e < DP ? vsum_s[col + e] : 0;
+          const long long corr = (long long)acc[j][2 * h + e] - zvc * ps +
+                                 wz * vs - wz * zvc * tk;
+          val[e] = __fmul_rn(dwdv, (float)corr);
+        } else if constexpr (MODE == 1) {
+          val[e] = __fmul_rn(dw, acc[j][2 * h + e]);
+        } else {
+          val[e] = acc[j][2 * h + e];
+        }
       }
-      orow[cc] = __float2bfloat16_rn(val);
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(val[0], val[1]);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16_rn(val[0]);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(val[1]);
+      }
     }
   }
 }
@@ -720,27 +1159,35 @@ size_t i8_smem(int d) {
          BK * dp;
 }
 
-size_t fqk_smem(int d) {
-  const int dp = (d + 3) & ~3;
-  return sizeof(float) * (BQ * dp + BK * (dp + 4) + BQ * MAX_KB + BK * dp);
+// the padded head dim the fqk kernels take for d, or 0
+int fqk_dp(int d) {
+  return d <= 0 ? 0 : d <= 48 ? 48 : d <= 80 ? 80 : d <= 160 ? 160
+                                                    : d <= 384 ? 384 : 0;
 }
 
-template <int NC, int MODE>
-int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, const float* sc, __nv_bfloat16* o,
-               int bh, int tq, int tk, int d, int bk, float sm_scale,
-               int zp_zero, FqkRanges rg, cudaStream_t stream) {
+template <int DP, int MODE>
+int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* kf,
+               const __nv_bfloat16* vf, const int8_t* vt, const int* vpart,
+               const float* sc, __nv_bfloat16* o, int bh, int tq, int tk,
+               int tkp, int d, int bk, int npre, float sm_scale, int zp_zero,
+               FqkRanges rg, cudaStream_t stream) {
+  using S = FqkShape<DP>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fqk_kernel<NC, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fqk_smem(32 * NC));
+        flash_fqk_kernel<DP, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem(MODE, MAX_KB));
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_fqk_kernel<NC, MODE><<<grid, NTHREADS, fqk_smem(d), stream>>>(
-      q, k, v, sc, o, tq, tk, d, bk, sm_scale, zp_zero, rg);
+  if (bk % S::BK) return (int)cudaErrorInvalidValue;
+  const int nkt = (tk + S::BK - 1) / S::BK;
+  const int nkb = ((nkt - 1) * S::BK) / bk + 1;
+  dim3 grid((tq + S::BQ - 1) / S::BQ, bh);
+  flash_fqk_kernel<DP, MODE><<<grid, S::THREADS, S::smem(MODE, nkb),
+                               stream>>>(
+      q, kf, vf, vt, vpart, sc, o, tq, tk, tkp, d, bk, npre, sm_scale,
+      zp_zero, rg);
   return (int)cudaGetLastError();
 }
 
@@ -846,32 +1293,67 @@ int tfmq_flash_int8(const void* q8, const void* k8, const void* v8,
   return (int)cudaErrorInvalidValue;
 }
 
-int tfmq_flash_fqk(const void* q, const void* k, const void* v,
-                   const void* sc, void* o, int bh, int tq, int tk, int d,
-                   int bk, float sm_scale, int mode, int zp_zero, float qnb,
-                   float qpb, float knb, float kpb, float vnb, float vpb,
-                   float wnb, float wpb, int device, void* stream) {
+// The fqk pre-pass alone: kf (bh, tkp, dp) bf16, and vf (bh, tkp, dp)
+// bf16 or (int8_pv) vt (bh, dp, tkp) int8 with vpart (bh, tkp / 64, dp)
+// int32; dp = the padded head dim, tkp = tk rounded up to 64.
+int tfmq_fqk_prepass(const void* k, const void* v, const void* sc, void* kf,
+                     void* vf, void* vt, void* vpart, int bh, int tk, int d,
+                     int dp, int tkp, int int8_pv, float knb, float kpb,
+                     float vnb, float vpb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!key_blocks_ok(tk, bk) || mode < 0 || mode > 2)
+  if (bh <= 0 || bh > 65535 || tk <= 0 || dp != fqk_dp(d) ||
+      tkp != (tk + FQK_KPAD - 1) / FQK_KPAD * FQK_KPAD)
     return (int)cudaErrorInvalidValue;
+  const FqkRanges rg = {0.f, 0.f, knb, kpb, vnb, vpb, 0.f, 0.f};
+  dim3 grid(tkp / FQK_KPAD, (dp + FQK_PD - 1) / FQK_PD, bh);
+  fqk_prepass_kernel<<<grid, FQK_PRE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const float*)sc,
+      (__nv_bfloat16*)kf, (__nv_bfloat16*)vf, (int8_t*)vt, (int*)vpart, tk,
+      tkp, d, dp, int8_pv, rg);
+  return (int)cudaGetLastError();
+}
+
+// Pre-pass and main kernel on the caller's scratch (see above). Mode 0: no
+// softmax quantizer; 1: its levels on bf16 products; 2: int8_pv.
+int tfmq_flash_fqk(const void* q, const void* k, const void* v,
+                   const void* sc, void* o, void* kf, void* vf, void* vt,
+                   void* vpart, int bh, int tq, int tk, int d, int dp,
+                   int tkp, int bk, float sm_scale, int mode, int zp_zero,
+                   float qnb, float qpb, float knb, float kpb, float vnb,
+                   float vpb, float wnb, float wpb, int device,
+                   void* stream) {
+  if (!key_blocks_ok(tk, bk) || bk % FQK_KPAD || mode < 0 || mode > 2 ||
+      tq <= 0)
+    return (int)cudaErrorInvalidValue;
+  int err = tfmq_fqk_prepass(k, v, sc, kf, vf, vt, vpart, bh, tk, d, dp,
+                             tkp, mode == 2, knb, kpb, vnb, vpb, device,
+                             stream);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
+  const int npre = tkp / FQK_KPAD;
   const __nv_bfloat16 *qb = (const __nv_bfloat16*)q,
-                      *kb = (const __nv_bfloat16*)k,
-                      *vb = (const __nv_bfloat16*)v;
+                      *kfb = (const __nv_bfloat16*)kf,
+                      *vfb = (const __nv_bfloat16*)vf;
+  const int8_t* vti = (const int8_t*)vt;
+  const int* vp = (const int*)vpart;
   const float* scf = (const float*)sc;
   __nv_bfloat16* ob = (__nv_bfloat16*)o;
   const FqkRanges rg = {qnb, qpb, knb, kpb, vnb, vpb, wnb, wpb};
-#define TFMQ_FQK(NC)                                                       \
-  return mode == 0 ? launch_fqk<NC, 0>(qb, kb, vb, scf, ob, bh, tq, tk, d, \
-                                       bk, sm_scale, zp_zero, rg, s)       \
-         : mode == 1 ? launch_fqk<NC, 1>(qb, kb, vb, scf, ob, bh, tq, tk,  \
-                                         d, bk, sm_scale, zp_zero, rg, s)  \
-                     : launch_fqk<NC, 2>(qb, kb, vb, scf, ob, bh, tq, tk,  \
-                                         d, bk, sm_scale, zp_zero, rg, s)
-  if (d <= 64) TFMQ_FQK(2);
-  if (d <= 160) TFMQ_FQK(5);
-  if (d <= 384) TFMQ_FQK(12);
+#define TFMQ_FQK(DP)                                                        \
+  return mode == 0 ? launch_fqk<DP, 0>(qb, kfb, vfb, vti, vp, scf, ob, bh,  \
+                                       tq, tk, tkp, d, bk, npre, sm_scale,  \
+                                       zp_zero, rg, s)                      \
+         : mode == 1 ? launch_fqk<DP, 1>(qb, kfb, vfb, vti, vp, scf, ob, bh, \
+                                         tq, tk, tkp, d, bk, npre, sm_scale, \
+                                         zp_zero, rg, s)                    \
+                     : launch_fqk<DP, 2>(qb, kfb, vfb, vti, vp, scf, ob, bh, \
+                                         tq, tk, tkp, d, bk, npre, sm_scale, \
+                                         zp_zero, rg, s)
+  if (dp == 48) TFMQ_FQK(48);
+  if (dp == 80) TFMQ_FQK(80);
+  if (dp == 160) TFMQ_FQK(160);
+  if (dp == 384) TFMQ_FQK(384);
 #undef TFMQ_FQK
   return (int)cudaErrorInvalidValue;
 }

@@ -20,13 +20,33 @@
 // Products of two bf16 values are exact in f32; both kernels accumulate
 // them in f32 and then add the f32 bias.
 //
-// What bounds them on this card: at the CIFAR-10 serving shapes the linear
-// (M = batch <= 64, K = 512) is bound by its packed weight bytes, and at
-// M = 8 mostly by launch latency: it stays a scalar-FMA kernel that reads
-// each packed byte once per 8 rows. The conv (implicit GEMM, M = B*H*W,
-// K = 9*Cin) is bound by arithmetic and runs on the tensor cores
-// (mma.sync, bf16 operands, f32 accumulators), one tile step at a time
-// without a copy pipeline; times against the bound are in PERF.md.
+// What bounds them on this card. The linear at cin256's transformer
+// shapes (M = tokens x batch up to 4096, K 384-3840, N up to 7680) is
+// bound by its f32 output bytes and, close behind, by its bf16 products;
+// at CIFAR-10's M = 8 and cin256's per-image embedding projections (M 4)
+// by the packed weight bytes and launch latency. Its first version read
+// and dequantized each packed byte once per 8 rows of x on the FP32 pipe
+// (36.9x torch.matmul at M 4096). This design runs the products on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 accumulators) over
+// a block tile of 128 x 128 outputs (16 x 64 for M <= 64), so each packed
+// byte is read and dequantized once per block tile into a bf16 [k][n]
+// tile (ldmatrix.trans gives the B fragments); x is converted to bf16
+// once on its way into shared memory. The raw tiles (x in f32, the
+// packed bytes) come by cp.async in a three-stage ring, and the bf16
+// tiles are double-buffered: a K step converts the next step's tiles
+// while it runs its own products, under one barrier a step. A block first
+// tabulates the 16 dequantized values of each of its channels (the
+// arithmetic above), so a packed byte costs two table lookups (a thread
+// owns one byte column: byte loads, lookups and word stores without bank
+// conflicts). Two blocks of the large tile fit an SM. Where the output
+// tiles would leave most SMs idle, K is split over blocks; the partial
+// sums go to a workspace and a second kernel adds them in split order,
+// so two calls give bit-identical outputs (no atomics). Every 32-byte
+// sector of the output is written whole (float2 stores of the
+// accumulator fragments). The conv (implicit GEMM, M = B*H*W, K =
+// 9*Cin) is bound by arithmetic and runs on the tensor cores (mma.sync),
+// one tile step at a time without a copy pipeline. Times against the
+// bound are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,81 +66,303 @@ __device__ __forceinline__ float hi_code(uint8_t b) {
   return (float)((((int)b >> 4) ^ 8) - 8);
 }
 
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes global -> shared, asynchronously; the bytes past `bytes` (0 to
+// 16) are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // int4 linear: out (M, N) = bf16(x) (M, K) @ dequant(w) (K, N) + bias
-// Block: 32 packed byte columns (64 outputs) x LIN_MT rows of x; the eight
-// warps split K and their partial sums are added in shared memory.
+// Block tile BM x BN outputs, K steps of LIN_BK, WM x WN warps; blockIdx.z
+// takes the K range [z * kchunk, (z + 1) * kchunk). One split: bias added,
+// out written. Several: the partial sums go to ws[z] (M, N) and
+// int4_linear_reduce adds them.
+// Each K step's x tile (f32) and packed-byte tile arrive by cp.async in a
+// LIN_STAGES ring; the step converts its stage into the bf16 tiles As
+// [m][k] and Bs [k][n] (each packed byte dequantized once, bf16(bf16(q -
+// zp) * delta)), then runs the products from them.
 // ---------------------------------------------------------------------------
 
-constexpr int LIN_MT = 8;    // rows of x per block
-constexpr int LIN_KC = 512;  // K chunk staged in shared memory
-constexpr int LIN_TX = 32;   // packed byte columns per block
-constexpr int LIN_TY = 8;    // warps splitting K
+constexpr int LIN_BK = 32;
+constexpr int LIN_STAGES = 3;
 
-__global__ void __launch_bounds__(LIN_TX * LIN_TY)
+template <int BM, int BN, int WM, int WN>
+struct LinTile {
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int TM = BM / WM, TN = BN / WN;   // warp tile
+  static constexpr int MI = TM / 16, NJ = TN / 8;    // mma tiles per warp
+  static constexpr int AP = LIN_BK + 8;  // bf16 pitch of As: 80 bytes
+  static constexpr int BP = BN + 8;      // bf16 pitch of Bs: rows 16 B apart
+                                         // mod 128 B, conflict-free
+  static constexpr int A_IT = BM * LIN_BK / 4 / THREADS;   // f32 x4 / thread
+  // the B tile: a thread owns one byte column (two output channels) and
+  // dequantizes B_ROWS of its rows, every B_RSTEP-th, by table lookup
+  static constexpr int B_RSTEP = THREADS / (BN / 2);
+  static constexpr int B_ROWS = LIN_BK / B_RSTEP;
+  static constexpr int XCH = BM * LIN_BK / 4;     // 16-byte chunks of x
+  static constexpr int WCH = LIN_BK * BN / 32;    // 16-byte chunks of bytes
+  // shared memory: the raw ring, then As[2], Bs[2] and the dequant table
+  static constexpr int X_BYTES = BM * LIN_BK * 4;
+  static constexpr int W_BYTES = LIN_BK * BN / 2;
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int A_OFF = LIN_STAGES * STAGE;
+  static constexpr int B_OFF = A_OFF + 2 * BM * AP * 2;
+  static constexpr int T_OFF = B_OFF + 2 * LIN_BK * BP * 2;
+  static constexpr int SMEM = T_OFF + 16 * BN * 2;
+  static_assert(MI >= 1 && NJ % 2 == 0, "warp tile");
+  static_assert(A_IT >= 1 && A_IT * THREADS * 4 == BM * LIN_BK, "A loader");
+  static_assert(B_RSTEP >= 1 && B_ROWS * B_RSTEP == LIN_BK, "B loader");
+  static_assert(STAGE % 16 == 0 && B_OFF % 16 == 0 && T_OFF % 16 == 0,
+                "alignment");
+};
+
+template <int BM, int BN, int WM, int WN, int MINB>
+__global__ void __launch_bounds__(32 * WM * WN, MINB)
 int4_linear_kernel(const float* __restrict__ x,
                    const uint8_t* __restrict__ wp,
                    const float* __restrict__ delta,
                    const float* __restrict__ zpc,
                    const float* __restrict__ bias,
-                   float* __restrict__ out, int M, int K, int N) {
-  __shared__ float xs[LIN_MT][LIN_KC];
-  __shared__ float part[LIN_TY][LIN_MT][2 * LIN_TX];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * LIN_TX + tx;
+                   float* __restrict__ out, float* __restrict__ ws, int M,
+                   int K, int N, int kchunk, int vec_a, int vec_b) {
+  using T = LinTile<BM, BN, WM, WN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  typedef __nv_bfloat16 ATile[T::AP];
+  typedef __nv_bfloat16 BTile[T::BP];
+  ATile* As = reinterpret_cast<ATile*>(smem + T::A_OFF);
+  BTile* Bs = reinterpret_cast<BTile*>(smem + T::B_OFF);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m_base = blockIdx.y * BM, n_base = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * kchunk;
+  const int k_end = min(K, k_begin + kchunk);
   const int nbytes = (N + 1) >> 1;
-  const int jb = blockIdx.x * LIN_TX + tx;
-  const int m0 = blockIdx.y * LIN_MT;
-  const int n0 = 2 * jb, n1 = 2 * jb + 1;
-  const bool ok0 = n0 < N, ok1 = n1 < N;
-  const float d0 = ok0 ? bf16r(delta[n0]) : 0.f;
-  const float z0 = ok0 ? bf16r(zpc[n0]) : 0.f;
-  const float d1 = ok1 ? bf16r(delta[n1]) : 0.f;
-  const float z1 = ok1 ? bf16r(zpc[n1]) : 0.f;
+  const int wm = (warp / WN) * T::TM, wn = (warp % WN) * T::TN;
 
-  float acc0[LIN_MT], acc1[LIN_MT];
-#pragma unroll
-  for (int r = 0; r < LIN_MT; ++r) acc0[r] = acc1[r] = 0.f;
-
-  for (int kc = 0; kc < K; kc += LIN_KC) {
-    const int kn = min(LIN_KC, K - kc);
-    for (int i = tid; i < LIN_MT * LIN_KC; i += LIN_TX * LIN_TY) {
-      const int r = i / LIN_KC, c = i - r * LIN_KC;
-      const int m = m0 + r;
-      xs[r][c] = (m < M && c < kn) ? bf16r(x[(size_t)m * K + kc + c]) : 0.f;
+  // the dequant table: lut[v][n] = bf16(bf16(q - zp) * delta) of channel
+  // n_base + n for the code q = (v ^ 8) - 8 of nibble v (0 past N), built
+  // once per block: each packed byte is then dequantized by two lookups
+  uint16_t* lut = reinterpret_cast<uint16_t*>(smem + T::T_OFF);
+  for (int i = tid; i < 16 * BN; i += T::THREADS) {
+    const int v = i / BN, n = n_base + i % BN;
+    uint32_t w = 0;
+    if (n < N) {
+      const float q = (float)((v ^ 8) - 8);
+      w = __bfloat16_as_ushort(__float2bfloat16_rn(
+          bf16r(q - bf16r(zpc[n])) * bf16r(delta[n])));
     }
-    __syncthreads();
-    if (ok0) {
-      for (int c = ty; c < kn; c += LIN_TY) {
-        const uint8_t b = wp[(size_t)(kc + c) * nbytes + jb];
-        const float w0 = bf16r(bf16r(lo_code(b) - z0) * d0);
-        const float w1 = bf16r(bf16r(hi_code(b) - z1) * d1);
+    lut[i] = (uint16_t)w;
+  }
+  // this thread's byte column of the B tile (channels 2 jbl, 2 jbl + 1)
+  const int jbl = tid % (BN / 2), b_r0 = tid / (BN / 2);
+
+  // step k0 -> ring stage st: x [BM][LIN_BK] f32 and the packed bytes
+  // [LIN_BK][BN / 2], zero past M, K and N
+  auto issue = [&](int st, int k0) {
+    float* xs = reinterpret_cast<float*>(smem + st * T::STAGE);
+    uint8_t* wsb = smem + st * T::STAGE + T::X_BYTES;
+    for (int id = tid; id < T::XCH; id += T::THREADS) {
+      const int r = id / (LIN_BK / 4), c = (id % (LIN_BK / 4)) * 4;
+      const int m = m_base + r, k = k0 + c;
+      float* dst = xs + r * LIN_BK + c;
+      if (vec_a) {
+        const int bytes = m < M ? 4 * max(0, min(4, k_end - k)) : 0;
+        cp_async16(dst, bytes ? x + (size_t)m * K + k : x, bytes);
+      } else {
 #pragma unroll
-        for (int r = 0; r < LIN_MT; ++r) {
-          const float xv = xs[r][c];
-          acc0[r] = fmaf(xv, w0, acc0[r]);
-          acc1[r] = fmaf(xv, w1, acc1[r]);
+        for (int e = 0; e < 4; ++e)
+          dst[e] = (m < M && k + e < k_end) ? x[(size_t)m * K + k + e] : 0.f;
+      }
+    }
+    for (int id = tid; id < T::WCH; id += T::THREADS) {
+      const int r = id / (BN / 32), cb = (id % (BN / 32)) * 16;
+      const int k = k0 + r, jb = (n_base >> 1) + cb;
+      uint8_t* dst = wsb + r * (BN / 2) + cb;
+      if (vec_b) {
+        const int bytes = k < k_end ? max(0, min(16, nbytes - jb)) : 0;
+        cp_async16(dst, bytes ? wp + (size_t)k * nbytes + jb : wp, bytes);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e)
+          dst[e] = (k < k_end && jb + e < nbytes)
+                       ? wp[(size_t)k * nbytes + jb + e]
+                       : (uint8_t)0;
+      }
+    }
+  };
+
+  // ring stage st of step k0 -> As (bf16) and Bs (dequantized, 0 past K
+  // and N)
+  auto convert = [&](int st, int k0, int buf) {
+    ATile* Ab = As + buf * BM;
+    BTile* Bb = Bs + buf * LIN_BK;
+    const float* xs = reinterpret_cast<const float*>(smem + st * T::STAGE);
+    const uint8_t* wsb = smem + st * T::STAGE + T::X_BYTES;
+#pragma unroll
+    for (int i = 0; i < T::A_IT; ++i) {
+      const int id = tid + i * T::THREADS;
+      const int r = id / (LIN_BK / 4), c = (id % (LIN_BK / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(xs + r * LIN_BK + c);
+      *reinterpret_cast<uint2*>(&Ab[r][c]) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    }
+#pragma unroll
+    for (int i = 0; i < T::B_ROWS; ++i) {
+      const int r = b_r0 + i * T::B_RSTEP;
+      const uint32_t b = wsb[r * (BN / 2) + jbl];
+      const uint32_t w0 = lut[(b & 15u) * BN + 2 * jbl];
+      const uint32_t w1 = lut[(b >> 4) * BN + 2 * jbl + 1];
+      *reinterpret_cast<uint32_t*>(&Bb[r][2 * jbl]) =
+          k0 + r < k_end ? (w0 | (w1 << 16)) : 0u;
+    }
+  };
+
+  float acc[T::MI][T::NJ][4];
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // Steps 0..s+2 are in flight before step s. Step s: wait for step s+1,
+  // one barrier (its raw tiles are visible; every warp is done with the
+  // products of step s-1, so bf16 buffer (s+1)&1 and ring stage s%3 are
+  // free), convert step s+1, refill stage s%3 with step s+3, and run the
+  // products of step s: conversion and products of two steps overlap.
+  static_assert(LIN_STAGES == 3, "the loop below keeps three steps ahead");
+  const int nsteps = (k_end - k_begin + LIN_BK - 1) / LIN_BK;
+  auto step_k = [&](int s) { return k_begin + s * LIN_BK; };
+  issue(0, step_k(0));
+  cp_async_commit();
+  if (nsteps > 1) issue(1, step_k(1));
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();  // step 0 and the table
+  convert(0, step_k(0), 0);
+  if (nsteps > 2) issue(2, step_k(2));
+  cp_async_commit();
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s + 1 < nsteps) convert((s + 1) % 3, step_k(s + 1), (s + 1) & 1);
+    if (s + 3 < nsteps) issue(s % 3, step_k(s + 3));
+    cp_async_commit();
+    const ATile* Ab = As + (s & 1) * BM;
+    const BTile* Bb = Bs + (s & 1) * LIN_BK;
+#pragma unroll
+    for (int kk = 0; kk < LIN_BK; kk += 16) {
+      uint32_t af[T::MI][4], bfr[T::NJ][2];
+#pragma unroll
+      for (int i = 0; i < T::MI; ++i)
+        ldsm_x4(af[i], &Ab[wm + i * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
+                          [kk + (lane >> 4) * 8]);
+#pragma unroll
+      for (int j = 0; j < T::NJ; j += 2) {
+        uint32_t r4[4];
+        ldsm_x4_trans(r4, &Bb[kk + (lane & 7) + ((lane >> 3) & 1) * 8]
+                             [wn + j * 8 + (lane >> 4) * 8]);
+        bfr[j][0] = r4[0];
+        bfr[j][1] = r4[1];
+        bfr[j + 1][0] = r4[2];
+        bfr[j + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < T::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NJ; ++j)
+          mma_bf16_16816(acc[i][j], af[i], bfr[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool split = gridDim.z > 1;
+  float* dst = split ? ws + (size_t)blockIdx.z * M * N : out;
+  const bool pair = (N & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < T::MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m_base + wm + i * 16 + g + 8 * h;
+      if (m >= M) continue;
+      float* row = dst + (size_t)m * N;
+#pragma unroll
+      for (int j = 0; j < T::NJ; ++j) {
+        const int n = n_base + wn + j * 8 + 2 * t4;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (!split && bias) {
+          v0 += n < N ? bias[n] : 0.f;
+          v1 += n + 1 < N ? bias[n + 1] : 0.f;
+        }
+        if (pair && n + 1 < N) {
+          *reinterpret_cast<float2*>(row + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) row[n] = v0;
+          if (n + 1 < N) row[n + 1] = v1;
         }
       }
     }
-    __syncthreads();
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < LIN_MT; ++r) {
-    part[ty][r][2 * tx] = acc0[r];
-    part[ty][r][2 * tx + 1] = acc1[r];
-  }
-  __syncthreads();
-  for (int i = tid; i < LIN_MT * 2 * LIN_TX; i += LIN_TX * LIN_TY) {
-    const int r = i / (2 * LIN_TX), c = i - r * (2 * LIN_TX);
-    const int m = m0 + r, n = blockIdx.x * 2 * LIN_TX + c;
-    if (m < M && n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int y = 0; y < LIN_TY; ++y) s += part[y][r][c];
-      out[(size_t)m * N + n] = s + (bias ? bias[n] : 0.f);
-    }
+// out = sum over the splits z = 0, 1, ... of ws[z] (in that order) + bias
+__global__ void int4_linear_reduce(const float* __restrict__ ws,
+                                   const float* __restrict__ bias,
+                                   float* __restrict__ out, int M, int N,
+                                   int splits) {
+  const size_t mn = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
+    out[i] = s + (bias ? bias[i % N] : 0.f);
   }
 }
 
@@ -139,15 +381,6 @@ constexpr int CV_BN = 64;
 constexpr int CV_BK = 32;
 constexpr int CV_THREADS = 128;
 constexpr int CV_LD = CV_BK + 8;  // bf16 row pitch: 80 bytes, no conflicts
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __global__ void __launch_bounds__(CV_THREADS)
 int4_conv2d_kernel(const __nv_bfloat16* __restrict__ x,
@@ -300,17 +533,51 @@ extern "C" {
 // Each entry launches on the given stream (PyTorch's current stream) and
 // returns cudaGetLastError() so that a refused launch is reported.
 
+// small != 0: 16 x 64 block tiles (M <= 64), else 128 x 128; splits > 1:
+// blockIdx.z over K ranges of kchunk, partial sums in ws (splits, M, N)
 int tfmq_int4_linear(const void* x, const void* w_packed, const void* delta,
-                     const void* zp_c, const void* bias, void* out, int M,
-                     int K, int N, int device, void* stream) {
+                     const void* zp_c, const void* bias, void* out, void* ws,
+                     int M, int K, int N, int small, int kchunk, int splits,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (M <= 0 || K <= 0 || N <= 0 || splits < 1 || kchunk % LIN_BK ||
+      (long long)kchunk * (splits - 1) >= K ||
+      (long long)kchunk * splits < K || (splits > 1 && !ws))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   const int nbytes = (N + 1) >> 1;
-  dim3 grid((nbytes + LIN_TX - 1) / LIN_TX, (M + LIN_MT - 1) / LIN_MT);
-  dim3 block(LIN_TX, LIN_TY);
-  int4_linear_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint8_t*)w_packed, (const float*)delta,
-      (const float*)zp_c, (const float*)bias, (float*)out, M, K, N);
+  const int vec_a = (K % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const int vec_b = (nbytes % 16 == 0) && ((uintptr_t)w_packed % 16 == 0);
+  const float* xf = (const float*)x;
+  const uint8_t* wb = (const uint8_t*)w_packed;
+  const float *df = (const float*)delta, *zf = (const float*)zp_c,
+              *bf = (const float*)bias;
+  float *of = (float*)out, *wsf = (float*)ws;
+  if (small) {
+    using T = LinTile<16, 64, 1, 4>;
+    dim3 grid((N + 63) / 64, (M + 15) / 16, splits);
+    int4_linear_kernel<16, 64, 1, 4, 4><<<grid, T::THREADS, T::SMEM, s>>>(
+        xf, wb, df, zf, bf, of, wsf, M, K, N, kchunk, vec_a, vec_b);
+  } else {
+    using T = LinTile<128, 128, 2, 4>;
+    static bool attr_set = false;
+    if (!attr_set) {
+      err = cudaFuncSetAttribute(int4_linear_kernel<128, 128, 2, 4, 2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 T::SMEM);
+      if (err != cudaSuccess) return (int)err;
+      attr_set = true;
+    }
+    dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
+    int4_linear_kernel<128, 128, 2, 4, 2><<<grid, T::THREADS, T::SMEM, s>>>(
+        xf, wb, df, zf, bf, of, wsf, M, K, N, kchunk, vec_a, vec_b);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long mn = (long long)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  int4_linear_reduce<<<blocks, 256, 0, s>>>(wsf, bf, of, M, N, splits);
   return (int)cudaGetLastError();
 }
 

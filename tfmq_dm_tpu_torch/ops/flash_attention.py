@@ -60,9 +60,11 @@ def _bind(lib) -> None:
     lib.tfmq_flash_f32.restype = i
     lib.tfmq_flash_int8.argtypes = [p] * 8 + [i] * 5 + [f, i, f, f, i, p]
     lib.tfmq_flash_int8.restype = i
-    lib.tfmq_flash_fqk.argtypes = [p] * 5 + [i] * 5 + [f, i, i] + [f] * 8 \
-        + [i, p]
+    lib.tfmq_flash_fqk.argtypes = [p] * 9 + [i] * 7 + [f, i, i] \
+        + [f] * 8 + [i, p]
     lib.tfmq_flash_fqk.restype = i
+    lib.tfmq_fqk_prepass.argtypes = [p] * 7 + [i] * 6 + [f] * 4 + [i, p]
+    lib.tfmq_fqk_prepass.restype = i
 
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
@@ -216,6 +218,21 @@ def fake_quant_tile(x, delta, zp, qrange, dtype):
     return (delta * (xq - zp)).to(dtype)
 
 
+def fqk_prepass_plain(k, v, sc, ranges, int8_pv: bool = False):
+    """The fqk pre-pass (``_fqk_kernel``'s ``_prep``): k and v
+    fake-quantized once to their carrier dtype, ``(kf, vf)``; with
+    ``int8_pv``, v as centered int8 codes instead, transposed to (B*H, D,
+    Tk), and their column sums over the keys (B*H, D) int32:
+    ``(kf, vt, vsum)``."""
+    mdt = k.dtype
+    kf = fake_quant_tile(k, sc[2], sc[3], ranges[1], mdt)
+    if not int8_pv:
+        return kf, fake_quant_tile(v, sc[4], sc[5], ranges[2], mdt)
+    v8 = quant_i8(v.float(), sc[4], sc[5], ranges[2])
+    vsum = v8.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    return kf, v8.transpose(1, 2).contiguous(), vsum
+
+
 def flash_fqk_plain(q, k, v, sc, sm_scale: float, ranges, qrange=None,
                     zp_zero: bool = False, int8_pv: bool = False,
                     block_k: int = BLOCK_K) -> torch.Tensor:
@@ -224,19 +241,20 @@ def flash_fqk_plain(q, k, v, sc, sm_scale: float, ranges, qrange=None,
     quantizer's levels (``qrange``) or p cast to the carrier dtype before
     P @ V; ``int8_pv``: P @ V on p levels and v codes, exact."""
     mdt = q.dtype
-    dq, zq, dk, zk, dv, zv, dw, zw = (sc[i] for i in range(8))
+    dq, zq, dv, zv, dw, zw = (sc[i] for i in (0, 1, 4, 5, 6, 7))
+    use_pv = qrange is not None and int8_pv
+    kf, *vpre = fqk_prepass_plain(k, v, sc, ranges, use_pv)
     qf = fake_quant_tile(q, dq, zq, ranges[0], mdt)
-    kf = fake_quant_tile(k, dk, zk, ranges[1], mdt)
     s = (qf.float() @ kf.float().transpose(1, 2)) * sm_scale
     e, rebase, l = _blocked_softmax(s, key_block(k.shape[1], block_k))
-    if qrange is not None and int8_pv:
-        v8 = quant_i8(v.float(), dv, zv, ranges[2])
+    if use_pv:
+        v8 = vpre[0].transpose(1, 2)
         nb, pb = qrange
         x = _p_round(e, rebase, 1.0 / (l * dw))
         p_q = torch.clamp(x, max=pb) if zp_zero else \
             torch.clamp(x + zw, nb, pb)
         return _int8_pv(p_q, zw, v8, zv, dw * dv).to(mdt)
-    vf = fake_quant_tile(v, dv, zv, ranges[2], mdt).float()
+    vf = vpre[0].float()
     if qrange is not None:
         x = _p_round(e, rebase, 1.0 / (l * dw))
         p = _p_levels(x, zw, qrange, zp_zero)
@@ -249,10 +267,11 @@ def flash_fqk_plain(q, k, v, sc, sm_scale: float, ranges, qrange=None,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _n_blocks(name: str, tk: int, block_k: int) -> int:
+def _n_blocks(name: str, tk: int, block_k: int, tile: int = 32) -> int:
     bk = key_block(tk, block_k)
-    if bk % 32:
-        raise ValueError(f"{name}: key block {bk} is not a multiple of 32")
+    if bk % tile:
+        raise ValueError(f"{name}: key block {bk} is not a multiple of "
+                         f"{tile}")
     nk = -(-tk // bk)
     if nk > MAX_KEY_BLOCKS:
         raise ValueError(f"{name}: {nk} key blocks > {MAX_KEY_BLOCKS}")
@@ -337,6 +356,61 @@ def flash_int8(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
     return out
 
 
+# the fqk kernels: head dims padded to one of these, keys to a multiple of
+# FQK_KEY_PAD (every key tile divides it, and so must the key block; the
+# pre-pass writes one row of v-code column sums per FQK_KEY_PAD keys)
+FQK_HEAD_DIMS = (48, 80, 160, 384)
+FQK_KEY_PAD = 64
+
+
+def fqk_scratch(bh: int, tk: int, d: int, int8_pv: bool, dev):
+    """The pre-pass's outputs, allocated (``torch.empty``): kf (B*H, Tkp,
+    DP) bf16, and vf (B*H, Tkp, DP) bf16 or vt (B*H, DP, Tkp) int8 with
+    vpart (B*H, Tkp / 64, DP) int32; DP is the padded head dim, Tkp the
+    keys rounded up to 64."""
+    dp = next(p for p in FQK_HEAD_DIMS if d <= p)
+    tkp = -(-tk // FQK_KEY_PAD) * FQK_KEY_PAD
+    npre = tkp // FQK_KEY_PAD
+    kf = torch.empty((bh, tkp, dp), dtype=torch.bfloat16, device=dev)
+    if int8_pv:
+        return dp, tkp, (kf, None,
+                         torch.empty((bh, dp, tkp), dtype=torch.int8,
+                                     device=dev),
+                         torch.empty((bh, npre, dp), dtype=torch.int32,
+                                     device=dev))
+    return dp, tkp, (kf, torch.empty_like(kf), None, None)
+
+
+def _ranges(ranges):
+    return [float(a) for rg in ranges for a in rg]
+
+
+def fqk_prepass(k, v, sc, ranges, int8_pv: bool = False):
+    """The fqk pre-pass kernel alone on CUDA k/v (B*H, Tk, D) bf16: its
+    scratch cut to (Tk, D), in ``fqk_prepass_plain``'s layout (vsum: the
+    per-tile column sums added). Used by the tests; ``flash_fqk`` launches
+    the pre-pass itself."""
+    if not _device_or_raise("fqk_prepass", k):
+        raise ValueError("fqk_prepass: the kernel takes CUDA tensors; "
+                         "fqk_prepass_plain is the CPU version")
+    bh, _, tk, d = _check_dims("fqk_prepass", k, k, v)
+    dev = k.device
+    check("k", k, torch.bfloat16, (bh, tk, d), dev)
+    check("v", v, torch.bfloat16, (bh, tk, d), dev)
+    check("sc", sc, torch.float32, (8,), dev)
+    dp, tkp, (kf, vf, vt, vpart) = fqk_scratch(bh, tk, d, int8_pv, dev)
+    lib = build()
+    err = lib.tfmq_fqk_prepass(ptr(k), ptr(v), ptr(sc), ptr(kf), ptr(vf),
+                               ptr(vt), ptr(vpart), bh, tk, d, dp, tkp,
+                               int(int8_pv), *_ranges(ranges[1:]),
+                               dev.index or 0, _stream(dev))
+    launch_check("fqk_prepass", err)
+    if not int8_pv:
+        return kf[:, :tk, :d], vf[:, :tk, :d]
+    return kf[:, :tk, :d], vt[:, :d, :tk], vpart.sum(dim=1,
+                                                      dtype=torch.int32)[:, :d]
+
+
 def flash_fqk(q, k, v, sc, sm_scale: float, ranges, qrange=None,
               zp_zero: bool = False, int8_pv: bool = False,
               block_k: int = BLOCK_K) -> torch.Tensor:
@@ -344,7 +418,9 @@ def flash_fqk(q, k, v, sc, sm_scale: float, ranges, qrange=None,
     [dq, zq, dk, zk, dv, zv, dw, zw] (device tensor), the q/k/v clamp
     ranges ``ranges`` and the softmax quantizer's clamp range ``qrange``
     (None: no softmax quantizer) -> bf16. ``int8_pv`` (8-bit softmax and
-    v grids): P @ V on p levels and v codes."""
+    v grids): P @ V on p levels and v codes. On the card one call runs the
+    pre-pass (k/v fake-quantized once per head into scratch) and the main
+    kernel: one launch counted."""
     if not _device_or_raise("flash_fqk", q):
         return flash_fqk_plain(q, k, v, sc, sm_scale, ranges, qrange,
                                zp_zero, int8_pv, block_k)
@@ -359,16 +435,18 @@ def flash_fqk(q, k, v, sc, sm_scale: float, ranges, qrange=None,
                         and ranges[2][1] <= 255):
         raise ValueError("flash_fqk: int8_pv needs 8-bit softmax and v "
                          "grids")
-    bk = _n_blocks("flash_fqk", tk, block_k)
+    bk = _n_blocks("flash_fqk", tk, block_k, FQK_KEY_PAD)
     wnb, wpb = qrange if qrange is not None else (0, 0)
-    r = [float(a) for rg in ranges for a in rg]
     mode = 0 if qrange is None else (2 if int8_pv else 1)
+    dp, tkp, (kf, vf, vt, vpart) = fqk_scratch(bh, tk, d, mode == 2, dev)
     lib = build()
     out = torch.empty((bh, tq, d), dtype=torch.bfloat16, device=dev)
     err = lib.tfmq_flash_fqk(ptr(q), ptr(k), ptr(v), ptr(sc), ptr(out),
-                             bh, tq, tk, d, bk, float(sm_scale), mode,
-                             int(bool(zp_zero)), *r, float(wnb), float(wpb),
-                             dev.index or 0, _stream(dev))
+                             ptr(kf), ptr(vf), ptr(vt), ptr(vpart), bh, tq,
+                             tk, d, dp, tkp, bk, float(sm_scale), mode,
+                             int(bool(zp_zero)), *_ranges(ranges),
+                             float(wnb), float(wpb), dev.index or 0,
+                             _stream(dev))
     launch_check("flash_fqk", err)
     LAUNCHES["flash_fqk"] += 1
     return out

@@ -37,7 +37,7 @@ LAUNCHES = {"int4_linear": 0, "int4_conv2d": 0}
 def _bind(lib) -> None:
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tfmq_int4_linear.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.tfmq_int4_linear.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.tfmq_int4_linear.restype = i
     lib.tfmq_int4_conv2d.argtypes = [p] * 6 + [i] * 10 + [p]
     lib.tfmq_int4_conv2d.restype = i
@@ -99,6 +99,38 @@ def int4_linear_plain(x: torch.Tensor, w_packed: torch.Tensor,
     return out if bias is None else out + bias
 
 
+# block tiles of the two kernel variants (rows of x, K granularity of a
+# split); M <= SMALL_M takes the small one
+SMALL_M = 64
+_TILES = {True: (16, 64, 32), False: (128, 128, 128)}
+MAX_SPLITS = 16
+
+
+def linear_plan(m: int, k: int, n: int, sms: int = 132):
+    """(small, kchunk, splits) of ``int4_linear`` on a card with ``sms``
+    SMs: the small variant for M <= 64; K split over blocks (partial sums
+    added in split order by a second kernel) while the output tiles fill
+    under half the SMs, into chunks of whole 32-deep K steps."""
+    small = m <= SMALL_M
+    bm, bn, min_chunk = _TILES[small]
+    tiles = -(-m // bm) * -(-n // bn)
+    splits = 1
+    if 2 * tiles < sms:
+        splits = max(1, min(-(-sms // tiles), k // min_chunk, MAX_SPLITS))
+    chunk = -(-(-(-k // splits)) // 32) * 32
+    return small, chunk, -(-k // chunk)
+
+
+_SMS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index or 0
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def int4_linear(x: torch.Tensor, w_packed: torch.Tensor,
                 delta: torch.Tensor, zp_c: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,11 +149,15 @@ def int4_linear(x: torch.Tensor, w_packed: torch.Tensor,
     _check("zp_c", zp_c, torch.float32, (n,), dev)
     if bias is not None:
         _check("bias", bias, torch.float32, (n,), dev)
+    small, chunk, splits = linear_plan(m, k, n, _sm_count(dev))
     lib = build()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) \
+        if splits > 1 else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tfmq_int4_linear(_ptr(x), _ptr(w_packed), _ptr(delta),
-                               _ptr(zp_c), _ptr(bias), _ptr(out), m, k, n,
+                               _ptr(zp_c), _ptr(bias), _ptr(out), _ptr(ws),
+                               m, k, n, int(small), chunk, splits,
                                dev.index or 0, stream)
     _launch_check("int4_linear", err)
     LAUNCHES["int4_linear"] += 1
