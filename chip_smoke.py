@@ -126,10 +126,10 @@ FORWARD_NOISE, FORWARD_NOISE_FACTOR = 1e-7, 5.0
 # plain latents' largest magnitude
 MIN_LATENT_PSNR_DB = 30.0
 
-# dense bf16 and int8 tensor-core peaks, the f32 rate outside the tensor
-# cores and the HBM rate (NVIDIA data sheet, SXM part)
-CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
-                       "hbm": 3.35e12}}
+# dense bf16, int8 and TF32 tensor-core peaks, the f32 rate outside the
+# tensor cores and the HBM rate (NVIDIA data sheet, SXM part)
+CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12,
+                       "f32": 67e12, "hbm": 3.35e12}}
 # the fused GroupNorm's codes against its plain version: the statistics
 # are summed in another order, so a code at a rounding boundary may move
 # one level (the JAX package's own rule, tests/test_pallas_kernels.py)
@@ -140,7 +140,9 @@ GN_MAX_LEVELS, GN_MAX_SHARE = 1, 1e-4
 # at the shapes where they were taken; printed for reading only
 EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("int4_linear", 4096, 384, 3072): 0.7676,
-              ("flash_fqk", "cin256", "p levels"): 1.6757}
+              ("flash_fqk", "cin256", "p levels"): 1.6757,
+              ("flash_pquant", "cin256", 8): 0.8766,
+              ("int8", "linear"): 0.1824, ("int8", "conv_gemm"): 0.2506}
 
 STEPS, BATCH, SEED = 10, 8, 1234
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
@@ -577,6 +579,9 @@ FLASH_SHAPES = [("cin256", 4, 1024, 1024, 384),
                 ("tk != tq", 2, 130, 77, 64)]
 INT8_GRIDS = ((0.031, 130.0), (0.029, 120.0), (0.033, 125.0))
 P_GRIDS = ((1 / 255.0, 0.0), (0.004, 3.0))
+# the 16-bit softmax grid (--softmax_a_bit 16, always zero): levels up to
+# 65535, and one with a non-zero zero point
+P16_GRID, P16_GRID_ZP = (1 / 65535.0, 0.0), (1.5e-5, 3.0)
 
 
 def flash_case(g, bh, tq, tk, d, dev):
@@ -627,6 +632,53 @@ def check_flash(g, dev, errs) -> None:
         torch.cuda.empty_cache()
 
 
+def check_pquant16(g, dev, errs) -> None:
+    """``flash_pquant`` at the 16-bit softmax grid (the cin256
+    ``--softmax_a_bit 16`` path's) at cin256 and SD's 64x64, zp_zero and a
+    non-zero zero point. A level there is 1/65535, so a one-level flip
+    moves an output by more than 1e-5, and the plain version's own f32
+    arithmetic flips levels against the same function in float64. So the
+    share is taken against the float64 plain version: the kernel's share
+    of outputs off by more than 1e-5 at most the larger of the one-level
+    rule's and twice the f32 plain version's (measured here); none more
+    than 6 levels off the f32 plain version. The one-level rule's share
+    against the f32 plain version is printed beside it."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    for label, bh, tq, tk, d in (FLASH_SHAPES[0], FLASH_SHAPES[1]):
+        q, k, v = flash_case(g, bh, tq, tk, d, dev)
+        sm = d ** -0.5
+        for dz_ in (P16_GRID, P16_GRID_ZP):
+            dz = torch.tensor(dz_, device=dev)
+            zz = dz_[1] == 0.0
+            args = (sm, dz, (0, 65535), zz)
+            got = FA.flash_pquant(q, k, v, *args)
+            ref = FA.flash_pquant_plain(q, k, v, *args)
+            exact = FA.flash_pquant_plain(q.double(), k.double(), v.double(),
+                                          sm, dz.double(), (0, 65535),
+                                          zz).float()
+            torch.cuda.synchronize()
+
+            def share(a, b):
+                return float(((a - b).abs() > 1e-5).float().mean())
+
+            noise, off = share(ref, exact), share(got, exact)
+            err = float((got - ref).abs().max())
+            lim = max(ONE_LEVEL_SHARE, 2.0 * noise)
+            name = f"flash_pquant 16-bit zp {dz_[1]:g} {label} bh{bh} d{d}"
+            print(f"   {name:48s} max_abs_err {err:.3e}  share>1e-5 vs "
+                  f"f64 {off:.2e} (limit {lim:.2e}; f32 plain vs f64 "
+                  f"{noise:.2e}; vs f32 plain {share(got, ref):.2e})  "
+                  f"(level {dz_[0]:.3e})", flush=True)
+            if not (off <= lim and err <= ONE_LEVEL_MAX * dz_[0]):
+                raise AssertionError(f"{name}: kernel disagrees with its "
+                                     "plain version")
+            errs["flash_pquant"].append(err)
+            del got, ref, exact
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def sdpa_backend(q, k, v) -> str:
     """The backend PyTorch's dispatcher picks for these bf16 inputs."""
     import torch
@@ -639,7 +691,10 @@ def sdpa_backend(q, k, v) -> str:
 def time_flash(g, dev, peaks) -> dict:
     """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384): the
     kernel, its plain version and ``scaled_dot_product_attention`` on bf16
-    q/k/v of the same shape (dequantized for int8), timed only."""
+    q/k/v of the same shape (dequantized for int8), timed only; the f32
+    kernels' bound is one S and one P @ V at the TF32 tensor rate (or
+    their bytes). ``flash_pquant`` also at the 16-bit grid (the cin256
+    ``--softmax_a_bit 16`` path's) and at SD's B*H 16, T 4096, D 40."""
     import torch
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
@@ -657,12 +712,43 @@ def time_flash(g, dev, peaks) -> dict:
 
     out["flash_fp"] = timings(lambda: FA.flash_fp(q, k, v, sm),
                               lambda: FA.flash_fp_plain(q, k, v, sm), lib,
-                              flops, f32_bytes, peaks)
-    dz = torch.tensor(P_GRIDS[0], device=dev)
-    out["flash_pquant"] = timings(
-        lambda: FA.flash_pquant(q, k, v, sm, dz, (0, 255), True),
-        lambda: FA.flash_pquant_plain(q, k, v, sm, dz, (0, 255), True), lib,
-        flops, f32_bytes + 8, peaks)
+                              flops, f32_bytes, peaks, rate="tf32")
+    grids = {}
+    for label, (bh_, t_, d_) in (("cin256", (bh, t, d)),
+                                 ("sd 64x64", (16, 4096, 40))):
+        if label == "cin256":
+            qq, kk, vv = q, k, v
+            lib_ = lib
+        else:
+            qq, kk, vv = flash_case(g, bh_, t_, t_, d_, dev)
+            qs_, ks_, vs_ = (x.to(torch.bfloat16)[:, None]
+                             for x in (qq, kk, vv))
+
+            def lib_(qs_=qs_, ks_=ks_, vs_=vs_, d_=d_):
+                return F.scaled_dot_product_attention(qs_, ks_, vs_,
+                                                      scale=d_ ** -0.5)
+        for bits, dz_, qr in ((8, P_GRIDS[0], (0, 255)),
+                              (16, P16_GRID, (0, 65535))):
+            dz = torch.tensor(dz_, device=dev)
+            args = (qq, kk, vv, d_ ** -0.5, dz, qr, True)
+            tm = timings(lambda: FA.flash_pquant(*args),
+                         lambda: FA.flash_pquant_plain(*args), lib_,
+                         2 * 2 * bh_ * t_ * t_ * d_, 4 * 4 * bh_ * t_ * d_ + 8,
+                         peaks, rate="tf32")
+            tm["shape"] = f"(B*H {bh_}, T {t_}, D {d_}), f32, {bits}-bit grid"
+            tm["library"] = "scaled_dot_product_attention bf16 (" + \
+                sdpa_backend(*((qb, kb, vb) if label == "cin256" else
+                               (qs_, ks_, vs_))) + ")"
+            grids[(label, bits)] = tm
+            print(f"   flash_pquant {label} bh{bh_} T{t_} d{d_} {bits}-bit: "
+                  + timing_line(tm)
+                  + earlier_note(tm, ("flash_pquant", label, bits)),
+                  flush=True)
+        del qq, kk, vv
+    out["flash_pquant"] = dict(grids[("cin256", 8)])
+    out["flash_pquant"]["grids"] = {f"{lb} {bits}-bit": tm for (lb, bits), tm
+                                    in grids.items() if (lb, bits) !=
+                                    ("cin256", 8)}
     ops, sc = int8_case(q, k, v, P_GRIDS[0], dev)
     deq = [((x.float() + 128.0 - z) * dl).to(torch.bfloat16)[:, None]
            for x, (dl, z) in zip(ops[:3], INT8_GRIDS)]
@@ -1027,11 +1113,12 @@ def check_fqk(g, dev, errs) -> None:
 
 def time_int8(g, dev, peaks) -> dict:
     """``int8_matmul_pre`` at cin256's ``ff.net.0.proj`` (M 4096 tokens of
-    batch 2 x CFG, 384 -> 3072, bf16 out, as in the fast deploy), and its
-    conv route at the 64x64 3x3 192 -> 192 conv (the int8 GEMM on the
-    im2col, plus im2col and corrections): kernel, plain version, and
-    ``torch._int_mm`` with the epilogue in PyTorch ops as the library
-    call."""
+    batch 2 x CFG, 384 -> 3072, bf16 out, as in the fast deploy) with its
+    deployed K-major weights, and its conv route at the 64x64 3x3 192 ->
+    192 conv: the GEMM on the im2col (bound by the im2col's codes, the
+    weights and the int32 out), and the whole conv (im2col, GEMM,
+    corrections; bound by x, w and the f32 out). Library calls:
+    ``torch._int_mm`` alone, and with the epilogue in PyTorch ops."""
     import torch
     from tfmq_dm_tpu_torch.ops import int8_kernels as I8
     from tfmq_dm_tpu_torch.ops import int_ops
@@ -1052,33 +1139,89 @@ def time_int8(g, dev, peaks) -> dict:
     flops = 2 * m * n * k
     nbytes = m * k + k * n + 4 * m + 4 * 4 * n + 2 * m * n
     out = {"linear": timings(
-        lambda: I8.int8_matmul_pre(*args, out_dtype=torch.bfloat16),
+        lambda: I8.int8_matmul_pre(*args, out_dtype=torch.bfloat16,
+                                   w_t=iw.w_t),
         lambda: I8.int8_matmul_pre_plain(*args, out_dtype=torch.bfloat16),
         library, flops, nbytes, peaks, rate="int8")}
     out["linear"]["library"] = "torch._int_mm + epilogue"
+    out["linear"]["int_mm_ms"] = device_ms(lambda: torch._int_mm(x, w_cm))
     # the conv route at cin256's 64x64 3x3 192 -> 192 (batch 2 x CFG)
     bb, res, c = 2 * CIN_N, 64, 192
     iw = int8_weight(g, c, c, False, dev, 3)
     x, zx, dx = int8_act(g, (bb, res, res, c), dev)
-    cols, w2 = I8._conv_operands(x, iw.w_q, 1, ((1, 1), (1, 1)))
+    cols = I8.im2col(x, 3, 3, 1, ((1, 1), (1, 1)))
     mc, kc = cols.shape
-    w2_cm = w2.t().contiguous().t()
+    w2_cm = iw.w_t.t()                         # (Kp, N), column-major
     flops = 2 * mc * c * 9 * c
-    nbytes = x.numel() + iw.w_q.numel() + 4 * mc * c
+    nbytes = cols.numel() + iw.w_t.numel() + 4 * mc * c
     out["conv_gemm"] = timings(
-        lambda: I8._launch("int8_conv2d", cols, w2, mc, kc, c, 1, None),
-        lambda: I8._acc_plain(cols, w2),
+        lambda: I8._launch("int8_conv2d", cols, iw.w_t, mc, kc, c, 1, None),
+        lambda: I8._acc_plain(cols, w2_cm),
         lambda: torch._int_mm(cols, w2_cm), flops, nbytes, peaks,
         rate="int8")
     out["conv_gemm"]["library"] = "torch._int_mm on the im2col"
-    out["conv_total_ms"] = device_ms(
-        lambda: int_ops.int8_conv2d(x, zx, dx, iw, None))
+    conv_bytes = x.numel() + iw.w_t.numel() + 4 * 3 * c + 4 * mc * c
+    t_conv = {"ms": device_ms(lambda: int_ops.int8_conv2d(x, zx, dx, iw,
+                                                         None)),
+              "bound_ms": max(flops / peaks["int8"],
+                              conv_bytes / peaks["hbm"]) * 1e3}
+    out["conv_total"] = t_conv
     for name in ("linear", "conv_gemm"):
-        print(f"   int8 {name}: " + timing_line(out[name]), flush=True)
+        print(f"   int8 {name}: " + timing_line(out[name])
+              + earlier_note(out[name], ("int8", name)), flush=True)
+    print(f"   int8 linear: torch._int_mm alone "
+          f"{out['linear']['int_mm_ms']:.4f} ms device", flush=True)
     print(f"   int8_conv2d 64x64 3x3 192->192 b{bb} whole (im2col + GEMM "
-          f"+ corrections): {out['conv_total_ms']:.4f} ms device",
-          flush=True)
+          f"+ corrections): {t_conv['ms']:.4f} ms device, bound "
+          f"{t_conv['bound_ms']:.6f}", flush=True)
     return out
+
+
+def time_gemm_shapes(shapes: dict, dev, peaks) -> list:
+    """The int8 GEMM at each distinct shape a deploy path ran (``shapes``:
+    (wrapper, M, K, N, batch, out dtype) -> launches per forward), on
+    random codes and K-major weights: device ms against ``torch._int_mm``
+    and the bound (int32 / f32 / bf16 out as the path had it)."""
+    import torch
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    g = torch.Generator().manual_seed(9)
+    rows = []
+    for (name, m, k, n, batch, od), count in sorted(shapes.items()):
+        if batch != 1:
+            continue
+        x = torch.randint(-128, 128, (m, k), generator=g,
+                          dtype=torch.int8).to(dev)
+        w_t = I8.kmajor(torch.randint(-128, 128, (k, n), generator=g,
+                                      dtype=torch.int8)).to(dev)
+        out_dtype = None if od == "None" else getattr(torch, od[6:])
+        ones = torch.ones(n, device=dev)
+        xs = x.to(torch.int32).sum(-1, keepdim=True).float()
+        sc = torch.tensor([0.02, -3.0], device=dev)
+        ms = device_ms(lambda: I8._launch(
+            name, x, w_t, m, k, n, 1, out_dtype, xs, ones, ones, ones, None,
+            sc))
+        w_cm = w_t[:, :k].t()
+        # torch._int_mm takes M > 16 and K, N multiples of 8
+        lib = device_ms(lambda: torch._int_mm(x, w_cm)) \
+            if m > 16 and k % 8 == 0 and n % 8 == 0 else None
+        out_b = {"None": 4, "torch.float32": 4, "torch.bfloat16": 2}[od]
+        t_ops = 2 * m * n * k / peaks["int8"] * 1e3
+        t_bytes = (m * k + n * w_t.shape[1] + out_b * m * n) / peaks["hbm"] \
+            * 1e3
+        rows.append({"wrapper": name, "shape": [m, k, n], "out": od,
+                     "launches_per_forward": count,
+                     "plan": list(I8.gemm_plan(m, n, k)), "ms": ms,
+                     "library_ms": lib, "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"})
+        r = rows[-1]
+        kind = "int32" if od == "None" else od[6:]
+        lib_s = "-" if lib is None else f"{lib:.4f}"
+        print(f"     {name:15s} M{m} {k}->{n} {kind} x{count}/fwd plan "
+              f"{r['plan']}: {ms:.4f} ms; _int_mm {lib_s}; bound "
+              f"{r['bound_ms']:.6f} ({r['bound_by']})", flush=True)
+        del x, w_t
+    return rows
 
 
 # mode label -> (softmax grid or None, zp_zero, int8_pv)
@@ -1361,27 +1504,41 @@ def time_gn(dev, peaks) -> list:
     return out
 
 
-def forward_counts(fn, args) -> dict:
-    """Launch counts of one call ``fn(*args)``."""
+def forward_counts(fn, args):
+    """Launch counts of one call ``fn(*args)``, and its int8 GEMM launches
+    by (wrapper, M, K, N, batch, out dtype)."""
     import torch
+    from unittest import mock
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    shapes = {}
+    launch = I8._launch
+
+    def recorded(name, x, w_t, m, k, n, batch, out_dtype, *rest):
+        key = (name, m, k, n, batch, str(out_dtype))
+        shapes[key] = shapes.get(key, 0) + 1
+        return launch(name, x, w_t, m, k, n, batch, out_dtype, *rest)
+
     reset_all_counts()
-    with torch.no_grad():
+    with mock.patch.object(I8, "_launch", recorded), torch.no_grad():
         fn(*args)
     torch.cuda.synchronize()
-    return {k: v for k, v in all_counts().items() if v}
+    return {k: v for k, v in all_counts().items() if v}, shapes
 
 
-def drive_deploy_path(dev, main_path: dict, ldm: dict,
+def drive_deploy_path(dev, main_path: dict, ldm: dict, peaks: dict,
                       cin_steps: int = 20) -> dict:
     """The int8 and bf16 deployments through ``cli.main``: cin256_v2
     ``--int-kernels --deploy_dtype bfloat16``, the CIFAR-10 bench
     configuration (w4a8 ``--w_sym``, int8 deploy, bf16) and CIFAR-10 w8a8
-    (f32). Each with the kernels (counts read around the run) and with
-    the plain versions on the same noise; one UNet forward's launches; the
-    device profile of a sample."""
+    (f32). Each with the kernels (counts read around the run; the int8
+    GEMM must read the deployed K-major weights, making no copy per call)
+    and with the plain versions on the same noise; one UNet forward's
+    launches and int8 GEMM shapes, each shape timed; the device profile
+    of a sample."""
     import numpy as np
     import torch
     from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
     from tfmq_dm_tpu_torch.configs.tasks import get_task
     from tfmq_dm_tpu_torch.convert import load_params
     from tfmq_dm_tpu_torch.models import ddim_unet
@@ -1427,6 +1584,7 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
                     img.max() > 1:
                 raise AssertionError(f"{name}: bad images")
             res_[plain] = {"s": sec, "launches": all_counts(), "img": img,
+                           "kmajor_copies": dict(I8.KMAJOR_COPIES),
                            "lat": np.load(d / "latents.npy")
                            if ldm_task else None}
         k, p = res_[False], res_[True]
@@ -1451,7 +1609,7 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
                             ).to(dev)
             t = torch.full((n,), int(sample_t[0]), dtype=torch.int32,
                            device=dev)
-            per_fwd = forward_counts(fn, (x, t, 0))
+            per_fwd, shapes = forward_counts(fn, (x, t, 0))
             prof = profile_device(lambda: sampler_fn(fn, x),
                                   f"{name} {cin_steps}-step sample (batch "
                                   f"{n} x CFG, no decode)", top=10)
@@ -1466,7 +1624,7 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
                             ).to(dev)
             t = torch.full((BATCH,), int(seq[-1]), dtype=torch.int32,
                            device=dev)
-            per_fwd = forward_counts(fn, (x, t, 0))
+            per_fwd, shapes = forward_counts(fn, (x, t, 0))
             prof = profile_device(lambda: generalized_scan(fn, betas, seq, x),
                                   f"{name} {STEPS}-step sample (batch "
                                   f"{BATCH})", top=8)
@@ -1474,6 +1632,9 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
         prof_s = time.perf_counter() - t0
         del params, fn
         torch.cuda.empty_cache()
+        print(f"   deploy {name}: the int8 GEMM at each shape of one "
+              "forward (random codes):", flush=True)
+        gemm_rows = time_gemm_shapes(shapes, dev, peaks)
         print(f"   deploy {name}: model build, one forward and the profile "
               f"of three samples {prof_s:.2f} s", flush=True)
         print(f"   deploy {name}: cli.main {k['s']:.2f} s with the kernels "
@@ -1484,6 +1645,11 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
         if not p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB:
             raise AssertionError(f"{name}: PSNR kernels vs plain {p_kp:.2f}"
                                  f" dB < {MIN_PSNR_KERNEL_VS_PLAIN_DB}")
+        copies = {w: c for w, c in k["kmajor_copies"].items()
+                  if w != "int8_bmm" and c}
+        if copies:
+            raise AssertionError(f"{name}: the int8 GEMM made K-major "
+                                 f"weight copies per call: {copies}")
         need = {"int8_matmul_pre": 1, "int8_conv2d": 1}
         if ldm_task:
             need["flash_fqk"] = 5 * steps
@@ -1496,6 +1662,8 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict,
                      "launches": k["launches"], "per_forward": per_fwd,
                      "psnr_kernel_vs_plain": p_kp if math.isfinite(p_kp)
                      else "bit-identical", "psnr_vs_fp": p_fp,
+                     "kmajor_copies": k["kmajor_copies"],
+                     "gemm_shapes": gemm_rows,
                      "profile": prof, "profile_s": prof_s}
     return out
 
@@ -1570,6 +1738,7 @@ def run() -> None:
                 raise AssertionError(f"int4_linear M{m} {k}->{n}: two calls "
                                      "differ (the split-K order is fixed)")
         check_flash(g, dev, errs)
+        check_pquant16(g, dev, errs)
         check_int8(g, dev, errs, lin_shapes, conv_shapes)
         check_fqk(g, dev, errs)
         check_fused(g, dev, errs, lin_shapes)
@@ -1610,7 +1779,7 @@ def run() -> None:
         with phase("ldm"):
             ldm = drive_ldm_path(dev, tmp)
         with phase("deploy"):
-            dep = drive_deploy_path(dev, main_path, ldm)
+            dep = drive_deploy_path(dev, main_path, ldm, peaks)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
@@ -1671,7 +1840,9 @@ def run() -> None:
          "max_abs_err": max(errs["int8_matmul_pre"]),
          **measured["int8"]["linear"],
          "conv_gemm": measured["int8"]["conv_gemm"],
-         "conv_total_ms": measured["int8"]["conv_total_ms"]},
+         "conv_total": measured["int8"]["conv_total"],
+         "gemm_shapes": {cfg_name: v["gemm_shapes"]
+                         for cfg_name, v in dep.items()}},
         {"name": "flash_fqk", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tfmq_dm_tpu/ops/flash_attention.py:175",
@@ -1719,7 +1890,9 @@ def run() -> None:
         "forward_mean_rel": ldm["forward_mean_rel"],
         "forward_noise_mean_rel": ldm["noise_mean_rel"],
         "profile": ldm["profile"]}}), flush=True)
-    print(json.dumps({"deploy": dep}), flush=True)
+    print(json.dumps({"deploy": {
+        k: {f: x for f, x in v.items() if f != "gemm_shapes"}
+        for k, v in dep.items()}}), flush=True)
     print(json.dumps(report), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

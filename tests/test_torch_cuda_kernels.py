@@ -17,6 +17,9 @@ value at a rounding boundary: at most 1 level, on under 1e-4 of the
 codes.
 """
 
+import contextlib
+from unittest import mock
+
 import pytest
 import torch
 
@@ -314,6 +317,62 @@ def test_cuda_flash_key_blocks_match_plain(cuda, mode):
     _assert_one_level(got, ref, pw[0])
 
 
+# The 16-bit softmax grid (--softmax_a_bit 16): a level is 1/65535, so a
+# one-level flip moves an output by more than 1e-5, and the plain
+# version's own f32 arithmetic flips levels against the same function in
+# float64 in 0.4-1.1% of outputs at these shapes (seeded CPU emulation;
+# an exact S flips as many against the f32 plain version). So the share
+# is taken against the float64 plain version: the kernel's share of
+# outputs off by more than 1e-5 at most the larger of the one-level
+# rule's 0.5% and twice the f32 plain version's; none more than 6 levels
+# off the f32 plain version (unchanged).
+P16 = (0, 65535)
+
+
+def _share(a, b) -> float:
+    return float(((a - b).abs() > 1e-5).float().mean())
+
+
+def _assert_16bit(got, q, k, v, sm, dz, zp_zero):
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    ref = FA.flash_pquant_plain(q, k, v, sm, dz, P16, zp_zero)
+    exact = FA.flash_pquant_plain(q.double(), k.double(), v.double(), sm,
+                                  dz.double(), P16, zp_zero).float()
+    torch.cuda.synchronize()
+    assert _share(got, exact) <= max(0.005, 2.0 * _share(ref, exact))
+    assert float((got - ref).abs().max()) <= 6.0 * float(dz[0])
+
+
+@pytest.mark.parametrize("d", [40, 80, 384])
+@pytest.mark.parametrize("tk", [1000, 4096])
+@pytest.mark.parametrize("pw", [(1 / 65535.0, 0.0), (1.5e-5, 3.0)])
+def test_cuda_flash_pquant_16bit_grid_matches_plain(cuda, d, tk, pw):
+    """The tensor-core pquant kernel at the cin256 --softmax_a_bit 16 grid
+    (levels up to 65535: split hi + lo for P @ V), at each padded head dim
+    (40, 80, 384), a ragged Tk and Tk 4096, zp_zero and a non-zero zp."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(d + tk + 3, 2, 256, tk, d, cuda)
+    dz = torch.tensor(pw, device=cuda)
+    zp_zero = pw[1] == 0.0
+    before = FA.LAUNCHES["flash_pquant"]
+    got = FA.flash_pquant(q, k, v, d ** -0.5, dz, P16, zp_zero)
+    assert FA.LAUNCHES["flash_pquant"] == before + 1
+    _assert_16bit(got, q, k, v, d ** -0.5, dz, zp_zero)
+
+
+def test_cuda_flash_pquant_reruns_bit_identical(cuda):
+    """Two passes over the same keys in a fixed order: two calls agree bit
+    for bit, at both grids."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(3, 4, 1024, 1024, 384, cuda)
+    for pw, qr in (((1 / 255.0, 0.0), A8), ((1 / 65535.0, 0.0), P16)):
+        dz = torch.tensor(pw, device=cuda)
+        a = FA.flash_pquant(q, k, v, 384 ** -0.5, dz, qr, True)
+        b = FA.flash_pquant(q, k, v, 384 ** -0.5, dz, qr, True)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the exact int8 GEMM: bit-equal to its plain version (exact int32 sums,
 # the same epilogue order)
@@ -375,6 +434,125 @@ def test_cuda_int8_bmm_acc_matches_plain(cuda):
     assert I8.LAUNCHES["int8_bmm"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, I8.int8_bmm_acc_plain(a, b))
+
+
+# (M, K, N) at the plan's tiles: wgmma 128 x 192 (the cin256 64x64 conv
+# GEMM, N 192), wgmma 128 x 128 with K split (the 16x16 and 8x8 convs,
+# CIFAR's 16x16 conv), mma.sync 128 x 128 (ff.net.0.proj) and 64 x 128
+# (N 384; M 4 with K split: the embedding projections), and ragged M, N
+# and K
+GEMM_SHAPES = [(16384, 1728, 192), (4096, 384, 3072), (4096, 384, 384),
+               (1024, 5184, 576), (256, 8640, 960), (2048, 2304, 256),
+               (4, 768, 960), (3, 100, 37), (4100, 1100, 70),
+               (4100, 70, 1100)]
+
+
+@pytest.mark.parametrize("m,k,n", GEMM_SHAPES)
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("route", ["plan", "wgmma", "mma"])
+def test_cuda_int8_gemm_tiles_match_plain(cuda, m, k, n, mode, route):
+    """The redesigned GEMM at each shape with its plan's route and tile,
+    and forced onto each tensor-core route (wgmma 128 x 128, mma.sync
+    64 x 128, the plan's K split), in its three modes (int32 through
+    ``int8_bmm_acc``; f32 and bf16 epilogues through ``int8_matmul_pre``
+    with the K-major copy given, as deployed): bit for bit."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    real = I8.gemm_plan
+
+    def forced(m_, n_, k_, batch=1, sms=I8.GEMM_SMS):
+        split, kchunk = real(m_, n_, k_, batch, sms)[3:]
+        return (route, 128 if route == "wgmma" else 64, 128, split, kchunk)
+
+    with mock.patch.object(I8, "gemm_plan",
+                           real if route == "plan" else forced):
+        _gemm_matches_plain(cuda, m, k, n, mode)
+
+
+def _gemm_matches_plain(cuda, m, k, n, mode):
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    g = torch.Generator().manual_seed(m + k + n)
+    x, w = _codes(g, (m, k), cuda), _codes(g, (k, n), cuda)
+    if mode == 0:
+        got = I8.int8_bmm_acc(x[None], w[None])
+        ref = I8.int8_bmm_acc_plain(x[None], w[None])
+    else:
+        od = torch.float32 if mode == 1 else torch.bfloat16
+        xs = x.to(torch.int32).sum(-1, keepdim=True).float()
+        d = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda)
+        z = torch.randint(-10, 10, (n,), generator=g).float().to(cuda)
+        ws = w.to(torch.int32).sum(0).float()
+        b = torch.randn(n, generator=g).to(cuda)
+        args = (x, xs, w, d, z, ws, torch.tensor(0.02, device=cuda),
+                torch.tensor(-3.0, device=cuda), b)
+        copies = I8.KMAJOR_COPIES["int8_matmul_pre"]
+        got = I8.int8_matmul_pre(*args, out_dtype=od, w_t=I8.kmajor(w))
+        assert I8.KMAJOR_COPIES["int8_matmul_pre"] == copies
+        ref = I8.int8_matmul_pre_plain(*args, out_dtype=od)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 8640, 960), (4, 768, 960),
+                                   (1024, 5184, 576), (256, 960, 960)])
+def test_cuda_int8_gemm_split_k_reruns_bit_identical(cuda, m, k, n):
+    """Shapes whose plan splits K: two calls agree bit for bit (the
+    partials are int32, added in split order)."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    assert I8.gemm_plan(m, n, k)[3] > 1
+    g = torch.Generator().manual_seed(k)
+    x, w = _codes(g, (m, k), cuda), _codes(g, (k, n), cuda)
+    xs = x.to(torch.int32).sum(-1, keepdim=True).float()
+    ones = torch.ones(n, device=cuda)
+    args = (x, xs, w, ones, ones, ones, torch.tensor(0.5, device=cuda),
+            torch.tensor(1.0, device=cuda))
+    a = I8.int8_matmul_pre(*args, out_dtype=torch.bfloat16)
+    b = I8.int8_matmul_pre(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_cuda_int8_deployed_weights_take_kmajor_copy(cuda, sym):
+    """``int_ops.int8_linear`` and ``int8_conv2d`` on a deployed IntWeight
+    read its K-major copy (no copy made per call) and stay bit-equal to
+    the plain versions."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    g = torch.Generator().manual_seed(11 + sym)
+    cfg = QCfg(bits=8, symmetric=sym, channel_wise=True)
+    zx, dx = torch.tensor(-3.0, device=cuda), torch.tensor(0.02, device=cuda)
+    for shape, xshape in (((576, 192), (1024, 576)),
+                          ((3, 3, 192, 192), (2, 16, 16, 192))):
+        n = shape[-1]
+        w = (torch.randn(shape, generator=g) * 0.05).to(cuda)
+        delta = (torch.rand(n, generator=g) * 1e-3 + 5e-4).to(cuda)
+        zp = torch.zeros(n, device=cuda) if sym else \
+            torch.randint(100, 156, (n,), generator=g).float().to(cuda)
+        iw = int_ops.quantize_weight_int(w, delta, zp, cfg)
+        x = _codes(g, xshape, cuda)
+        copies = dict(I8.KMAJOR_COPIES)
+        if len(shape) == 2:
+            got = int_ops.int8_linear(x, zx, dx, iw, out_dtype=torch.bfloat16)
+        else:
+            got = int_ops.int8_conv2d(x, zx, dx, iw)
+        assert I8.KMAJOR_COPIES == copies
+        with _plain_int8():
+            ref = int_ops.int8_linear(x, zx, dx, iw,
+                                      out_dtype=torch.bfloat16) \
+                if len(shape) == 2 else int_ops.int8_conv2d(x, zx, dx, iw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+
+
+def _plain_int8():
+    """The int8 wrappers routed to their plain versions (on the card)."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    stack = contextlib.ExitStack()
+    for name in ("int8_matmul_pre", "int8_conv_acc"):
+        stack.enter_context(mock.patch.object(
+            I8, name, getattr(I8, f"{name}_plain")))
+    return stack
 
 
 # ---------------------------------------------------------------------------

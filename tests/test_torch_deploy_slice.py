@@ -211,6 +211,25 @@ def test_ddim_deployed_state_bit_equal(ddim_runs, config):
 
 
 @pytest.mark.parametrize("config", [c[0] for c in DDIM_CONFIGS])
+def test_ddim_deployed_kmajor_copy_matches_jax(ddim_runs, config):
+    """Each int8 weight's K-major copy, the layout the int8 GEMM reads, is
+    JAX's deployed codes w_q flattened to (K, N), transposed and
+    zero-padded to a multiple of 16."""
+    jd, td = ddim_runs[config]["jd"], ddim_runs[config]["td"]
+    n = 0
+    for name, jv in jd.items():
+        if not isinstance(jv, jio.IntWeight):
+            continue
+        w2 = np.asarray(jv.w_q).reshape(-1, np.asarray(jv.w_q).shape[-1])
+        want = np.zeros((w2.shape[1], -(-w2.shape[0] // 16) * 16), np.int8)
+        want[:, :w2.shape[0]] = w2.T
+        np.testing.assert_array_equal(td[name].w_t.numpy(), want,
+                                      err_msg=name)
+        n += 1
+    assert n > 0
+
+
+@pytest.mark.parametrize("config", [c[0] for c in DDIM_CONFIGS])
 def test_ddim_cli_sample_matches_jax(ddim_runs, config):
     run = ddim_runs[config]
     assert run["rc"] == 0

@@ -415,3 +415,56 @@ def test_fqk_scratch_pads_keys_and_head_dim(tk, d, int8_pv, dp, tkp):
         assert vpart.dtype == torch.int32
     else:
         assert vt is None and vpart is None and vf.shape == kf.shape
+
+
+# ---------------------------------------------------------------------------
+# the pquant kernel's TF32 splits, emulated in PyTorch ops
+# ---------------------------------------------------------------------------
+
+def _low13(t):
+    return int((t.view(torch.int32) & 0x1FFF).abs().max())
+
+
+@pytest.mark.parametrize("spread", [0.0, 6.0])
+def test_tf32_split_reconstructs_f32_operands(spread):
+    """x = hi + lo to 2^-23 of |x| (what the kernel's S = hi.hi + hi.lo +
+    lo.hi rests on), both parts TF32 values (13 low bits zero), over a
+    narrow and a wide exponent range."""
+    rng = np.random.default_rng(int(spread))
+    x = torch.from_numpy((rng.standard_normal(200000) * np.exp(
+        rng.standard_normal(200000) * spread)).astype(np.float32))
+    hi, lo = TF.tf32_split(x)
+    assert _low13(hi) == 0 and _low13(lo) == 0
+    r = (x.double() - hi.double() - lo.double()).abs()
+    assert bool((r <= 2.0 ** -23 * x.double().abs()).all())
+
+
+def test_tf32_split_levels_exact():
+    """Every level of the 16-bit softmax grid, signed as (p_q - zp) with a
+    non-zero zp, is hi + lo exactly with both parts TF32 values; levels of
+    the 8-bit grid need no lo part."""
+    levels = torch.arange(-65535 - 255, 65536 + 255).float()
+    hi, lo = TF.tf32_split(levels)
+    assert torch.equal(hi + lo, levels)
+    assert _low13(hi) == 0 and _low13(lo) == 0
+    hi8, lo8 = TF.tf32_split(torch.arange(-2048, 2049).float())
+    assert torch.equal(hi8, torch.arange(-2048, 2049).float())
+    assert not bool(lo8.any())
+
+
+@pytest.mark.parametrize("d", [40, 384])
+def test_3xtf32_scores_match_jax(d):
+    """S from the split operands, hi.hi + (hi.lo + lo.hi) with exact
+    products, against JAX's f32 q k^T on the same inputs: within 2^-20 of
+    sum |q||k| (the kernel's own error is at most 3 2^-23 of it; JAX's f32
+    sum adds its rounding)."""
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((64, d)).astype(np.float32)
+    k = rng.standard_normal((96, d)).astype(np.float32)
+    (qh, ql), (kh, kl) = (TF.tf32_split(torch.from_numpy(a))
+                          for a in (q, k))
+    qh, ql, kh, kl = (t.double() for t in (qh, ql, kh, kl))
+    s3 = (qh @ kh.T + (qh @ kl.T + ql @ kh.T)).numpy()
+    j = np.asarray(jnp.asarray(q) @ jnp.asarray(k).T, np.float64)
+    bound = np.abs(q).astype(np.float64) @ np.abs(k).T.astype(np.float64)
+    assert np.all(np.abs(s3 - j) <= 2.0 ** -20 * bound)

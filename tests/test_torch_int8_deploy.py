@@ -362,3 +362,93 @@ def test_int8_materialized_exact_above_f32_bound():
     j, t = _deployed_attention(q, k, v, grids, d ** -0.5)
     np.testing.assert_array_equal(t, j)
 
+
+
+# ---------------------------------------------------------------------------
+# the int8 GEMM's K-major weights and its tile plan
+# ---------------------------------------------------------------------------
+
+def _kmajor_np(w_q):
+    """w_q (..., N) flattened to (K, N), transposed, zero-padded to 16."""
+    w2 = np.asarray(w_q).reshape(-1, np.asarray(w_q).shape[-1])
+    kp = -(-w2.shape[0] // 16) * 16
+    out = np.zeros((w2.shape[1], kp), np.int8)
+    out[:, :w2.shape[0]] = w2.T
+    return out
+
+
+def test_tiny_cin_deployed_kmajor_copies(tiny_cin_deploy):
+    """Every int8 weight of the tiny_cin deployment carries its codes
+    K-major, (N, K padded to 16), equal to w_q (K, N) transposed and
+    zero-padded; no K-major copy is made per call on the CPU path."""
+    deployed = tiny_cin_deploy[4]
+    iws = [iw for iw in deployed.values() if isinstance(iw, ti.IntWeight)]
+    assert any(iw.w_q.ndim == 4 for iw in iws)
+    assert any(iw.w_q.ndim == 2 for iw in iws)
+    for iw in iws:
+        assert iw.w_t.dtype == torch.int8 and iw.w_t.is_contiguous()
+        np.testing.assert_array_equal(iw.w_t.numpy(), _kmajor_np(iw.w_q))
+
+
+@pytest.mark.parametrize("kind", ["conv", "linear"])
+def test_tiny_cin_deployed_int8_layers_match_jax(tiny_cin_deploy, kind):
+    """The tiny_cin deployment's int8 layers (weights with their K-major
+    copy) through ``int_ops.int8_conv2d`` / ``int8_linear`` against the
+    JAX ``int_ops`` on the same codes: the int32 conv accumulators bit for
+    bit, the f32 outputs within REL_TOL."""
+    deployed = tiny_cin_deploy[4]
+    rng = np.random.default_rng(3)
+    names = [n for n, iw in deployed.items()
+             if isinstance(iw, ti.IntWeight)
+             and iw.w_q.ndim == (4 if kind == "conv" else 2)]
+    for name in names[:6]:
+        tw = deployed[name]
+        jw = ji.IntWeight(w_q=jnp.asarray(tw.w_q.numpy()),
+                          delta=jnp.asarray(tw.delta.numpy()),
+                          zp_c=jnp.asarray(tw.zp_c.numpy()),
+                          wsum=jnp.asarray(tw.wsum.numpy()), k=tw.k,
+                          bits=tw.bits, sym=tw.sym)
+        cin = tw.w_q.shape[-2]
+        shape = (2, 6, 6, cin) if kind == "conv" else (5, cin)
+        x = rng.integers(-128, 128, shape).astype(np.int8)
+        zx, dx = np.float32(-3.0), np.float32(0.02)
+        if kind == "conv":
+            kh = tw.w_q.shape[0]
+            pads = ((kh // 2, kh // 2),) * 2
+            acc = I8.int8_conv_acc(_t(x), tw.w_q, 1, pads, w_t=tw.w_t)
+            j_acc = lax.conv_general_dilated(
+                jnp.asarray(x), jw.w_q, (1, 1), list(pads),
+                dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                preferred_element_type=jnp.int32)
+            np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
+            got = ti.int8_conv2d(_t(x), _t(zx), _t(dx), tw, pads=pads)
+            ref = ji.int8_conv2d(jnp.asarray(x), zx, dx, jw, pads=pads)
+        else:
+            got = ti.int8_linear(_t(x), _t(zx), _t(dx), tw)
+            ref = ji.int8_linear(jnp.asarray(x), zx, dx, jw)
+        _assert_rel(got.numpy(), np.asarray(ref))
+
+
+# the int8 GEMM shapes of the cin256 bf16 deploy and the CIFAR-10 int8
+# deploys (M, K, N), and ragged ones
+PLAN_SHAPES = [(16384, 1728, 192), (4096, 384, 3072), (4096, 1536, 384),
+               (4096, 3456, 384), (1024, 5184, 576), (256, 8640, 960),
+               (4, 768, 960), (8192, 1152, 128), (2048, 2304, 256),
+               (3, 100, 37), (4100, 1100, 70)]
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+def test_gemm_plan_tiles_and_splits(m, k, n):
+    """A plan the kernel takes: a compiled route and tile (wgmma for long
+    K), K ranges of whole 128-byte steps that cover K with none empty, K
+    split only for one product whose tiles fill under half of the card,
+    at most 16 ways."""
+    route, bm, bn, split, kchunk = I8.gemm_plan(m, n, k)
+    assert (route, bm, bn) in {("wgmma", 128, 192), ("wgmma", 128, 128),
+                               ("mma", 128, 128), ("mma", 64, 128)}
+    assert (route == "wgmma") == (k >= I8.WGMMA_MIN_K)
+    assert kchunk % I8.GEMM_KB == 0 and 1 <= split <= 16
+    assert kchunk * (split - 1) < k <= kchunk * split
+    tiles = -(-m // bm) * -(-n // bn)
+    assert split == 1 or 2 * tiles < I8.GEMM_SMS
+    assert I8.gemm_plan(m, n, k, batch=3)[3] == 1

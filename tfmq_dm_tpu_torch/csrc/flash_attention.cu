@@ -2,8 +2,8 @@
 // plain C interface (ctypes; see ops/flash_attention.py).
 //
 // Counterparts of the Pallas kernels in tfmq_dm_tpu/ops/flash_attention.py:
-//   tfmq_flash_f32  mode 0 (fp)      <- _fp_kernel
-//                   mode 1 (pquant)  <- _quant_kernel
+//   tfmq_flash_f32  pquant 0 (fp)    <- _fp_kernel
+//                   pquant 1         <- _quant_kernel
 //   tfmq_flash_int8 (int8)           <- _int8_kernel
 //   tfmq_flash_fqk  (fqk)            <- _fqk_kernel
 //
@@ -12,14 +12,14 @@
 // that is not a multiple of 4 (f32) or 16 (int8) is zero-filled in
 // shared memory only.
 //
-// Blocking. A block holds 32 query rows (8 warps x 4 rows) and walks the
-// keys in tiles of 32, one key per lane: a lane computes the 4 scores of
-// its key against its warp's rows, the warp reduces row max and sum with
-// shuffles, and for P @ V each lane owns the head-dim columns lane + 32 i
-// of its warp's 4 rows (the accumulators stay in registers; D <= 384).
-// The TPU kernels' large VMEM tiles (512 x 2048) become small tiles in
-// shared memory: the f32 kernel needs 145 KB at D = 384 (dynamic shared
-// memory), the int8 kernel 37 KB.
+// Blocking of fp and int8 (scalar FMA / dp4a). A block holds 32 query
+// rows (8 warps x 4 rows) and walks the keys in tiles of 32, one key per
+// lane: a lane computes the 4 scores of its key against its warp's rows,
+// the warp reduces row max and sum with shuffles, and for P @ V each lane
+// owns the head-dim columns lane + 32 i of its warp's 4 rows (the
+// accumulators stay in registers; D <= 384). The TPU kernels' large VMEM
+// tiles (512 x 2048) become small tiles in shared memory: the f32 kernel
+// needs 145 KB at D = 384 (dynamic shared memory), the int8 kernel 37 KB.
 //
 // Softmax-output quantization (pquant, and int8 with a p quantizer) needs
 // the exact normalized probabilities, which the online rescaling cannot
@@ -81,14 +81,55 @@
 //     registers.
 //   Pass 2 recomputes S with the same code on the same tiles, so it is bit
 //   for bit pass 1's, and the block maxes m_b apply.
+//
+// pquant (flash_pq_kernel<DP>, f32 q/k/v): at cin256 (B*H 4, T 1024,
+// D 384) one S and one P @ V are 6.4 GFLOP on 25 MB, so the tensor cores
+// bound it (0.013 ms at the 495 TFLOP/s TF32 rate). Its first version ran
+// both products as scalar f32 FMA. This one runs them on mma.sync
+// m16n8k8 TF32 at f32 accuracy:
+//   - S: each f32 operand is split as x = hi + lo, hi = tf32(x) (cvt.rna),
+//     lo = tf32(x - hi), and S = hi.hi + (hi.lo + lo.hi) in f32
+//     accumulators (lo.lo dropped): about 2^-21 relative to |q||k|, the
+//     order of the f32 summation differences the one-level rule admits. A
+//     single TF32 (or bf16) product would move s by ~1e-3 relative and
+//     flip softmax levels in a large share of rows;
+//   - P @ V: the levels (p_q - zp) are integers; below 2^11 in magnitude
+//     (the 8-bit grid) they are exact in TF32 and run as one operand, else
+//     (the 16-bit grid, up to 65535, or a fractional zp) they are split
+//     the same way, level = hi + lo, exactly for integers below 2^22.
+//     v is split hi + lo too, and P @ V = L.v_hi + L.v_lo (+ L_lo.v_hi):
+//     every product is exact in f32 (11 x 11 bits), v is carried to about
+//     2^-22, and the sums are f32;
+//   - NC warps share a row group of 16 query rows and split its head dim
+//     for both products (8 warps at D 384: 48 columns each): each warp
+//     keeps its rows' Q fragments, split once, in registers, takes the
+//     partial S of its columns for the whole key tile, and the group adds
+//     the NC partials through shared memory in warp order (the same order
+//     in both passes, so pass 2's S is pass 1's bit for bit and the block
+//     maxes m_b apply). For the softmax each lane then owns one row and a
+//     run of keys (rows reduce over 32 * NC / 16 lanes with shuffles), so
+//     every row's max, denominator and block maxes are one warp's, with no
+//     merge across warps; the denominator adds each tile's f32 sum to a
+//     double. The levels go to shared memory, and each warp runs P @ V
+//     on its own columns, so the O accumulators stay at DP / NC a warp;
+//   - K comes through a two-stage cp.async ring of f32 tiles (32 keys),
+//     V through one tile loaded while S is computed (zero-filled past Tk
+//     and d); both are split into hi / lo as the fragments are read (3
+//     instructions a value, no scratch). 203 KB of shared memory at D 384
+//     with MAX_KB block maxes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 #include <type_traits>
 
 namespace {
+
+using tfmq::SmemAttr;
+using tfmq::raise_smem;
 
 constexpr int BQ = 32;        // query rows per block
 constexpr int BK = 32;        // keys per tile (one per lane)
@@ -144,7 +185,7 @@ __device__ __forceinline__ void record_block_max(float* mblk,
 }
 
 // ---------------------------------------------------------------------------
-// f32 operands: mode fp (online softmax) and pquant (two passes)
+// f32 operands, mode fp: online softmax, scalar FMA
 // ---------------------------------------------------------------------------
 
 template <int NC>
@@ -196,19 +237,17 @@ __device__ __forceinline__ void pv_f32(float (&acc)[RPW][NC],
   }
 }
 
-template <int NC, bool PQ>
+template <int NC>
 __global__ void __launch_bounds__(NTHREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dz,
-                 float* __restrict__ o, int tq, int tk, int d, int bk,
-                 float sm_scale, float nb, float pb, int zp_zero) {
+                 const float* __restrict__ v, float* __restrict__ o, int tq,
+                 int tk, int d, float sm_scale) {
   extern __shared__ __align__(16) float smem[];
   const int dp = (d + 3) & ~3;
   const int ksd = dp + 4;  // float4 reads by 32 lanes hit 32 banks
   float* qs = smem;
   float* ks = qs + BQ * dp;
   float* vs = ks + BK * ksd;
-  float* mblk = vs + BK * dp;   // [BQ][MAX_KB] running max per key block
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const float* qb = q + (size_t)bh * tq * d;
@@ -226,11 +265,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const int nkt = (tk + BK - 1) / BK;
 
-  // pass 1: online row max and denominator (fp: and the output)
+  // online row max, denominator and output
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();
     load_tile(ks, ksd, kb, kt * BK, tk, d, dp);
-    if (!PQ) load_tile(vs, dp, vb, kt * BK, tk, d, dp);
+    load_tile(vs, dp, vb, kt * BK, tk, d, dp);
     __syncthreads();
     float s[RPW];
     scores_f32<NC>(s, qs, ks, dp, ksd, warp, lane, kt * BK + lane, tk,
@@ -243,46 +282,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] = l[r] * alpha + warp_sum(p);
       m[r] = m_new;
       s[r] = p;
-      if (!PQ) {
 #pragma unroll
-        for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
-      }
+      for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
     }
-    if (PQ) record_block_max(mblk, m, warp, lane, kt, nkt, bk);
-    if (!PQ) pv_f32<NC>(acc, s, vs, dp, d, lane, min(BK, tk - kt * BK));
-  }
-
-  float scale[RPW] = {};
-  if (PQ) {
-    // pass 2: recompute s, quantize the exact probabilities, P @ V
-    const float delta = dz[0], zp = dz[1];
-    float inv[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) inv[r] = 1.f / (l[r] * delta);
-    for (int kt = 0; kt < nkt; ++kt) {
-      __syncthreads();
-      load_tile(ks, ksd, kb, kt * BK, tk, d, dp);
-      load_tile(vs, dp, vb, kt * BK, tk, d, dp);
-      __syncthreads();
-      float s[RPW];
-      scores_f32<NC>(s, qs, ks, dp, ksd, warp, lane, kt * BK + lane, tk,
-                     sm_scale);
-      const bool valid = kt * BK + lane < tk;
-      const int kb = kt * BK / bk;
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float mb = mblk[(warp * RPW + r) * MAX_KB + kb];
-        const float e = expf(s[r] - mb);
-        const float x =
-            rintf(__fmul_rn(e, __fmul_rn(expf(mb - m[r]), inv[r])));
-        const float lv = zp_zero ? fminf(x, pb)
-                                 : fminf(fmaxf(x + zp, nb), pb) - zp;
-        s[r] = valid ? lv : 0.f;
-      }
-      pv_f32<NC>(acc, s, vs, dp, d, lane, min(BK, tk - kt * BK));
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) scale[r] = delta;
+    pv_f32<NC>(acc, s, vs, dp, d, lane, min(BK, tk - kt * BK));
   }
 
 #pragma unroll
@@ -293,7 +296,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
       const int c = lane + 32 * i;
-      if (c < d) orow[c] = PQ ? scale[r] * acc[r][i] : acc[r][i] / l[r];
+      if (c < d) orow[c] = acc[r][i] / l[r];
     }
   }
 }
@@ -1144,13 +1147,362 @@ flash_fqk_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// pquant: f32 q/k/v, S on 3xTF32 mma.sync, P @ V on TF32 levels
+// ---------------------------------------------------------------------------
+
+// 16 / 4 bytes global -> shared, the rest zero-filled past `bytes`
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + r: hi = tf32(x), lo = tf32(x - hi), |r| <= 2^-22 |x|;
+// exact (r = 0) for an integer below 2^22 in magnitude
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32_1688(float* c, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Per padded head dim (d rounded up to 40, 80, 160 or 384): NC warps
+// share a row group of 16 query rows and split its head dim, RG row groups
+// a block, key tiles of BK = 32 (one key a lane in the softmax step).
+template <int DP> struct PqCfg;
+template <> struct PqCfg<40> { static constexpr int NC = 1, RG = 8; };
+template <> struct PqCfg<80> { static constexpr int NC = 2, RG = 4; };
+template <> struct PqCfg<160> { static constexpr int NC = 4, RG = 2; };
+template <> struct PqCfg<384> { static constexpr int NC = 8, RG = 2; };
+
+// a row pitch (words) whose 8 rows x 4 columns of B fragments read V
+// ([key t4][column g]) hit 32 banks: 8 or 24 mod 32
+constexpr int pq_vpitch(int dp) {
+  return (dp % 32 == 8 || dp % 32 == 24) ? dp : pq_vpitch(dp + 8);
+}
+
+constexpr int SMEM_LIMIT = 232448;   // a block's shared memory, sm_90
+
+template <int DP>
+struct PqShape {
+  static constexpr int NC = PqCfg<DP>::NC, RG = PqCfg<DP>::RG, BK = 32;
+  static constexpr int THREADS = 32 * NC * RG;
+  static constexpr int BQ = 16 * RG;   // query rows a block
+  static constexpr int RW = 16 / NC;   // rows a warp takes the softmax of
+  static constexpr int LPR = 32 / RW;  // lanes a row: E keys each
+  static constexpr int E = BK / LPR;
+  static constexpr int DC = DP / NC;   // head-dim columns a warp owns
+  // word pitches: K rows ([key g][column t4]: 4 mod 8), V rows, the S
+  // partials (float2 writes), the P planes (fragments [row g][key t4])
+  static constexpr int KP = DP + 4, VP = pq_vpitch(DP);
+  static constexpr int SP = BK + 8, PP = BK + 4;
+  static constexpr int K_WORDS = BK * KP, V_WORDS = BK * VP;
+  // a row group's S partials [NC][16][SP] and P planes [2][16][PP]
+  static constexpr int G_WORDS = NC * 16 * SP + 2 * 16 * PP;
+  // two K stages, one V tile, the row groups' words, the block maxes
+  static constexpr int smem(int nkb) {
+    return 4 * (2 * K_WORDS + V_WORDS + RG * G_WORDS + BQ * nkb);
+  }
+  static_assert(DC % 8 == 0 && DP % 8 == 0 && 16 % NC == 0 && E % 2 == 0,
+                "tiles");
+  static_assert(smem(MAX_KB) <= SMEM_LIMIT, "shared memory");
+};
+
+// The row group's warps meet (named barrier 1 + rgi), or the warp alone.
+template <int NC>
+__device__ __forceinline__ void rg_sync(int rgi) {
+  if constexpr (NC > 1)
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rgi), "r"(32 * NC)
+                 : "memory");
+  else
+    __syncwarp();
+}
+
+// Softmax output quantized per key block (pquant). q, k, v (B*H, T, d)
+// f32; dz = [delta, zp]; o = delta * sum_keys levels * v.
+template <int DP>
+__global__ void __launch_bounds__(PqShape<DP>::THREADS, 1)
+flash_pq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dz,
+                float* __restrict__ o, int tq, int tk, int d, int bk,
+                float sm_scale, float nb, float pb, int zp_zero, int vec) {
+  using S = PqShape<DP>;
+  constexpr int NC = S::NC, BK = S::BK, RW = S::RW, DC = S::DC;
+  constexpr int LPR = S::LPR, E = S::E;
+  constexpr int KP = S::KP, VP = S::VP, SP = S::SP, PP = S::PP;
+  extern __shared__ __align__(16) float smem_pq[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rgi = warp / NC, cw = warp % NC;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = rgi * 16;
+  // the softmax step: lane -> row rl of the group, keys kl .. kl + E - 1
+  const int rl = cw * RW + lane / LPR, kl = (lane % LPR) * E;
+  float* kring = smem_pq;                              // [2][BK][KP]
+  float* vbuf = kring + 2 * S::K_WORDS;                // [BK][VP]
+  // this group's S partials [NC][16][SP], then its P planes
+  float* grp = vbuf + S::V_WORDS + rgi * S::G_WORDS;
+  float* ph = grp + NC * 16 * SP;                      // levels, hi [16][PP]
+  float* pl = ph + 16 * PP;                            // lo [16][PP]
+  float* mblk = vbuf + S::V_WORDS + S::RG * S::G_WORDS;  // [BQ][nkb]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * S::BQ;
+  const float* qb = q + (size_t)bh * tq * d;
+  const float* kbase = k + (size_t)bh * tk * d;
+  const float* vbase = v + (size_t)bh * tk * d;
+  const float delta = dz[0], zp = dz[1];
+  const int nkt = (tk + BK - 1) / BK;
+  const int nkb = ((nkt - 1) * BK) / bk + 1;
+
+  // this warp's Q fragments (rows g, g + 8 of its group; its DC columns),
+  // split once: a0 (g, t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, ..)
+  uint32_t qh[DC / 8][4], ql[DC / 8][4];
+#pragma unroll
+  for (int s8 = 0; s8 < DC / 8; ++s8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + row0 + g + 8 * (e & 1);
+      const int c = cw * DC + 8 * s8 + t4 + 4 * (e >> 1);
+      split_tf32((r < tq && c < d) ? qb[(size_t)r * d + c] : 0.f, qh[s8][e],
+                 ql[s8][e]);
+    }
+
+  // BK rows of a (tk, d) operand from key tile kt, zero past tk and d
+  auto load_rows = [&](float* dst, int pitch, const float* src, int kt) {
+    for (int i = tid; i < BK * (DP / 4); i += S::THREADS) {
+      const int r = i / (DP / 4), c = (i - r * (DP / 4)) * 4;
+      const int key = kt * BK + r;
+      float* to = dst + r * pitch + c;
+      if (vec) {
+        const bool in = key < tk && c < d;
+        cp_async16z(to, in ? src + (size_t)key * d + c : src, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = key < tk && c + e < d;
+          cp_async4z(to + e, in ? src + (size_t)key * d + c + e : src,
+                     in ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // S of row rl and keys kt BK + kl + i (i < E) in s[i], scaled, NEG_INF
+  // past tk. Each warp takes q k over its DC columns for
+  // all BK keys on the tensor cores (hi hi in one chain of f32
+  // accumulators, the cross terms hi lo + lo hi in another, added after),
+  // writes the partial, and adds the group's NC partials of its rows in
+  // warp order: the same order in both passes.
+  float s[E];
+  auto scores = [&](const float* ks, int kt) {
+    float shh[BK / 8][4], sx[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) shh[j][e] = sx[j][e] = 0.f;
+    const float* kw = ks + cw * DC + t4;
+#pragma unroll
+    for (int s8 = 0; s8 < DC / 8; ++s8)
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float* kr = kw + (8 * j + g) * KP + 8 * s8;
+        uint32_t bh_[2], bl_[2];
+        split_tf32(kr[0], bh_[0], bl_[0]);
+        split_tf32(kr[4], bh_[1], bl_[1]);
+        mma_tf32_1688(shh[j], qh[s8], bh_);
+        mma_tf32_1688(sx[j], qh[s8], bl_);
+        mma_tf32_1688(sx[j], ql[s8], bh_);
+      }
+    float* mine = grp + cw * 16 * SP;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(mine + (g + 8 * h) * SP + 8 * j + 2 * t4) =
+            make_float2(shh[j][2 * h] + sx[j][2 * h],
+                        shh[j][2 * h + 1] + sx[j][2 * h + 1]);
+    rg_sync<NC>(rgi);
+    const float* pr = grp + rl * SP + kl;
+#pragma unroll
+    for (int i = 0; i < E; i += 2) {
+      float2 a = *reinterpret_cast<const float2*>(pr + i);
+#pragma unroll
+      for (int c = 1; c < NC; ++c) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(pr + c * 16 * SP + i);
+        a.x += b.x;
+        a.y += b.y;
+      }
+      s[i] = kt * BK + kl + i < tk ? a.x * sm_scale : NEG_INF;
+      s[i + 1] = kt * BK + kl + i + 1 < tk ? a.y * sm_scale : NEG_INF;
+    }
+  };
+
+  // pass 1: the rows' running max and denominator over the keys (the LPR
+  // lanes of a row reduce with shuffles; the denominator adds each tile's
+  // f32 sum to a double, so that hundreds of tiles (Tk 4096) round less
+  // than the plain version's f32 sum: at the 16-bit grid a row's levels
+  // move with 1/l), and the running max at the end of each key block
+  float m_r = NEG_INF;
+  double l_r = 0.0;
+  load_rows(kring, KP, kbase, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nkt; ++kt) {
+    if (kt + 1 < nkt) {
+      load_rows(kring + ((kt + 1) & 1) * S::K_WORDS, KP, kbase, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    scores(kring + (kt & 1) * S::K_WORDS, kt);
+    float mx = s[0];
+#pragma unroll
+    for (int i = 1; i < E; ++i) mx = fmaxf(mx, s[i]);
+#pragma unroll
+    for (int o = LPR / 2; o; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    const float m_new = fmaxf(m_r, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (kt * BK + kl + i < tk) sum += expf(s[i] - m_new);
+#pragma unroll
+    for (int o = LPR / 2; o; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+    l_r = l_r * (double)expf(m_r - m_new) + (double)sum;
+    m_r = m_new;
+    if ((((kt + 1) * BK) % bk == 0 || kt == nkt - 1) && lane % LPR == 0)
+      mblk[(row0 + rl) * nkb + kt * BK / bk] = m_new;
+    __syncthreads();
+  }
+  // the row's 1 / (l delta)
+  const float inv = 1.f / ((float)l_r * delta);
+  // the levels need a lo part where they are not integers below 2^11
+  const bool psplit =
+      zp_zero ? pb > 2048.f
+              : (rintf(zp) != zp ||
+                 fmaxf(fabsf(nb - zp), fabsf(pb - zp)) > 2048.f);
+
+  // pass 2: recompute S, the levels against their block's max, P through
+  // shared memory, P @ V on this warp's DC columns. K is double-buffered;
+  // the V tile is loaded while S is computed.
+  float oacc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+
+  load_rows(kring, KP, kbase, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // K(kt) landed; tile kt - 1's V and P are consumed
+    load_rows(vbuf, VP, vbase, kt);
+    cp_async_commit();
+    const bool more = kt + 1 < nkt;
+    if (more) {
+      load_rows(kring + ((kt + 1) & 1) * S::K_WORDS, KP, kbase, kt + 1);
+      cp_async_commit();
+    }
+    scores(kring + (kt & 1) * S::K_WORDS, kt);
+    const float mb = mblk[(row0 + rl) * nkb + kt * BK / bk];
+    const float f = __fmul_rn(expf(mb - m_r), inv);
+#pragma unroll
+    for (int i = 0; i < E; i += 2) {
+      uint32_t lh[2], ll[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = rintf(__fmul_rn(expf(s[i + e] - mb), f));
+        const float lv = zp_zero ? fminf(x, pb)
+                                 : fminf(fmaxf(x + zp, nb), pb) - zp;
+        split_tf32(kt * BK + kl + i + e < tk ? lv : 0.f, lh[e], ll[e]);
+      }
+      const int off = rl * PP + kl + i;
+      *reinterpret_cast<float2*>(ph + off) =
+          make_float2(__uint_as_float(lh[0]), __uint_as_float(lh[1]));
+      if (psplit)
+        *reinterpret_cast<float2*>(pl + off) =
+            make_float2(__uint_as_float(ll[0]), __uint_as_float(ll[1]));
+    }
+    if (more)
+      cp_async_wait<1>();   // V(kt); K(kt + 1) may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();        // V(kt) and the group's P are visible
+    const float* vs = vbuf + cw * DC + g;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; ++k8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int off = (g + 8 * (e & 1)) * PP + 8 * k8 + t4 + 4 * (e >> 1);
+        ah[e] = __float_as_uint(ph[off]);
+        al[e] = psplit ? __float_as_uint(pl[off]) : 0u;
+      }
+#pragma unroll
+      for (int n8 = 0; n8 < DC / 8; ++n8) {
+        const float* vr = vs + (8 * k8 + t4) * VP + 8 * n8;
+        uint32_t vh[2], vl[2];
+        split_tf32(vr[0], vh[0], vl[0]);
+        split_tf32(vr[4 * VP], vh[1], vl[1]);
+        mma_tf32_1688(oacc[n8], ah, vh);
+        mma_tf32_1688(oacc[n8], ah, vl);
+        if (psplit) mma_tf32_1688(oacc[n8], al, vh);
+      }
+    }
+  }
+
+  const bool pair = (d & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + g + 8 * h;
+    if (row >= tq) continue;
+    float* orow = o + ((size_t)bh * tq + row) * d;
+#pragma unroll
+    for (int n8 = 0; n8 < DC / 8; ++n8) {
+      const int col = cw * DC + 8 * n8 + 2 * t4;
+      const float v0 = __fmul_rn(delta, oacc[n8][2 * h]);
+      const float v1 = __fmul_rn(delta, oacc[n8][2 * h + 1]);
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < d) orow[col] = v0;
+        if (col + 1 < d) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
 bool key_blocks_ok(int tk, int bk) {
   return bk > 0 && bk % BK == 0 && (tk + bk - 1) / bk <= MAX_KB;
 }
 
 size_t f32_smem(int d) {
   const int dp = (d + 3) & ~3;
-  return sizeof(float) * (BQ * dp + BK * (dp + 4) + BK * dp + BQ * MAX_KB);
+  return sizeof(float) * (BQ * dp + BK * (dp + 4) + BK * dp);
 }
 
 size_t i8_smem(int d) {
@@ -1165,6 +1517,13 @@ int fqk_dp(int d) {
                                                     : d <= 384 ? 384 : 0;
 }
 
+// the padded head dim the pquant kernel takes for d, or 0
+int pq_dp(int d) {
+  return d <= 0 ? 0 : d <= 40 ? 40 : d <= 80 ? 80 : d <= 160 ? 160
+                                                    : d <= 384 ? 384 : 0;
+}
+
+
 template <int DP, int MODE>
 int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* kf,
                const __nv_bfloat16* vf, const int8_t* vt, const int* vpart,
@@ -1172,14 +1531,10 @@ int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* kf,
                int tkp, int d, int bk, int npre, float sm_scale, int zp_zero,
                FqkRanges rg, cudaStream_t stream) {
   using S = FqkShape<DP>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fqk_kernel<DP, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem(MODE, MAX_KB));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemAttr attr;
+  const int e = raise_smem(flash_fqk_kernel<DP, MODE>, attr,
+                           S::smem(MODE, MAX_KB));
+  if (e) return e;
   if (bk % S::BK) return (int)cudaErrorInvalidValue;
   const int nkt = (tk + S::BK - 1) / S::BK;
   const int nkb = ((nkt - 1) * S::BK) / bk + 1;
@@ -1191,22 +1546,37 @@ int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* kf,
   return (int)cudaGetLastError();
 }
 
-template <int NC, bool PQ>
-int launch_f32(const float* q, const float* k, const float* v,
-               const float* dz, float* o, int bh, int tq, int tk, int d,
-               int bk, float sm_scale, float nb, float pb, int zp_zero,
+template <int NC>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int bh, int tq, int tk, int d, float sm_scale,
                cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_f32_kernel<NC, PQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)f32_smem(32 * NC));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemAttr attr;
+  const int e = raise_smem(flash_f32_kernel<NC>, attr,
+                           (int)f32_smem(32 * NC));
+  if (e) return e;
   dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_f32_kernel<NC, PQ><<<grid, NTHREADS, f32_smem(d), stream>>>(
-      q, k, v, dz, o, tq, tk, d, bk, sm_scale, nb, pb, zp_zero);
+  flash_f32_kernel<NC><<<grid, NTHREADS, f32_smem(d), stream>>>(
+      q, k, v, o, tq, tk, d, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_pq(const float* q, const float* k, const float* v,
+              const float* dz, float* o, int bh, int tq, int tk, int d,
+              int bk, float sm_scale, float nb, float pb, int zp_zero,
+              cudaStream_t stream) {
+  using S = PqShape<DP>;
+  static SmemAttr attr;
+  const int e = raise_smem(flash_pq_kernel<DP>, attr, S::smem(MAX_KB));
+  if (e) return e;
+  if (bk % S::BK) return (int)cudaErrorInvalidValue;
+  const int nkt = (tk + S::BK - 1) / S::BK;
+  const int nkb = ((nkt - 1) * S::BK) / bk + 1;
+  const int vec = d % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  dim3 grid((tq + S::BQ - 1) / S::BQ, bh);
+  flash_pq_kernel<DP><<<grid, S::THREADS, S::smem(nkb), stream>>>(
+      q, k, v, dz, o, tq, tk, d, bk, sm_scale, nb, pb, zp_zero, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1216,14 +1586,10 @@ int launch_i8(const int8_t* q8, const int8_t* k8, const int8_t* v8,
               const float* sc, float* o, int bh, int tq, int tk, int d,
               int bk, float sm_scale, float wnb, float wpb,
               cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_i8_kernel<NC, PQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)i8_smem(32 * NC));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemAttr attr;
+  const int e = raise_smem(flash_i8_kernel<NC, PQ>, attr,
+                           (int)i8_smem(32 * NC));
+  if (e) return e;
   dim3 grid((tq + BQ - 1) / BQ, bh);
   flash_i8_kernel<NC, PQ><<<grid, NTHREADS, i8_smem(d), stream>>>(
       q8, k8, v8, qsum, ksum, vsum, sc, o, tq, tk, d, bk, sm_scale, wnb,
@@ -1251,12 +1617,21 @@ int tfmq_flash_f32(const void* q, const void* k, const void* v,
   const float *qf = (const float*)q, *kf = (const float*)k,
               *vf = (const float*)v, *dzf = (const float*)dz;
   float* of = (float*)o;
-#define TFMQ_F32(NC)                                                       \
-  return pquant ? launch_f32<NC, true>(qf, kf, vf, dzf, of, bh, tq, tk, d, \
-                                       bk, sm_scale, nb, pb, zp_zero, s)   \
-                : launch_f32<NC, false>(qf, kf, vf, dzf, of, bh, tq, tk,  \
-                                        d, bk, sm_scale, nb, pb, zp_zero, \
-                                        s)
+  if (pquant) {
+#define TFMQ_PQ(DP)                                                         \
+  return launch_pq<DP>(qf, kf, vf, dzf, of, bh, tq, tk, d, bk, sm_scale, nb, \
+                       pb, zp_zero, s)
+    switch (pq_dp(d)) {
+      case 40: TFMQ_PQ(40);
+      case 80: TFMQ_PQ(80);
+      case 160: TFMQ_PQ(160);
+      case 384: TFMQ_PQ(384);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef TFMQ_PQ
+  }
+#define TFMQ_F32(NC) \
+  return launch_f32<NC>(qf, kf, vf, of, bh, tq, tk, d, sm_scale, s)
   if (d <= 64) TFMQ_F32(2);
   if (d <= 160) TFMQ_F32(5);
   if (d <= 384) TFMQ_F32(12);

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_attr.cuh"
+
 namespace {
 
 __device__ __forceinline__ float bf16r(float v) {
@@ -561,14 +563,10 @@ int tfmq_int4_linear(const void* x, const void* w_packed, const void* delta,
         xf, wb, df, zf, bf, of, wsf, M, K, N, kchunk, vec_a, vec_b);
   } else {
     using T = LinTile<128, 128, 2, 4>;
-    static bool attr_set = false;
-    if (!attr_set) {
-      err = cudaFuncSetAttribute(int4_linear_kernel<128, 128, 2, 4, 2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 T::SMEM);
-      if (err != cudaSuccess) return (int)err;
-      attr_set = true;
-    }
+    static tfmq::SmemAttr attr;
+    const int e = tfmq::raise_smem(int4_linear_kernel<128, 128, 2, 4, 2>,
+                                   attr, T::SMEM);
+    if (e) return e;
     dim3 grid((N + 127) / 128, (M + 127) / 128, splits);
     int4_linear_kernel<128, 128, 2, 4, 2><<<grid, T::THREADS, T::SMEM, s>>>(
         xf, wb, df, zf, bf, of, wsf, M, K, N, kchunk, vec_a, vec_b);

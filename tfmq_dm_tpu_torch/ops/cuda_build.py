@@ -2,7 +2,8 @@
 
 Each source is compiled with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into a shared library with a plain C interface under ``_build/`` (named by
-the source's content hash, so an edited source rebuilds) and loaded with
+the content hash of the source and the ``csrc/*.cuh`` headers it may
+include, so an edited source or header rebuilds) and loaded with
 ``ctypes``. Nothing is compiled when a module is imported: a library is
 built at its first use, or when ``load(force=True)`` asks for a cold build.
 Two sources build independently, so callers may build them in parallel
@@ -66,7 +67,11 @@ class CudaLibrary:
                     old.unlink()
             if self._lib is not None:
                 return self._lib
-            digest = hashlib.sha256(self.source.read_bytes()).hexdigest()
+            # the source and the headers beside it (csrc/*.cuh)
+            h = hashlib.sha256(self.source.read_bytes())
+            for header in sorted(self.source.parent.glob("*.cuh")):
+                h.update(header.read_bytes())
+            digest = h.hexdigest()
             so = BUILD_DIR / f"{stem}_{digest[:16]}.so"
             if not so.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)

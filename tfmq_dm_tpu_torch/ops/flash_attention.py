@@ -159,6 +159,19 @@ def _p_levels(x, zp, qrange, zp_zero):
     return torch.clamp(x + zp, nb, pb) - zp
 
 
+def tf32_split(x: torch.Tensor):
+    """The pquant kernel's operand split in PyTorch ops: x = hi + lo + r
+    with hi = tf32(x) (``cvt.rna.tf32.f32``: 11 significant bits, nearest,
+    ties away from zero), lo = tf32(x - hi), |r| <= 2^-22 |x|; exact for an
+    integer below 2^22 in magnitude. Returns (hi, lo) as float32 tensors
+    whose 13 low mantissa bits are zero."""
+    def rna(t):
+        u = t.float().contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
+
+
 def flash_fp_plain(q, k, v, sm_scale: float) -> torch.Tensor:
     s = (q @ k.transpose(1, 2)) * sm_scale
     e, l = _row_softmax_parts(s)

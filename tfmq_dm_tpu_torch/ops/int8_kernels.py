@@ -17,12 +17,18 @@ int32 products the JAX package leaves to XLA.
 
 The kernel is CUDA C++ for ``sm_90a`` (``csrc/int8_kernels.cu``), built
 with ``nvcc`` into ``_build/`` at first use and called through a plain C
-interface with ``ctypes``. Each wrapper dispatches on its input's device:
-a CPU tensor takes the plain PyTorch version beside it (the tests use it);
-a CUDA tensor launches the kernel, or raises. The plain versions sum the
-codes in float64, which is exact for these sums (|x w| <= 2^14, K < 2^39),
-so kernel and plain agree bit for bit on the accumulators and, with the
-epilogue evaluated in the same order, on the outputs.
+interface with ``ctypes``. It takes the weight codes K-major, w^T (N, Kp)
+with K zero-padded to a multiple of 16 (``kmajor``): the deployed weight
+record carries that copy (``int_ops.IntWeight.w_t``), made once at deploy.
+The public functions keep the JAX layout w_q (K, N) and take the copy as
+``w_t``; a call on the card without it makes one itself and counts it in
+``KMAJOR_COPIES`` (the deployed path makes none). Each wrapper dispatches
+on its input's device: a CPU tensor takes the plain PyTorch version beside
+it (the tests use it); a CUDA tensor launches the kernel, or raises. The
+plain versions sum the codes in float64, which is exact for these sums
+(|x w| <= 2^14, K < 2^39), so kernel and plain agree bit for bit on the
+accumulators and, with the epilogue evaluated in the same order, on the
+outputs.
 """
 
 from __future__ import annotations
@@ -41,13 +47,15 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_kernels.cu"
 # launches of each wrapper since the last reset (chip_smoke.py reads these)
 LAUNCHES = {"int8_matmul_pre": 0, "int8_matmul_fused": 0, "int8_conv2d": 0,
             "int8_bmm": 0}
+# K-major weight copies made by a call on the card that came without one
+KMAJOR_COPIES = {"int8_matmul_pre": 0, "int8_conv2d": 0, "int8_bmm": 0}
 
 _MODES = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tfmq_int8_gemm.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.tfmq_int8_gemm.argtypes = [p] * 10 + [i] * 12 + [p]
     lib.tfmq_int8_gemm.restype = i
     lib.tfmq_int8_gemm_fused.argtypes = [p, i] + [p] * 7 + [i] * 5 + [p]
     lib.tfmq_int8_gemm_fused.restype = i
@@ -64,8 +72,9 @@ def build(force: bool = False):
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, KMAJOR_COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
@@ -77,11 +86,84 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
     return True
 
 
-def _launch(name, x, w, m, k, n, batch, out_dtype, xsum=None, delta=None,
+# K bytes of a step of the K split (a wgmma pipeline stage; two of the
+# mma.sync route's)
+GEMM_KB = 128
+# the card's streaming multiprocessors (H100 SXM), for the tile plan
+GEMM_SMS = 132
+# K from which the GEMM takes the wgmma route (measured on an H100, PERF.md
+# section 6: wgmma's 128-row tiles win from K 1728 on, mma.sync below 1536)
+WGMMA_MIN_K = 1600
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gemm_plan(m: int, n: int, k: int, batch: int = 1,
+              sms: int = GEMM_SMS):
+    """(route, bm, bn, split, kchunk) of the int8 GEMM for an (M, K) x
+    (K, N) product. Long K (>= ``WGMMA_MIN_K``) takes "wgmma": 128 rows
+    (two warpgroups) by 192 columns where N is 192 or a multiple of 192
+    that still fills the card, else by 128. Short K takes "mma"
+    (mma.sync): 128 x 128 tiles where they fill the card twice, else
+    64 x 128. A single product whose tiles fill under half of the
+    ``sms`` splits K into ranges of ``kchunk`` bytes (a multiple of 128,
+    at least two steps each, at most 16 ranges)."""
+    def tiles(bm, bn):
+        return _ceil(m, bm) * _ceil(n, bn) * batch
+
+    if k >= WGMMA_MIN_K:
+        route, bm = "wgmma", 128
+        bn = 192 if n % 192 == 0 and (n == 192 or tiles(128, 192) >= sms) \
+            else 128
+    else:
+        route, bn = "mma", 128
+        bm = 128 if tiles(128, 128) >= 2 * sms else 64
+    steps = _ceil(k, GEMM_KB)
+    split = 1
+    if batch == 1 and 2 * tiles(bm, bn) < sms and steps >= 4:
+        split = min(_ceil(sms, tiles(bm, bn)), steps // 2, 16)
+    kchunk = _ceil(steps, split) * GEMM_KB
+    return route, bm, bn, _ceil(k, kchunk), kchunk
+
+
+def kmajor(w_q: torch.Tensor, align: int = 16) -> torch.Tensor:
+    """The kernel's weight layout: codes w_q (..., N) (HWIO for a conv,
+    flattened to (K, N) in (kh, kw, Cin) order) as w^T (N, Kp), K-major,
+    zero-padded to Kp = K rounded up to ``align``."""
+    n = w_q.shape[-1]
+    w2 = w_q.reshape(-1, n)
+    k = w2.shape[0]
+    out = torch.zeros((n, _ceil(k, align) * align), dtype=torch.int8,
+                      device=w_q.device)
+    out[:, :k] = w2.t()
+    return out
+
+
+def _weight_t(name: str, w_q: torch.Tensor,
+              w_t: Optional[torch.Tensor]) -> torch.Tensor:
+    """The K-major copy a call on the card uses: ``w_t``, or one made now
+    (counted in ``KMAJOR_COPIES``)."""
+    if w_t is not None:
+        return w_t
+    KMAJOR_COPIES[name] += 1
+    return kmajor(w_q)
+
+
+def _launch(name, x, w_t, m, k, n, batch, out_dtype, xsum=None, delta=None,
             zp_c=None, wsum=None, bias=None, sc=None) -> torch.Tensor:
+    """x (batch, M, K) codes @ w_t (batch, N, Kp)^T on the kernel: int32
+    (``out_dtype`` None) or the epilogue as f32 / bf16, on the route and
+    tile of ``gemm_plan``."""
     dev = x.device
+    kp = w_t.shape[-1]
+    if kp < k or kp % 16:
+        raise ValueError(f"{name}: K-major weights of width {kp} for K {k} "
+                         "(needs >= K, a multiple of 16)")
     check("x", x, torch.int8, (batch, m, k) if batch > 1 else (m, k), dev)
-    check("w", w, torch.int8, (batch, k, n) if batch > 1 else (k, n), dev)
+    check("w_t", w_t, torch.int8, (batch, n, kp) if batch > 1 else (n, kp),
+          dev)
     shape = (batch, m, n) if batch > 1 else (m, n)
     if out_dtype is None:
         out = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -95,11 +177,17 @@ def _launch(name, x, w, m, k, n, batch, out_dtype, xsum=None, delta=None,
         out = torch.empty(shape, dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        raise ValueError(f"{name}: K = 0")
+    route, bm, bn, split, kchunk = gemm_plan(m, n, k, batch)
+    ws = None if split == 1 else torch.empty((split, m, n),
+                                             dtype=torch.int32, device=dev)
     lib = build()
-    err = lib.tfmq_int8_gemm(ptr(x), ptr(w), ptr(xsum), ptr(delta),
+    err = lib.tfmq_int8_gemm(ptr(x), ptr(w_t), ptr(xsum), ptr(delta),
                              ptr(zp_c), ptr(wsum), ptr(bias), ptr(sc),
-                             ptr(out), m, k, n, batch, _MODES[out_dtype],
-                             dev.index or 0,
+                             ptr(out), ptr(ws), m, k, n, kp, batch,
+                             _MODES[out_dtype], bm, bn, split, kchunk,
+                             int(route == "wgmma"), dev.index or 0,
                              torch.cuda.current_stream(dev).cuda_stream)
     launch_check(name, err)
     LAUNCHES[name] += 1
@@ -122,9 +210,10 @@ def _scalars(dx, zp_xc, dev) -> torch.Tensor:
 
 
 def int8_matmul_pre_plain(x_q, xsum, w_q, delta_w, zp_wc, wsum, dx, zp_xc,
-                          bias=None, out_dtype=torch.float32):
+                          bias=None, out_dtype=torch.float32, w_t=None):
     """The kernel's arithmetic in PyTorch ops: the exact int32 product,
-    then the epilogue of ``_int8_mm_pre_kernel`` in its order."""
+    then the epilogue of ``_int8_mm_pre_kernel`` in its order (``w_t``,
+    the kernel's weight layout, is not read)."""
     k = x_q.shape[1]
     acc = _acc_plain(x_q, w_q).float()
     corr = acc - zp_wc * xsum
@@ -140,12 +229,14 @@ def int8_matmul_pre(x_q: torch.Tensor, xsum: torch.Tensor,
                     w_q: torch.Tensor, delta_w: torch.Tensor,
                     zp_wc: torch.Tensor, wsum: torch.Tensor, dx, zp_xc,
                     bias: Optional[torch.Tensor] = None,
-                    out_dtype=torch.float32) -> torch.Tensor:
+                    out_dtype=torch.float32,
+                    w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x_q (M, K) centered int8 codes, xsum (M, 1) f32 row sums of x_q,
     w_q (K, N) centered int8, per-channel delta_w / zp_wc / wsum (N,) f32,
     scalar act grid (dx, zp_xc), optional f32 bias (N,) ->
     dx dw (x_q w_q - zp_wc xsum - zp_xc wsum + K zp_xc zp_wc) + b as
-    ``out_dtype`` (f32 or bf16)."""
+    ``out_dtype`` (f32 or bf16). ``w_t``: w_q's K-major copy
+    (``kmajor(w_q)``), which the kernel reads."""
     if not _on_cuda("int8_matmul_pre", x_q):
         return int8_matmul_pre_plain(x_q, xsum, w_q, delta_w, zp_wc, wsum,
                                      dx, zp_xc, bias, out_dtype)
@@ -153,8 +244,9 @@ def int8_matmul_pre(x_q: torch.Tensor, xsum: torch.Tensor,
         raise ValueError(f"int8_matmul_pre: out_dtype {out_dtype}")
     m, k = x_q.shape
     n = w_q.shape[1]
-    return _launch("int8_matmul_pre", x_q, w_q, m, k, n, 1, out_dtype,
-                   xsum, delta_w, zp_wc, wsum, bias,
+    return _launch("int8_matmul_pre", x_q,
+                   _weight_t("int8_matmul_pre", w_q, w_t), m, k, n, 1,
+                   out_dtype, xsum, delta_w, zp_wc, wsum, bias,
                    _scalars(dx, zp_xc, x_q.device))
 
 
@@ -226,14 +318,19 @@ def int8_bmm_acc_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_bmm_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int32 a (Bt, M, K) @ b (Bt, K, N) of int8 codes, exact."""
+    """int32 a (Bt, M, K) @ b (Bt, K, N) of int8 codes, exact. On the card
+    b is copied K-major (counted in ``KMAJOR_COPIES``)."""
     if not _on_cuda("int8_bmm", a):
         return int8_bmm_acc_plain(a, b)
     bt, m, k = a.shape
     n = b.shape[2]
+    KMAJOR_COPIES["int8_bmm"] += 1
+    b_t = torch.zeros((bt, n, _ceil(k, 16) * 16), dtype=torch.int8,
+                      device=b.device)
+    b_t[..., :k] = b.transpose(1, 2)
     if bt == 1:
-        return _launch("int8_bmm", a[0], b[0], m, k, n, 1, None)[None]
-    return _launch("int8_bmm", a, b, m, k, n, bt, None)
+        return _launch("int8_bmm", a[0], b_t[0], m, k, n, 1, None)[None]
+    return _launch("int8_bmm", a, b_t, m, k, n, bt, None)
 
 
 def conv_pads(padding, kh: int, kw: int):
@@ -275,16 +372,6 @@ def im2col(x_q: torch.Tensor, kh: int, kw: int, stride: int, pads,
     return cols.view(b * ho * wo, kp)
 
 
-def _conv_operands(x_q, w_q, stride, pads):
-    kh, kw, cin, n = w_q.shape
-    cols = im2col(x_q, kh, kw, stride, pads)
-    k = kh * kw * cin
-    w2 = w_q.reshape(k, n)
-    if cols.shape[1] != k:
-        w2 = torch.cat([w2, w2.new_zeros((cols.shape[1] - k, n))])
-    return cols, w2.contiguous()
-
-
 def _conv_shape(x_q, w_q, stride, pads):
     (pt, pb), (pl, pr) = pads
     kh, kw = w_q.shape[:2]
@@ -293,21 +380,29 @@ def _conv_shape(x_q, w_q, stride, pads):
 
 
 def int8_conv_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor,
-                        stride: int = 1,
-                        pads=((1, 1), (1, 1))) -> torch.Tensor:
-    cols, w2 = _conv_operands(x_q, w_q, stride, pads)
-    return _acc_plain(cols, w2).view(_conv_shape(x_q, w_q, stride, pads))
+                        stride: int = 1, pads=((1, 1), (1, 1)),
+                        w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The exact int32 conv of the codes' im2col through float64 (``w_t``,
+    the kernel's weight layout, is not read)."""
+    kh, kw, cin, n = w_q.shape
+    k = kh * kw * cin
+    cols = im2col(x_q, kh, kw, stride, pads)[:, :k]
+    return _acc_plain(cols, w_q.reshape(k, n)).view(
+        _conv_shape(x_q, w_q, stride, pads))
 
 
 def int8_conv_acc(x_q: torch.Tensor, w_q: torch.Tensor, stride: int = 1,
-                  pads=((1, 1), (1, 1))) -> torch.Tensor:
+                  pads=((1, 1), (1, 1)),
+                  w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int32 conv of NHWC int8 codes with HWIO int8 codes, zero padding
-    ``pads``: (B, Ho, Wo, N)."""
+    ``pads``: (B, Ho, Wo, N). On the card: the GEMM of the codes' im2col
+    (K = kh kw Cin padded with zero codes to a multiple of 16) with
+    ``w_t``, the K-major copy of the weights (``kmajor(w_q)``)."""
     if not _on_cuda("int8_conv2d", x_q):
         return int8_conv_acc_plain(x_q, w_q, stride, pads)
+    kh, kw, cin, n = w_q.shape
     shape = _conv_shape(x_q, w_q, stride, pads)
-    cols, w2 = _conv_operands(x_q.contiguous(), w_q.contiguous(), stride,
-                              pads)
-    m, kp = cols.shape
-    return _launch("int8_conv2d", cols, w2, m, kp, shape[3], 1,
-                   None).view(shape)
+    cols = im2col(x_q.contiguous(), kh, kw, stride, pads)
+    m, kc = cols.shape
+    return _launch("int8_conv2d", cols, _weight_t("int8_conv2d", w_q, w_t),
+                   m, kc, n, 1, None).view(shape)

@@ -36,7 +36,8 @@ class IntWeight:
     symmetric grid (zero point structurally 0, so the activation-sum
     correction vanishes). ``w_map`` / ``v_map``: the border maps of one
     conv geometry (``deploy.specialize_maps``); without them the conv
-    computes them per call."""
+    computes them per call. ``w_t``: the codes K-major, as the int8 GEMM
+    reads them."""
 
     w_q: torch.Tensor       # int8, centered (w_int - 2^{b-1}; sym: as-is)
     delta: torch.Tensor     # (O,) per-channel scale
@@ -47,6 +48,9 @@ class IntWeight:
     sym: bool = False
     w_map: Optional[torch.Tensor] = None   # (1, Ho, Wo, O) f32
     v_map: Optional[torch.Tensor] = None   # (1, Ho, Wo, 1) f32 (asym only)
+    # the codes K-major, (O, K padded to 16) (int8_kernels.kmajor): the
+    # layout the int8 GEMM reads, made once here rather than per call
+    w_t: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -81,13 +85,14 @@ def quantize_weight_int(w: torch.Tensor, delta: torch.Tensor,
     zpb = broadcast_channel(zp, w.shape)
     nb, pb = cfg.qrange
     w_q = torch.clamp(w_int + zpb, nb, pb) - off
+    codes = w_q.to(torch.int8)
     return IntWeight(
-        w_q=w_q.to(torch.int8),
+        w_q=codes,
         delta=delta.reshape(-1).float(),
         zp_c=(zp.reshape(-1) - off).float(),
         wsum=w_q.to(torch.int32).sum(dim=tuple(range(w.ndim - 1))),
         k=math.prod(w.shape[:-1]),
-        bits=cfg.bits, sym=sym)
+        bits=cfg.bits, sym=sym, w_t=int8_kernels.kmajor(codes))
 
 
 def quantize_act_int8(x: torch.Tensor, delta: torch.Tensor,
@@ -134,7 +139,8 @@ def int8_conv2d(x_q: torch.Tensor, zp_xc: torch.Tensor, dx: torch.Tensor,
     zero-point corrections and the dequant epilogue in f32, in the JAX
     package's order (int_ops.py:132-193)."""
     kh, kw, cin, _ = iw.w_q.shape
-    acc = int8_kernels.int8_conv_acc(x_q, iw.w_q, stride, pads)
+    acc = int8_kernels.int8_conv_acc(x_q, iw.w_q, stride, pads,
+                                     w_t=iw.w_t)
     w_map, v_map = iw.w_map, iw.v_map
     if w_map is None or (v_map is None and not iw.sym):
         w_map, v_map = border_maps(iw.w_q, x_q.shape[1:3], stride, pads)
@@ -164,7 +170,7 @@ def int8_linear(x_q: torch.Tensor, zp_xc: torch.Tensor, dx: torch.Tensor,
     bias = None if b is None else b.float().contiguous()
     out = int8_kernels.int8_matmul_pre(
         x2, xsum, iw.w_q, iw.delta, zp_wc, iw.wsum.float(), dx, zp_xc,
-        bias, out_dtype=out_dtype)
+        bias, out_dtype=out_dtype, w_t=iw.w_t)
     return out.reshape(lead + (out.shape[-1],))
 
 
