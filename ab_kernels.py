@@ -1,6 +1,6 @@
 """A/B timing of the redesigned kernels (``int4_linear``, ``flash_fqk``,
-``flash_pquant`` and the int8 GEMM) against another checkout of the port,
-on one card, in one process.
+``flash_pquant``, the int8 GEMM, ``flash_int8`` and ``flash_fp``) against
+another checkout of the port, on one card, in one process.
 
     python3 ab_kernels.py --other DIR [--rounds N] [--kernels a,b,..]
 
@@ -20,11 +20,15 @@ cin256 and SD's 64x64; the int8 GEMM at cin256's ``ff.net.0.proj``
 (bf16 out, the weights deployed K-major here and (K, N) in a tree
 before the redesign), on the im2col of cin256's 64x64 3x3 192 -> 192
 conv and of CIFAR-10's largest conv (int32 out), whose outputs must agree
-exactly), and as controls two kernels that a slice leaves alone,
-``flash_fp`` at cin256 and ``int8_matmul_fused`` at cin256's
-``ff.net.0.proj``. ``--kernels`` picks some of int4_linear, flash_fqk,
-flash_pquant, int8_gemm, controls (default: all). Prints the card's name
-and power limit, one line per shape and a JSON line with every time.
+exactly; ``flash_int8`` with and without the 8-bit softmax quantizer and
+``flash_fp`` at cin256 and SD's 64x64, where the two trees' ``flash_int8``
+outputs with the quantizer must agree within the one-level rule), and as
+controls two kernels that a slice leaves alone, ``int4_conv2d`` at
+cin256's 64x64 3x3 192 -> 192 (batch 4) and ``int8_matmul_fused`` at
+cin256's ``ff.net.0.proj``. ``--kernels`` picks some of int4_linear,
+flash_fqk, flash_pquant, int8_gemm, flash_int8, flash_fp, controls
+(default: all). Prints the card's name and power limit, one line per
+shape and a JSON line with every time.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from tfmq_dm_tpu_torch.ops.nn import exact_f32
 from tfmq_dm_tpu_torch.utils.timing import device_ms
 
 KERNELS = ("int4_linear", "flash_fqk", "flash_pquant", "int8_gemm",
-           "controls")
+           "flash_int8", "flash_fp", "controls")
 
 
 def load_other(root: Path, name: str = "tfmq_other_port"):
@@ -144,16 +148,53 @@ def ab_int8(oI8, g, dev, rounds: int, out: list) -> None:
             raise AssertionError("int8 GEMM: the trees' outputs differ")
 
 
-def ab_controls(oFA, oI8, g, dev, rounds: int, out: list) -> None:
-    """``flash_fp`` at cin256 and ``int8_matmul_fused`` at M 4096, 384 ->
-    3072 (bf16 x and out), the same call in both trees."""
-    _, bh, t, _, d = S.FLASH_SHAPES[0]
-    q, k, v = S.flash_case(g, bh, t, t, d, dev)
-    r = ab(lambda: oFA.flash_fp(q, k, v, d ** -0.5),
-           lambda: FA.flash_fp(q, k, v, d ** -0.5), rounds)
-    r.update(shape=[bh, t, d], what="flash_fp")
+def ab_flash_int8(oFA, g, dev, rounds: int, out: list) -> None:
+    """``flash_int8`` at cin256 and SD's 64x64, with the 8-bit softmax
+    quantizer (the cin256 int4-serving path's) and without; with it the
+    two trees' outputs must agree within the one-level rule."""
+    for label, bh, t, _, d in (S.FLASH_SHAPES[0], S.FLASH_SHAPES[1]):
+        q, k, v = S.flash_case(g, bh, t, t, d, dev)
+        for pw in (S.P_GRIDS[0], None):
+            ops, sc = S.int8_case(q, k, v, pw, dev)
+            a = (*ops, sc, d ** -0.5, None if pw is None else (0, 255))
+            r = ab(lambda: oFA.flash_int8(*a), lambda: FA.flash_int8(*a),
+                   rounds)
+            mode = "no p" if pw is None else "8-bit p"
+            r.update(shape=[bh, t, d], mode=mode)
+            out.append(r)
+            report(f"flash_int8 {label} bh{bh} T{t} d{d} {mode}", r)
+            if pw is not None:
+                S.check_one_level(f"flash_int8 {label} {mode}, this vs "
+                                  "other", FA.flash_int8(*a),
+                                  oFA.flash_int8(*a), pw[0], [])
+            del ops, a
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def ab_flash_fp(oFA, g, dev, rounds: int, out: list) -> None:
+    """``flash_fp`` at cin256 and SD's 64x64."""
+    for label, bh, t, _, d in (S.FLASH_SHAPES[0], S.FLASH_SHAPES[1]):
+        q, k, v = S.flash_case(g, bh, t, t, d, dev)
+        r = ab(lambda: oFA.flash_fp(q, k, v, d ** -0.5),
+               lambda: FA.flash_fp(q, k, v, d ** -0.5), rounds)
+        r.update(shape=[bh, t, d])
+        out.append(r)
+        report(f"flash_fp {label} bh{bh} T{t} d{d}", r)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def ab_controls(oK, oI8, g, dev, rounds: int, out: list) -> None:
+    """``int4_conv2d`` at cin256's 64x64 3x3 192 -> 192 (batch 2 x CFG)
+    and ``int8_matmul_fused`` at M 4096, 384 -> 3072 (bf16 x and out),
+    the same call in both trees."""
+    case = S.conv_case(g, 2 * S.CIN_N, 64, 3, 192, 192, dev)
+    r = ab(lambda: oK.int4_conv2d(*case), lambda: K.int4_conv2d(*case),
+           rounds)
+    r.update(shape=[2 * S.CIN_N, 64, 192, 192], what="int4_conv2d")
     out.append(r)
-    report(f"flash_fp cin256 bh{bh} T{t} d{d}", r)
+    report(f"int4_conv2d b{2 * S.CIN_N} 64x64 3x3 192->192", r)
     m, kk, n = 2 * S.CIN_N * 1024, 384, 3072
     iw = S.int8_weight(g, kk, n, False, dev)
     x = torch.randn(m, kk, generator=g).to(torch.bfloat16).to(dev)
@@ -214,8 +255,12 @@ def main(argv=None) -> int:
         ab_pquant(oFA, g, dev, args.rounds, out["flash_pquant"])
     if "int8_gemm" in picked:
         ab_int8(oI8, g, dev, args.rounds, out["int8_gemm"])
+    if "flash_int8" in picked:
+        ab_flash_int8(oFA, g, dev, args.rounds, out["flash_int8"])
+    if "flash_fp" in picked:
+        ab_flash_fp(oFA, g, dev, args.rounds, out["flash_fp"])
     if "controls" in picked:
-        ab_controls(oFA, oI8, g, dev, args.rounds, out["controls"])
+        ab_controls(oK, oI8, g, dev, args.rounds, out["controls"])
     print(json.dumps(out), flush=True)
     return 0
 

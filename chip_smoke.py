@@ -22,15 +22,20 @@ when one is exceeded):
               (``gn_swish_quant_int8``) at the cin256 and CIFAR-10
               GroupNorms and SD's resblock shapes: each CUDA kernel
               against its plain PyTorch version on the same inputs (and
-              ``int4_linear`` against itself: two calls bit-identical;
+              ``int4_linear`` and ``flash_int8`` with the softmax
+              quantizer against themselves: two calls bit-identical;
               the fqk pre-pass bit-equal to its plain version); then
               times kernel, plain version and one PyTorch library call on
               the device (calls captured in a CUDA graph), and the
               kernel's wall time per eager call, beside the card's bound:
               ``int4_linear`` at every distinct cin256 geometry and
-              CIFAR-10's, ``flash_fqk`` in its three modes at cin256 and
-              SD's 64x64, each printed beside its earlier design's device
-              time where one was taken (``EARLIER_MS``; not in the
+              CIFAR-10's, ``flash_fqk`` in its three modes, ``flash_fp``,
+              ``flash_pquant`` (8- and 16-bit softmax grids) and
+              ``flash_int8`` (with and without the softmax quantizer) at
+              cin256 and SD's 64x64 (the f32 kernels also beside SDPA on
+              their f32 operands), each printed beside its earlier
+              design's device time where one was taken (``EARLIER_MS``;
+              not in the
               ``kernels`` line, which holds this run's numbers only).
               No model path of the JAX package reaches the last two
               kernels (tests and ``scripts/micro_gn.py`` only): their
@@ -141,8 +146,10 @@ GN_MAX_LEVELS, GN_MAX_SHARE = 1, 1e-4
 EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("int4_linear", 4096, 384, 3072): 0.7676,
               ("flash_fqk", "cin256", "p levels"): 1.6757,
-              ("flash_pquant", "cin256", 8): 0.8766,
-              ("int8", "linear"): 0.1824, ("int8", "conv_gemm"): 0.2506}
+              ("flash_pquant", "cin256", "f32, 8-bit grid"): 0.8766,
+              ("int8", "linear"): 0.1824, ("int8", "conv_gemm"): 0.2506,
+              ("flash_int8", "cin256", "8-bit p"): 0.6829,
+              ("flash_fp", "cin256", "f32"): 0.5694}
 
 STEPS, BATCH, SEED = 10, 8, 1234
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
@@ -628,6 +635,9 @@ def check_flash(g, dev, errs) -> None:
             else:
                 check_one_level(f"flash_int8 p-quant {tag}", got, ref,
                                 pw[0], errs["flash_int8"])
+                if not torch.equal(got, FA.flash_int8(*ops, sc, sm, qr)):
+                    raise AssertionError(f"flash_int8 p-quant {tag}: two "
+                                         "calls differ")
         del q, k, v
         torch.cuda.empty_cache()
 
@@ -689,81 +699,91 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def time_flash(g, dev, peaks) -> dict:
-    """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384): the
-    kernel, its plain version and ``scaled_dot_product_attention`` on bf16
-    q/k/v of the same shape (dequantized for int8), timed only; the f32
-    kernels' bound is one S and one P @ V at the TF32 tensor rate (or
-    their bytes). ``flash_pquant`` also at the 16-bit grid (the cin256
-    ``--softmax_a_bit 16`` path's) and at SD's B*H 16, T 4096, D 40."""
+    """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384) and at
+    SD's 64x64 (B*H 16, T 4096, D 40): the kernel, its plain version and
+    ``scaled_dot_product_attention`` on bf16 q/k/v of the same shape
+    (dequantized for int8), timed only; for the f32 kernels also SDPA on
+    the f32 operands (``library_f32_ms``: the same function at the
+    kernels' precision, TF32 off by ``exact_f32``). The f32 kernels' bound
+    is one S and one P @ V at the TF32 tensor rate (or their bytes);
+    ``flash_int8``'s S at the int8 rate and its P @ V at the int8 rate
+    with the softmax quantizer, else at the TF32 rate. ``flash_pquant``
+    at the 8- and 16-bit grids (the latter the cin256 ``--softmax_a_bit
+    16`` path's), ``flash_int8`` with the 8-bit softmax quantizer (the
+    cin256 int4-serving path's) and without. Returns {name: timings of
+    the cin256 row, with the other shapes and modes under "grids"}."""
     import torch
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
-    _, bh, t, _, d = FLASH_SHAPES[0]
-    q, k, v = flash_case(g, bh, t, t, d, dev)
-    sm = d ** -0.5
-    qb, kb, vb = (x.to(torch.bfloat16)[:, None] for x in (q, k, v))
-    flops = 2 * 2 * bh * t * t * d
-    f32_bytes = 4 * 4 * bh * t * d
-    backend = sdpa_backend(qb, kb, vb)
-    out = {}
+    rows = {}
+    for label, bh, t, _, d in (FLASH_SHAPES[0], FLASH_SHAPES[1]):
+        q, k, v = flash_case(g, bh, t, t, d, dev)
+        sm = d ** -0.5
+        qb, kb, vb = (x.to(torch.bfloat16)[:, None] for x in (q, k, v))
+        q4, k4, v4 = (x[:, None] for x in (q, k, v))
+        products = 2 * bh * t * t * d
+        f32_bytes = 4 * 4 * bh * t * d
+        backend = sdpa_backend(qb, kb, vb)
 
-    def lib():
-        return F.scaled_dot_product_attention(qb, kb, vb, scale=sm)
+        def lib(qb=qb, kb=kb, vb=vb, sm=sm):
+            return F.scaled_dot_product_attention(qb, kb, vb, scale=sm)
 
-    out["flash_fp"] = timings(lambda: FA.flash_fp(q, k, v, sm),
-                              lambda: FA.flash_fp_plain(q, k, v, sm), lib,
-                              flops, f32_bytes, peaks, rate="tf32")
-    grids = {}
-    for label, (bh_, t_, d_) in (("cin256", (bh, t, d)),
-                                 ("sd 64x64", (16, 4096, 40))):
-        if label == "cin256":
-            qq, kk, vv = q, k, v
-            lib_ = lib
-        else:
-            qq, kk, vv = flash_case(g, bh_, t_, t_, d_, dev)
-            qs_, ks_, vs_ = (x.to(torch.bfloat16)[:, None]
-                             for x in (qq, kk, vv))
+        lib_f32 = device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=sm))
+        f32_lib = (f"scaled_dot_product_attention bf16 ({backend}); f32 "
+                   f"({sdpa_backend(q4, k4, v4)}, TF32 off)")
 
-            def lib_(qs_=qs_, ks_=ks_, vs_=vs_, d_=d_):
-                return F.scaled_dot_product_attention(qs_, ks_, vs_,
-                                                      scale=d_ ** -0.5)
+        def add(name, mode, tm, library):
+            tm["shape"] = f"(B*H {bh}, T {t}, D {d}), {mode}"
+            tm["library"] = library
+            rows[(name, label, mode)] = tm
+            f32_note = "" if "library_f32_ms" not in tm else \
+                f"; f32 SDPA {tm['library_f32_ms']:.4f}"
+            print(f"   {name} {label} bh{bh} T{t} d{d} {mode}: "
+                  + timing_line(tm) + f32_note
+                  + earlier_note(tm, (name, label, mode)), flush=True)
+
+        tm = timings(lambda: FA.flash_fp(q, k, v, sm),
+                     lambda: FA.flash_fp_plain(q, k, v, sm), lib,
+                     2 * products, f32_bytes, peaks, rate="tf32")
+        tm["library_f32_ms"] = lib_f32
+        add("flash_fp", "f32", tm, f32_lib)
         for bits, dz_, qr in ((8, P_GRIDS[0], (0, 255)),
                               (16, P16_GRID, (0, 65535))):
-            dz = torch.tensor(dz_, device=dev)
-            args = (qq, kk, vv, d_ ** -0.5, dz, qr, True)
+            args = (q, k, v, sm, torch.tensor(dz_, device=dev), qr, True)
             tm = timings(lambda: FA.flash_pquant(*args),
-                         lambda: FA.flash_pquant_plain(*args), lib_,
-                         2 * 2 * bh_ * t_ * t_ * d_, 4 * 4 * bh_ * t_ * d_ + 8,
-                         peaks, rate="tf32")
-            tm["shape"] = f"(B*H {bh_}, T {t_}, D {d_}), f32, {bits}-bit grid"
-            tm["library"] = "scaled_dot_product_attention bf16 (" + \
-                sdpa_backend(*((qb, kb, vb) if label == "cin256" else
-                               (qs_, ks_, vs_))) + ")"
-            grids[(label, bits)] = tm
-            print(f"   flash_pquant {label} bh{bh_} T{t_} d{d_} {bits}-bit: "
-                  + timing_line(tm)
-                  + earlier_note(tm, ("flash_pquant", label, bits)),
-                  flush=True)
-        del qq, kk, vv
-    out["flash_pquant"] = dict(grids[("cin256", 8)])
-    out["flash_pquant"]["grids"] = {f"{lb} {bits}-bit": tm for (lb, bits), tm
-                                    in grids.items() if (lb, bits) !=
-                                    ("cin256", 8)}
-    ops, sc = int8_case(q, k, v, P_GRIDS[0], dev)
-    deq = [((x.float() + 128.0 - z) * dl).to(torch.bfloat16)[:, None]
-           for x, (dl, z) in zip(ops[:3], INT8_GRIDS)]
-    i8_bytes = 3 * bh * t * d + 4 * (2 * bh * t + bh * d + 8) \
-        + 4 * bh * t * d
-    out["flash_int8"] = timings(
-        lambda: FA.flash_int8(*ops, sc, sm, (0, 255)),
-        lambda: FA.flash_int8_plain(*ops, sc, sm, (0, 255)),
-        lambda: F.scaled_dot_product_attention(*deq, scale=sm),
-        flops, i8_bytes, peaks, rate="int8")
-    for name, tm in out.items():
-        tm["library"] = f"scaled_dot_product_attention bf16 ({backend})"
-        print(f"   {name} cin256 bh{bh} T{t} d{d}: " + timing_line(tm),
-              flush=True)
-    print(f"   scaled_dot_product_attention picked {backend}", flush=True)
+                         lambda: FA.flash_pquant_plain(*args), lib,
+                         2 * products, f32_bytes + 8, peaks, rate="tf32")
+            tm["library_f32_ms"] = lib_f32
+            add("flash_pquant", f"f32, {bits}-bit grid", tm, f32_lib)
+        i8_bytes = 3 * bh * t * d + 4 * (2 * bh * t + bh * d + 8) \
+            + 4 * bh * t * d
+        for pw, mode in ((P_GRIDS[0], "8-bit p"), (None, "no p")):
+            ops, sc = int8_case(q, k, v, pw, dev)
+            qr = None if pw is None else (0, 255)
+            deq = [((x.float() + 128.0 - z) * dl).to(torch.bfloat16)[:, None]
+                   for x, (dl, z) in zip(ops[:3], INT8_GRIDS)]
+            flops = {"int8": 2 * products} if pw is not None else \
+                {"int8": products, "tf32": products}
+            tm = timings(lambda: FA.flash_int8(*ops, sc, sm, qr),
+                         lambda: FA.flash_int8_plain(*ops, sc, sm, qr),
+                         lambda: F.scaled_dot_product_attention(*deq,
+                                                                scale=sm),
+                         flops, i8_bytes, peaks)
+            add("flash_int8", mode, tm,
+                f"scaled_dot_product_attention bf16 ({backend}) on the "
+                "dequantized q/k/v")
+            del ops, deq
+        del q, k, v, qb, kb, vb, q4, k4, v4
+        torch.cuda.empty_cache()
+    out = {}
+    for name, head in (("flash_fp", "f32"),
+                       ("flash_pquant", "f32, 8-bit grid"),
+                       ("flash_int8", "8-bit p")):
+        out[name] = dict(rows[(name, "cin256", head)])
+        out[name]["grids"] = {f"{lb} {mode}": tm for (n, lb, mode), tm
+                              in rows.items() if n == name and
+                              (lb, mode) != ("cin256", head)}
     return out
 
 

@@ -373,6 +373,97 @@ def test_cuda_flash_pquant_reruns_bit_identical(cuda):
         assert torch.equal(a, b)
 
 
+# The tensor-core flash_int8 and flash_fp at every head-dim template they
+# instantiate (int8: d padded to 64, 96, 160, 384; fp: 40, 80, 160, 384),
+# at a Tk that is no multiple of the key tile (1000) and at Tk 4096; with
+# the softmax quantizer over several key blocks (block_k 256). The same
+# rules as above.
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 384])
+@pytest.mark.parametrize("tk", [1000, 4096])
+@pytest.mark.parametrize("pw,zv", [(None, 125.0), (None, 125.37),
+                                   ((1 / 255.0, 0.0), 125.0),
+                                   ((0.004, 3.0), 125.0)])
+def test_cuda_flash_int8_tiles_match_plain(cuda, d, tk, pw, zv):
+    """Without the quantizer at an integer and a fractional v zero point
+    (two and three TF32 products in P @ V); with it at block_k 256."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(d + tk + 5, 2, 256, tk, d, cuda)
+    ops, sc = _int8_ops(q, k, v, cuda, pw)
+    sc[5] = zv
+    qrange = None if pw is None else A8
+    args = (*ops, sc, d ** -0.5, qrange, 256)
+    before = FA.LAUNCHES["flash_int8"]
+    got = FA.flash_int8(*args)
+    assert FA.LAUNCHES["flash_int8"] == before + 1
+    ref = FA.flash_int8_plain(*args)
+    if pw is None:
+        _assert_close(got, ref)
+    else:
+        _assert_one_level(got, ref, pw[0])
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 384])
+@pytest.mark.parametrize("tk", [1000, 4096])
+def test_cuda_flash_fp_tiles_match_plain(cuda, d, tk):
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(d + tk + 6, 2, 256, tk, d, cuda)
+    before = FA.LAUNCHES["flash_fp"]
+    got = FA.flash_fp(q, k, v, d ** -0.5)
+    assert FA.LAUNCHES["flash_fp"] == before + 1
+    _assert_close(got, FA.flash_fp_plain(q, k, v, d ** -0.5))
+
+
+@pytest.mark.parametrize("d", [36, 77])
+@pytest.mark.parametrize("mode", ["fp", "int8", "int8 p-quant"])
+def test_cuda_flash_odd_head_dims_match_plain(cuda, d, mode):
+    """Head dims that are no multiple of 8 (int8 codes copied in 4-byte
+    granules) or of 4 (bytewise; f32 rows by 4-byte copies)."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(d + 8, 3, 200, 300, d, cuda)
+    if mode == "fp":
+        _assert_close(FA.flash_fp(q, k, v, d ** -0.5),
+                      FA.flash_fp_plain(q, k, v, d ** -0.5))
+        return
+    pw = (1 / 255.0, 0.0) if mode == "int8 p-quant" else None
+    ops, sc = _int8_ops(q, k, v, cuda, pw)
+    qrange = None if pw is None else A8
+    got = FA.flash_int8(*ops, sc, d ** -0.5, qrange)
+    ref = FA.flash_int8_plain(*ops, sc, d ** -0.5, qrange)
+    if pw is None:
+        _assert_close(got, ref)
+    else:
+        _assert_one_level(got, ref, pw[0])
+
+
+def test_cuda_flash_int8_reruns_bit_identical(cuda):
+    """Integer S, fixed summation orders: two calls agree bit for bit,
+    with and without the softmax quantizer."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    q, k, v = _qkv(4, 4, 1024, 1024, 384, cuda)
+    for pw in ((1 / 255.0, 0.0), None):
+        ops, sc = _int8_ops(q, k, v, cuda, pw)
+        qr = None if pw is None else A8
+        a = FA.flash_int8(*ops, sc, 384 ** -0.5, qr)
+        b = FA.flash_int8(*ops, sc, 384 ** -0.5, qr)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tk,d", [(1000, 40), (77, 80), (4096, 160),
+                                  (1024, 384)])
+def test_cuda_int8_vt_matches_plain(cuda, tk, d):
+    """flash_int8's pre-pass: the v codes transposed and zero-padded, bit
+    for bit."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    g = torch.Generator().manual_seed(tk + d)
+    v8 = torch.randint(-128, 128, (3, tk, d), generator=g,
+                       dtype=torch.int8).to(cuda)
+    got = FA.int8_vt(v8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, FA.int8_vt_plain(v8))
+
+
 # ---------------------------------------------------------------------------
 # the exact int8 GEMM: bit-equal to its plain version (exact int32 sums,
 # the same epilogue order)

@@ -84,9 +84,13 @@ def _both(fn_kwargs_j, fn_kwargs_t, q, k, v, sm):
 
 
 SHAPES = [(256, 256, 2, 40), (130, 130, 2, 40), (130, 77, 1, 384)]
+# and the other head-dim templates of the tensor-core fp and int8 kernels
+# (d 64, 80, 160), at a ragged Tk
+WIDE_SHAPES = SHAPES + [(130, 77, 1, 64), (100, 77, 1, 80),
+                        (64, 77, 1, 160)]
 
 
-@pytest.mark.parametrize("tq,tk,h,d", SHAPES)
+@pytest.mark.parametrize("tq,tk,h,d", WIDE_SHAPES)
 def test_flash_fp_plain_matches_jax(tq, tk, h, d):
     rng = np.random.default_rng(tq + d)
     q, k, v = _rand(rng, 2, h, tq, d), _rand(rng, 2, h, tk, d), \
@@ -110,7 +114,7 @@ def test_flash_pquant_plain_matches_jax(tq, tk, h, d, dz, zp_zero):
     _assert_one_level(t, j, dz[0])
 
 
-@pytest.mark.parametrize("tq,tk,h,d", SHAPES)
+@pytest.mark.parametrize("tq,tk,h,d", WIDE_SHAPES)
 @pytest.mark.parametrize("pw", [None, (1 / 255.0, 0.0), (0.004, 3.0)])
 def test_flash_int8_plain_matches_jax(tq, tk, h, d, pw):
     rng = np.random.default_rng(tq + d + 2)
@@ -131,6 +135,89 @@ def test_flash_int8_plain_matches_jax(tq, tk, h, d, pw):
         _assert_close(t, j)
     else:
         _assert_one_level(t, j, pw[0])
+
+
+# a v grid with a fractional zero point: (v' - zv') is no integer, so the
+# int8 kernel's P @ V without a softmax quantizer splits it for TF32
+FRAC_GRIDS = GRIDS[:2] + ((0.033, 125.37),)
+
+
+def _int8_jax(q, k, v, grids, sm):
+    return np.asarray(j_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), sm_scale=sm,
+        interpret=True, qkv_quant=tuple(tuple(jnp.float32(a) for a in g)
+                                        for g in grids)))
+
+
+@pytest.mark.parametrize("d", [40, 384])
+def test_flash_int8_plain_fractional_zv_matches_jax(d):
+    """No softmax quantizer, v zero point 125.37: the plain version (p f32
+    against dv (v' - zv')) against JAX's interpreted ``_int8_kernel``."""
+    rng = np.random.default_rng(d + 9)
+    q, k, v = (_rand(rng, 1, 2, t, d) for t in (130, 77, 77))
+    j = _int8_jax(q, k, v, FRAC_GRIDS, d ** -0.5)
+    t = TF.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        sm_scale=d ** -0.5,
+        qkv_quant=tuple(tuple(torch.tensor(a) for a in g)
+                        for g in FRAC_GRIDS)).numpy()
+    _assert_close(t, j)
+
+
+@pytest.mark.parametrize("grids", [GRIDS, FRAC_GRIDS])
+@pytest.mark.parametrize("d", [40, 160])
+def test_int8_tf32_pv_route_matches_jax(grids, d):
+    """The int8 kernel's P @ V without a softmax quantizer, in PyTorch ops:
+    p = exp(s - m) split hi + lo (``tf32_split``) against (v' - zv'), an
+    exact integer for an integer zv (two products) or split hi + lo too
+    (three: hi.hi + hi.lo + lo.hi), products exact in float64, dv and 1/l
+    applied per output. Within REL_TOL of JAX's interpreted kernel, which
+    rounds dv (v' - zv') per element."""
+    rng = np.random.default_rng(d + 10)
+    q, k, v = (_rand(rng, 1, 2, t, d) for t in (130, 77, 77))
+    j = _int8_jax(q, k, v, grids, d ** -0.5)
+    qkv = tuple(tuple(torch.tensor(a) for a in g) for g in grids)
+    flat = [torch.from_numpy(x).reshape(2, -1, d) for x in (q, k, v)]
+    q8, k8, v8, qsum, ksum, _ = TF.int8_operands(*flat, qkv,
+                                                 ((0, 255),) * 3)
+    sc = torch.tensor([a for g in grids for a in g] + [1.0, 0.0])
+    s = TF._int8_scores(q8, k8, qsum, ksum, sc, d ** -0.5)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    ph, pl = TF.tf32_split(p)
+    vz = v8.float() - (sc[5] - 128.0)
+    if float(sc[5]) == round(float(sc[5])):
+        assert torch.equal(TF.tf32_split(vz)[0], vz)   # exact in TF32
+        acc = ph.double() @ vz.double() + pl.double() @ vz.double()
+    else:
+        vh, vl = TF.tf32_split(vz)
+        acc = ph.double() @ vh.double() + (ph.double() @ vl.double()
+                                           + pl.double() @ vh.double())
+    out = (sc[4] * acc.float()) / p.sum(dim=-1, keepdim=True)
+    _assert_close(out.reshape(1, 2, 130, d).numpy(), j)
+
+
+@pytest.mark.parametrize("tk,d,dp,tkp", [(77, 40, 64, 128),
+                                         (1000, 64, 64, 1024),
+                                         (130, 80, 96, 192),
+                                         (4096, 160, 160, 4096),
+                                         (1024, 384, 384, 1024)])
+def test_int8_vt_plain_transposes_jax_codes(tk, d, dp, tkp):
+    """The int8 kernel's pre-pass layout (``int8_scratch``,
+    ``int8_vt_plain``): JAX's v codes (``_quant_i8``) transposed to
+    (B*H, DP, Tkp), DP the head dim padded to the kernel's template
+    width, Tkp the keys rounded up to 64, zero in the padding."""
+    from tfmq_dm_tpu.ops.flash_attention import _quant_i8
+    rng = np.random.default_rng(tk + d)
+    v = _rand(rng, 2, tk, d) * 3
+    j8 = np.array(_quant_i8(jnp.asarray(v), jnp.float32(0.033),
+                            jnp.float32(125.0), 0.0, 255.0))
+    got_dp, got_tkp, vt = TF.int8_scratch(2, tk, d, torch.device("cpu"))
+    assert (got_dp, got_tkp) == (dp, tkp)
+    assert vt.shape == (2, dp, tkp) and vt.dtype == torch.int8
+    vt = TF.int8_vt_plain(torch.from_numpy(j8)).numpy()
+    assert vt.shape == (2, dp, tkp)
+    np.testing.assert_array_equal(vt[:, :d, :tk], j8.transpose(0, 2, 1))
+    assert not vt[:, d:].any() and not vt[:, :, tk:].any()
 
 
 def test_int8_operands_match_jax_quantizer():

@@ -7,43 +7,90 @@
 //   tfmq_flash_int8 (int8)           <- _int8_kernel
 //   tfmq_flash_fqk  (fqk)            <- _fqk_kernel
 //
-// Layout: (B*H, T, D) row-major, no tile padding in device memory; the
-// ragged key and query edges are masked in the kernel, and a head dim
-// that is not a multiple of 4 (f32) or 16 (int8) is zero-filled in
-// shared memory only.
+// Layout: (B*H, T, D) row-major, no tile padding in device memory (the
+// scratch of the int8 and fqk pre-passes is padded); the ragged key and
+// query edges are masked in the kernels, and the head dim is zero-filled
+// up to the kernel's template width in shared memory only.
 //
-// Blocking of fp and int8 (scalar FMA / dp4a). A block holds 32 query
-// rows (8 warps x 4 rows) and walks the keys in tiles of 32, one key per
-// lane: a lane computes the 4 scores of its key against its warp's rows,
-// the warp reduces row max and sum with shuffles, and for P @ V each lane
-// owns the head-dim columns lane + 32 i of its warp's 4 rows (the
-// accumulators stay in registers; D <= 384). The TPU kernels' large VMEM
-// tiles (512 x 2048) become small tiles in shared memory: the f32 kernel
-// needs 145 KB at D = 384 (dynamic shared memory), the int8 kernel 37 KB.
+// Softmax-output quantization (pquant, and int8 and fqk with a p
+// quantizer) needs the exact normalized probabilities, which the online
+// rescaling cannot give. The Pallas kernels cache e = exp(s - m) in a
+// (block_q, Tk) f32 scratch; at Tk = 1024 that is 128 KB for 32 rows and
+// 256 KB for 64, beyond what a block can hold here. These kernels
+// recompute the scores in a second pass instead: pass 1 gives the row max
+// m and the denominator l online, and the running max m_b at the end of
+// each key block of bk columns (the Pallas call's block_k, 2048 by
+// default); pass 2 recomputes s bit for bit (same code, same order),
+// takes e = exp(s - m_b) against its block's max and quantizes round(e f)
+// with the row factor f = exp(m_b - m) / (l delta): the Pallas kernels'
+// own operand, block by block (flash_attention.py:134-163). The block
+// maxes live in shared memory (MAX_KB blocks at most). The plain versions
+// in ops/flash_attention.py take exactly this rounding.
 //
-// Softmax-output quantization (pquant, and int8 with a p quantizer) needs
-// the exact normalized probabilities, which the online rescaling cannot
-// give. The Pallas kernels cache e = exp(s - m) in a (block_q, Tk) f32
-// scratch; at Tk = 1024 that is 128 KB for 32 rows and 256 KB for 64,
-// beyond what a block can hold here. These kernels recompute the scores in
-// a second pass instead: pass 1 gives the row max m and the denominator l
-// online, and the running max m_b at the end of each key block of bk
-// columns (the Pallas call's block_k, 2048 by default); pass 2 recomputes
-// s bit for bit (same code, same order), takes e = exp(s - m_b) against
-// its block's max and quantizes round(e f) with the row factor
-// f = exp(m_b - m) / (l delta): the Pallas kernels' own operand, block by
-// block (flash_attention.py:134-163). The block maxes of a block's 32 rows
-// live in shared memory (MAX_KB blocks at most). The plain versions in
-// ops/flash_attention.py take exactly this rounding.
+// int8 (flash_i8_kernel<DP, PQ>): q/k/v arrive as centered int8 codes,
+// quantized outside with their row sums. What bounds it on this card: at
+// cin256 (B*H 4, T 1024, D 384) one S and one P @ V are 6.4 G int8
+// operations on 11 MB of codes, sums and f32 output, 0.0033 ms either way
+// at 1979 TOP/s and 3.35 TB/s; in practice the K and V tiles each block
+// streams through shared memory (once per pass) and the latency of the
+// per-tile steps. Its first version ran S on dp4a and P @ V as scalar
+// integer FMA in blocks of 32 rows. This one:
+//   - a pre-pass kernel (i8_vt_kernel, one launch per call, counted in
+//     the kernel's time) transposes the v codes once into scratch (B*H,
+//     DP, Tk padded to 64), zero past Tk and D: each head-dim column's
+//     codes over the keys, the layout of the s8 B operand of P @ V. (A
+//     byte transpose in shared memory would repeat it in every block.)
+//   - a block holds RG row groups of 16 query rows; the NC warps of a row
+//     group split the key tile for S and the head dim for P @ V. Each warp
+//     keeps its rows' Q codes as ldmatrix A fragments in registers; K
+//     codes and their row sums come through a two-stage cp.async ring;
+//     S = Q K^T runs on mma.sync m16n8k32 s8 (int32 sums, exact in any
+//     order), the head dim padded with zero codes to DP, a multiple of
+//     32, in shared memory (a zero code adds 0; the corrections keep the
+//     real D). The zero-point corrections dq dk (acc - zk' sum q - zq'
+//     sum k + D zq' zk') sm_scale are taken in the Pallas kernel's order
+//     without contraction (__fmul_rn / __fsub_rn): S is the plain
+//     version's bit for bit, and pass 2's is pass 1's.
+//   - PQ, the softmax quantizer (the cin256 int4-serving path's mode):
+//     the two passes above; pass 2 writes the levels - 128 as int8
+//     through shared memory (the s32 C layout is not the s8 A layout) and
+//     runs P @ V on m16n8k32 s8 against the v codes (int32 sums: |level
+//     code| <= 2^14, exact for Tk < 2^17); the rank-1 corrections of the
+//     zero points are folded over the real keys in 64-bit integers.
+//     Exact: the outputs differ from the plain version's only where the
+//     f32 softmax denominator, summed in another order, flips a level
+//     (the one-level rule).
+//   - no quantizer: one online pass; each tile's row max is taken over
+//     the group's warps through shared memory, p = exp(s - m) is split
+//     hi + lo (TF32, as for pquant below) into f32 planes, and P @ V runs
+//     on mma.sync m16n8k8 TF32 against (v' - zv'): an integer below 2^9,
+//     exact in TF32, where zv is an integer (two products, p_hi and
+//     p_lo), else split hi + lo too (three: hi hi + hi lo + lo hi); dv
+//     and 1 / l apply per output. Error: p carried to 2^-22, f32 sums;
+//     the plain version rounds dv (v' - zv') per element, the kernel
+//     per output: within 2e-5 of the output's largest magnitude
+//     (2.2e-6 at cin256, 7.5e-6 at SD's 64x64 on an H100).
 //
-// int8: q/k/v arrive as centered int8 codes (quantized outside, with row
-// sums), QK runs on dp4a with int32 sums, and the zero-point corrections
-// dq dk (acc - zk' sum q - zq' sum k + D zq' zk') sm_scale are evaluated
-// in the Pallas kernel's order without contraction (__fmul_rn/__fsub_rn),
-// so recomputed scores are bit-identical to the first pass. With a p
-// quantizer, P @ V runs on integer p levels and v codes with int32 sums,
-// and the rank-1 corrections are folded over the real keys only, in
-// 64-bit integers (exact), so padded keys contribute nothing.
+// fp (flash_fp_kernel<DP>, f32 q/k/v): at cin256 one S and one P @ V are
+// 6.4 GFLOP on 25 MB, so the tensor cores bound it (0.013 ms at the 495
+// TFLOP/s TF32 rate; one TF32 or bf16 product would move s by ~1e-3
+// relative, beyond the 2e-5 rule). Its first version ran both products as
+// scalar f32 FMA. This one takes flash_pquant's blocking below (FpCfg:
+// NC warps share a 16-row group and split its head dim) in one pass:
+//   - S on three mma.sync m16n8k8 TF32 products of hi / lo splits (K
+//     fragments by ldmatrix, split as read), the group's NC partials
+//     added through shared memory in warp order;
+//   - a row-per-lane online softmax: each row's denominator is rescaled
+//     by alpha = exp(m_old - m_new) and alpha goes through shared memory
+//     to the warps, which rescale their O columns;
+//   - P @ V on three TF32 products, p_hi v_hi + p_hi v_lo + p_lo v_hi,
+//     p split as written and v as read.
+//   Error: S to about 2^-21 of sum |q||k|, p and v to 2^-22, f32 sums:
+//   within 2e-5 (3.7e-6 at cin256, 1.1e-5 at SD's 64x64). Splitting K
+//   once per call into hi / lo planes with a pre-pass (no split in the S
+//   chain, K ring traded for one tile of two planes) was measured slower
+//   on an H100 (0.2049 against 0.1982 ms at cin256, 1.737 against 1.597
+//   at SD's 64x64): split on read stays.
 //
 // fqk (the bf16 fast deploy): q/k/v arrive in bf16. What bounds it on this
 // card: at cin256 (B*H 4, T 1024, D 384) its three products (S in two
@@ -131,393 +178,9 @@ namespace {
 using tfmq::SmemAttr;
 using tfmq::raise_smem;
 
-constexpr int BQ = 32;        // query rows per block
-constexpr int BK = 32;        // keys per tile (one per lane)
-constexpr int RPW = 4;        // query rows per warp
-constexpr int NTHREADS = 256; // 8 warps
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_KB = 64;    // key blocks whose maxes a block keeps
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int warp_sum_int(int x) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-// rows [row0, row0 + 32) of a (rows, d) matrix into shared memory with row
-// stride `stride`, zero-filled past the last row and past column d up to dp
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int stride, const T* src,
-                                          int row0, int rows, int d,
-                                          int dp) {
-  for (int idx = threadIdx.x; idx < 32 * dp; idx += NTHREADS) {
-    const int r = idx / dp, c = idx - r * dp;
-    const int row = row0 + r;
-    dst[r * stride + c] =
-        (row < rows && c < d) ? src[(size_t)row * d + c] : T(0);
-  }
-}
-
-// after key tile kt of pass 1: at the end of a key block (or of the keys),
-// the rows' running maxes are that block's m_b
-__device__ __forceinline__ void record_block_max(float* mblk,
-                                                 const float (&m)[RPW],
-                                                 int warp, int lane, int kt,
-                                                 int nkt, int bk) {
-  if (lane == 0 && (((kt + 1) * BK) % bk == 0 || kt == nkt - 1)) {
-    const int kb = kt * BK / bk;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) mblk[(warp * RPW + r) * MAX_KB + kb] = m[r];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32 operands, mode fp: online softmax, scalar FMA
-// ---------------------------------------------------------------------------
-
-template <int NC>
-__device__ __forceinline__ void scores_f32(float (&s)[RPW], const float* qs,
-                                           const float* ks, int dp, int ksd,
-                                           int warp, int lane, int key,
-                                           int tk, float sm_scale) {
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-  const float4* kr = reinterpret_cast<const float4*>(ks + lane * ksd);
-  const float4* qr = reinterpret_cast<const float4*>(qs + warp * RPW * dp);
-  const int n4 = dp >> 2;
-  for (int c = 0; c < n4; ++c) {
-    const float4 kv = kr[c];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float4 qv = qr[r * n4 + c];
-      s[r] = fmaf(qv.x, kv.x, s[r]);
-      s[r] = fmaf(qv.y, kv.y, s[r]);
-      s[r] = fmaf(qv.z, kv.z, s[r]);
-      s[r] = fmaf(qv.w, kv.w, s[r]);
-    }
-  }
-  const bool valid = key < tk;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) s[r] = valid ? s[r] * sm_scale : NEG_INF;
-}
-
-// acc[r][i] += p[r] (of key j, broadcast from lane j) * V[j][lane + 32 i]
-template <int NC>
-__device__ __forceinline__ void pv_f32(float (&acc)[RPW][NC],
-                                       const float (&p)[RPW],
-                                       const float* vs, int dp, int d,
-                                       int lane, int nkeys) {
-  for (int j = 0; j < nkeys; ++j) {
-    float pj[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) pj[r] = __shfl_sync(FULL, p[r], j);
-    const float* vr = vs + j * dp;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) {
-        const float vv = vr[c];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) acc[r][i] = fmaf(pj[r], vv, acc[r][i]);
-      }
-    }
-  }
-}
-
-template <int NC>
-__global__ void __launch_bounds__(NTHREADS)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int tq,
-                 int tk, int d, float sm_scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int dp = (d + 3) & ~3;
-  const int ksd = dp + 4;  // float4 reads by 32 lanes hit 32 banks
-  float* qs = smem;
-  float* ks = qs + BQ * dp;
-  float* vs = ks + BK * ksd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const float* qb = q + (size_t)bh * tq * d;
-  const float* kb = k + (size_t)bh * tk * d;
-  const float* vb = v + (size_t)bh * tk * d;
-  load_tile(qs, dp, qb, q0, tq, d, dp);
-
-  float m[RPW], l[RPW], acc[RPW][NC];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-  }
-  const int nkt = (tk + BK - 1) / BK;
-
-  // online row max, denominator and output
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_tile(ks, ksd, kb, kt * BK, tk, d, dp);
-    load_tile(vs, dp, vb, kt * BK, tk, d, dp);
-    __syncthreads();
-    float s[RPW];
-    scores_f32<NC>(s, qs, ks, dp, ksd, warp, lane, kt * BK + lane, tk,
-                   sm_scale);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(s[r]));
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(s[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      s[r] = p;
-#pragma unroll
-      for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
-    }
-    pv_f32<NC>(acc, s, vs, dp, d, lane, min(BK, tk - kt * BK));
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
-    if (row >= tq) continue;
-    float* orow = o + ((size_t)bh * tq + row) * d;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) orow[c] = acc[r][i] / l[r];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// int8 operands (centered codes): int8 QK, online softmax or p quant
-// ---------------------------------------------------------------------------
-
-struct I8Scalars {
-  float dqdk, zq_c, zk_c, dzz, dv, zv_c, dw, zw;
-};
-
-__device__ __forceinline__ I8Scalars i8_scalars(const float* sc, int d) {
-  // sc = [dq, zq, dk, zk, dv, zv, dw, zw]
-  I8Scalars r;
-  r.dqdk = __fmul_rn(sc[0], sc[2]);
-  r.zq_c = __fsub_rn(sc[1], 128.f);
-  r.zk_c = __fsub_rn(sc[3], 128.f);
-  r.dzz = __fmul_rn(__fmul_rn((float)d, r.zq_c), r.zk_c);
-  r.dv = sc[4];
-  r.zv_c = __fsub_rn(sc[5], 128.f);
-  r.dw = sc[6];
-  r.zw = sc[7];
-  return r;
-}
-
-__device__ __forceinline__ void scores_i8(float (&s)[RPW], const int* qs,
-                                          const int* ks, int dw, int ksd,
-                                          int warp, int lane, int key,
-                                          int tk, const float (&qsum)[RPW],
-                                          float ksum, const I8Scalars& c,
-                                          float sm_scale) {
-  int a[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) a[r] = 0;
-  const int4* kr = reinterpret_cast<const int4*>(ks + lane * ksd);
-  const int4* qr = reinterpret_cast<const int4*>(qs + warp * RPW * dw);
-  const int n4 = dw >> 2;
-  for (int j = 0; j < n4; ++j) {
-    const int4 kv = kr[j];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int4 qv = qr[r * n4 + j];
-      a[r] = __dp4a(qv.x, kv.x, a[r]);
-      a[r] = __dp4a(qv.y, kv.y, a[r]);
-      a[r] = __dp4a(qv.z, kv.z, a[r]);
-      a[r] = __dp4a(qv.w, kv.w, a[r]);
-    }
-  }
-  const bool valid = key < tk;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    float x = __fsub_rn((float)a[r], __fmul_rn(c.zk_c, qsum[r]));
-    x = __fsub_rn(x, __fmul_rn(c.zq_c, ksum));
-    x = __fadd_rn(x, c.dzz);
-    const float sv = __fmul_rn(__fmul_rn(c.dqdk, x), sm_scale);
-    s[r] = valid ? sv : NEG_INF;
-  }
-}
-
-template <int NC, bool PQ>
-__global__ void __launch_bounds__(NTHREADS)
-flash_i8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                const int8_t* __restrict__ v8,
-                const float* __restrict__ qsum_g,
-                const float* __restrict__ ksum_g,
-                const int* __restrict__ vsum_g, const float* __restrict__ sc,
-                float* __restrict__ o, int tq, int tk, int d, int bk,
-                float sm_scale, float wnb, float wpb) {
-  extern __shared__ __align__(16) int smem_i[];
-  const int dp = (d + 15) & ~15;
-  const int dw = dp >> 2;     // int32 words per row
-  const int ksd = dw + 4;
-  int* qs = smem_i;
-  int* ks = qs + BQ * dw;
-  float* mblk = reinterpret_cast<float*>(ks + BK * ksd);  // [BQ][MAX_KB]
-  int8_t* vs = reinterpret_cast<int8_t*>(mblk + BQ * MAX_KB);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int8_t* qb = q8 + (size_t)bh * tq * d;
-  const int8_t* kb = k8 + (size_t)bh * tk * d;
-  const int8_t* vb = v8 + (size_t)bh * tk * d;
-  const I8Scalars c = i8_scalars(sc, d);
-  load_tile(reinterpret_cast<int8_t*>(qs), dp, qb, q0, tq, d, dp);
-
-  float qsum[RPW], m[RPW], l[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
-    qsum[r] = row < tq ? qsum_g[(size_t)bh * tq + row] : 0.f;
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-  }
-  const int nkt = (tk + BK - 1) / BK;
-  float acc[RPW][NC];
-  int pvi[RPW][PQ ? NC : 1];
-  int psum[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    psum[r] = 0;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < (PQ ? NC : 1); ++i) pvi[r][i] = 0;
-  }
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int key = kt * BK + lane;
-    __syncthreads();
-    load_tile(reinterpret_cast<int8_t*>(ks), 4 * ksd, kb, kt * BK, tk, d,
-              dp);
-    if (!PQ) load_tile(vs, dp, vb, kt * BK, tk, d, dp);
-    __syncthreads();
-    const float ksum = key < tk ? ksum_g[(size_t)bh * tk + key] : 0.f;
-    float s[RPW];
-    scores_i8(s, qs, ks, dw, ksd, warp, lane, key, tk, qsum, ksum, c,
-              sm_scale);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float m_new = fmaxf(m[r], warp_max(s[r]));
-      const float alpha = expf(m[r] - m_new);
-      const float p = expf(s[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-      m[r] = m_new;
-      s[r] = p;
-      if (!PQ) {
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[r][i] *= alpha;
-      }
-    }
-    if (PQ) record_block_max(mblk, m, warp, lane, kt, nkt, bk);
-    if constexpr (!PQ) {
-      // p stays f32; v dequantized in the kernel: dv (v' - zv')
-      const int nkeys = min(BK, tk - kt * BK);
-      for (int j = 0; j < nkeys; ++j) {
-        float pj[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) pj[r] = __shfl_sync(FULL, s[r], j);
-        const int8_t* vr = vs + j * dp;
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int cc = lane + 32 * i;
-          if (cc < d) {
-            const float vd = __fmul_rn(c.dv, __fsub_rn((float)vr[cc],
-                                                       c.zv_c));
-#pragma unroll
-            for (int r = 0; r < RPW; ++r)
-              acc[r][i] = fmaf(pj[r], vd, acc[r][i]);
-          }
-        }
-      }
-    }
-  }
-
-  if constexpr (PQ) {
-    float inv[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) inv[r] = 1.f / (l[r] * c.dw);
-    for (int kt = 0; kt < nkt; ++kt) {
-      const int key = kt * BK + lane;
-      __syncthreads();
-      load_tile(reinterpret_cast<int8_t*>(ks), 4 * ksd, kb, kt * BK, tk, d,
-                dp);
-      load_tile(vs, dp, vb, kt * BK, tk, d, dp);
-      __syncthreads();
-      const float ksum = key < tk ? ksum_g[(size_t)bh * tk + key] : 0.f;
-      float s[RPW];
-      scores_i8(s, qs, ks, dw, ksd, warp, lane, key, tk, qsum, ksum, c,
-                sm_scale);
-      int p8[RPW];
-      const int kb = kt * BK / bk;
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float mb = mblk[(warp * RPW + r) * MAX_KB + kb];
-        const float e = expf(s[r] - mb);
-        const float x =
-            rintf(__fmul_rn(e, __fmul_rn(expf(mb - m[r]), inv[r])));
-        const float pq = fminf(fmaxf(x + c.zw, wnb), wpb);
-        p8[r] = key < tk ? (int)(pq - 128.f) : 0;
-        psum[r] += warp_sum_int(p8[r]);
-      }
-      const int nkeys = min(BK, tk - kt * BK);
-      for (int j = 0; j < nkeys; ++j) {
-        int pj[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) pj[r] = __shfl_sync(FULL, p8[r], j);
-        const int8_t* vr = vs + j * dp;
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int vv = vr[min(lane + 32 * i, dp - 1)];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) pvi[r][i] += pj[r] * vv;
-        }
-      }
-    }
-  }
-
-  const long long zvc = __float2ll_rn(c.zv_c);
-  const long long wz = 128 - __float2ll_rn(c.zw);
-  const float dwdv = __fmul_rn(c.dw, c.dv);
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
-    if (row >= tq) continue;
-    float* orow = o + ((size_t)bh * tq + row) * d;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int cc = lane + 32 * i;
-      if (cc >= d) continue;
-      if constexpr (PQ) {
-        // sum over real keys of (p_q - zw)(v_q - zv), exact in 64 bits
-        const long long corr =
-            (long long)pvi[r][i] - zvc * (long long)psum[r] +
-            wz * (long long)vsum_g[(size_t)bh * d + cc] - wz * zvc * tk;
-        orow[cc] = __fmul_rn(dwdv, (float)corr);
-      } else {
-        orow[cc] = acc[r][i] / l[r];
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // fqk: bf16 q/k/v fake-quantized on load, two passes
@@ -1206,9 +869,9 @@ constexpr int pq_vpitch(int dp) {
 
 constexpr int SMEM_LIMIT = 232448;   // a block's shared memory, sm_90
 
-template <int DP>
+template <int DP, class Cfg = PqCfg<DP>>
 struct PqShape {
-  static constexpr int NC = PqCfg<DP>::NC, RG = PqCfg<DP>::RG, BK = 32;
+  static constexpr int NC = Cfg::NC, RG = Cfg::RG, BK = 32;
   static constexpr int THREADS = 32 * NC * RG;
   static constexpr int BQ = 16 * RG;   // query rows a block
   static constexpr int RW = 16 / NC;   // rows a warp takes the softmax of
@@ -1496,19 +1159,902 @@ flash_pq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// int8: centered int8 codes; S on mma.sync m16n8k32 s8, P @ V on the same
+// s8 mma (softmax quantizer) or on TF32 (none)
+// ---------------------------------------------------------------------------
+
+struct I8Scalars {
+  float dqdk, zq_c, zk_c, dzz, dv, zv_c, dw, zw;
+};
+
+__device__ __forceinline__ I8Scalars i8_scalars(const float* sc, int d) {
+  // sc = [dq, zq, dk, zk, dv, zv, dw, zw]
+  I8Scalars r;
+  r.dqdk = __fmul_rn(sc[0], sc[2]);
+  r.zq_c = __fsub_rn(sc[1], 128.f);
+  r.zk_c = __fsub_rn(sc[3], 128.f);
+  r.dzz = __fmul_rn(__fmul_rn((float)d, r.zq_c), r.zk_c);
+  r.dv = sc[4];
+  r.zv_c = __fsub_rn(sc[5], 128.f);
+  r.dw = sc[6];
+  r.zw = sc[7];
+  return r;
+}
+
+// G bytes global -> shared, zero-filled where !in (cp.async takes 4, 8 or
+// 16 bytes; .cg only 16)
+template <int G>
+__device__ __forceinline__ void cp_async_g(void* dst, const void* src,
+                                           bool in) {
+  if constexpr (G == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(G), "r"(in ? G : 0));
+}
+
+template <int G, int DP>
+__device__ __forceinline__ void load_i8_rows_g(int8_t* dst, int pitch,
+                                               const int8_t* src, int r0,
+                                               int nrows, int total, int d,
+                                               int tid, int nthr) {
+  constexpr int NG = DP / G;
+  for (int i = tid; i < nrows * NG; i += nthr) {
+    const int r = i / NG, c = (i - r * NG) * G;
+    const int row = r0 + r;
+    const bool in = row < total && c < d;
+    cp_async_g<G>(dst + r * pitch + c, in ? src + (size_t)row * d + c : src,
+                  in);
+  }
+}
+
+// rows [r0, r0 + nrows) of a (total, d) int8 matrix into shared memory
+// (row pitch `pitch`, DP bytes a row), zero past `total` rows and past
+// column d: cp.async in granules of `gran` bytes (d and the base a
+// multiple of it), else byte by byte
+template <int DP>
+__device__ __forceinline__ void load_i8_rows(int8_t* dst, int pitch,
+                                             const int8_t* src, int r0,
+                                             int nrows, int total, int d,
+                                             int gran, int tid, int nthr) {
+  if (gran == 16) {
+    load_i8_rows_g<16, DP>(dst, pitch, src, r0, nrows, total, d, tid, nthr);
+  } else if (gran == 8) {
+    load_i8_rows_g<8, DP>(dst, pitch, src, r0, nrows, total, d, tid, nthr);
+  } else if (gran == 4) {
+    load_i8_rows_g<4, DP>(dst, pitch, src, r0, nrows, total, d, tid, nthr);
+  } else {
+    for (int i = tid; i < nrows * DP; i += nthr) {
+      const int r = i / DP, c = i - r * DP;
+      const int row = r0 + r;
+      dst[r * pitch + c] =
+          (row < total && c < d) ? src[(size_t)row * d + c] : int8_t(0);
+    }
+  }
+}
+
+// Keys of the v-code scratch are padded to I8_KPAD (a multiple of every
+// key tile); a pre-pass block takes I8_KPAD keys x I8_PD columns.
+constexpr int I8_KPAD = 64;
+constexpr int I8_PD = 64;
+constexpr int I8_PRE_THREADS = 256;
+
+// v codes (B*H, Tk, d) -> vt (B*H, DP, Tkp): each head-dim column's codes
+// over the keys (the s8 B operand of P @ V, keys contiguous), zero past
+// tk and d. One block: 64 keys x 64 columns through shared memory.
+__global__ void __launch_bounds__(I8_PRE_THREADS)
+i8_vt_kernel(const int8_t* __restrict__ v8, int8_t* __restrict__ vt, int tk,
+             int tkp, int d, int dp) {
+  __shared__ __align__(16) int8_t tile[I8_PD][I8_KPAD + 16];
+  const int bh = blockIdx.z, t0 = blockIdx.x * I8_KPAD;
+  const int c_base = blockIdx.y * I8_PD;
+  const int8_t* vb = v8 + (size_t)bh * tk * d;
+  for (int i = threadIdx.x; i < I8_KPAD * I8_PD; i += I8_PRE_THREADS) {
+    const int r = i / I8_PD, cl = i % I8_PD;
+    const int key = t0 + r, col = c_base + cl;
+    tile[cl][r] = (key < tk && col < d) ? vb[(size_t)key * d + col]
+                                        : int8_t(0);
+  }
+  __syncthreads();
+  // thread: column cl = tid / 4, keys 16 q4 .. 16 q4 + 15
+  const int cl = threadIdx.x >> 2, q4 = threadIdx.x & 3;
+  const int col = c_base + cl;
+  if (col < dp)
+    *reinterpret_cast<uint4*>(vt + ((size_t)bh * dp + col) * tkp + t0 +
+                              q4 * 16) =
+        *reinterpret_cast<const uint4*>(&tile[cl][q4 * 16]);
+}
+
+// Per padded head dim (d rounded up to 64, 96, 160 or 384, multiples of
+// the s8 mma's depth 32): NC warps share a row group of 16 query rows
+// (they split the key tile for S and the head dim for P @ V), RG row
+// groups a block, key tiles of BK.
+template <int DP, bool PQ> struct I8Cfg;
+template <bool PQ> struct I8Cfg<64, PQ> {
+  static constexpr int NC = 1, RG = 4, BK = PQ ? 64 : 32;
+};
+template <bool PQ> struct I8Cfg<96, PQ> {
+  static constexpr int NC = 1, RG = 4, BK = PQ ? 64 : 32;
+};
+template <bool PQ> struct I8Cfg<160, PQ> {
+  static constexpr int NC = 2, RG = 2, BK = 64;
+};
+template <bool PQ> struct I8Cfg<384, PQ> {
+  static constexpr int NC = 4, RG = 2, BK = 64;
+};
+
+template <int DP, bool PQ>
+struct I8Shape {
+  static constexpr int NC = I8Cfg<DP, PQ>::NC, RG = I8Cfg<DP, PQ>::RG,
+                       BK = I8Cfg<DP, PQ>::BK;
+  static constexpr int THREADS = 32 * NC * RG;
+  static constexpr int BQ = 16 * RG;   // query rows a block
+  static constexpr int KW = BK / NC;   // keys a warp scores per tile
+  static constexpr int NJ = KW / 8;    // its n8 tiles of S
+  static constexpr int DC = DP / NC;   // head-dim columns a warp owns
+  static constexpr int KS = DP / 32;   // k32 steps of S
+  // byte pitches of the Q / K rows and of the v-code rows and int8 P tile
+  // (odd multiples of 16: ldmatrix rows hit distinct banks); word pitch
+  // of the f32 P planes (8 mod 32: conflict-free float2 fragment reads)
+  static constexpr int QP = DP + 16, BP = BK + 16, PP = BK + 8;
+  static constexpr int Q_BYTES = BQ * QP;
+  static constexpr int K_BYTES = BK * QP;   // a stage
+  static constexpr int V_BYTES = DP * BP;   // a stage
+  // the key sums of a K stage (f32)
+  static constexpr int KSUM_BYTES = BK * 4;
+  // a row group's P: int8 levels [16][BP], or f32 hi / lo planes [2][16][PP]
+  static constexpr int P_BYTES = RG * (PQ ? 16 * BP : 2 * 16 * PP * 4);
+  // bytes of shared memory for nkb key blocks (the block maxes last)
+  static constexpr int smem(int nkb) {
+    return Q_BYTES + 2 * (K_BYTES + KSUM_BYTES) + 2 * V_BYTES + P_BYTES +
+           4 * (3 * NC * BQ + (PQ ? NC * BQ * nkb : 0));
+  }
+  static_assert(KW % 8 == 0 && DC % 16 == 0 && BK % 32 == 0, "tiles");
+  static_assert(I8_KPAD % BK == 0 && DP % 32 == 0, "padding");
+};
+
+// Attention on centered int8 codes. q8, k8 (B*H, T, d); vt the v codes
+// transposed (B*H, DP, Tkp) from i8_vt_kernel; qsum, ksum the code row
+// sums; vsum the v code column sums over the real keys; sc = [dq, zq, dk,
+// zk, dv, zv, dw, zw]. PQ: the softmax quantizer's levels (two passes,
+// per-key-block rounding, integer P @ V with exact corrections); else one
+// online pass with p f32 against (v' - zv') on TF32.
+template <int DP, bool PQ>
+__global__ void __launch_bounds__(I8Shape<DP, PQ>::THREADS)
+flash_i8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+                const int8_t* __restrict__ vt,
+                const float* __restrict__ qsum_g,
+                const float* __restrict__ ksum_g,
+                const int* __restrict__ vsum_g, const float* __restrict__ sc,
+                float* __restrict__ o, int tq, int tk, int tkp, int d,
+                int bk, float sm_scale, float wnb, float wpb, int gran) {
+  using S = I8Shape<DP, PQ>;
+  constexpr int NC = S::NC, BQ = S::BQ, BK = S::BK, KW = S::KW, NJ = S::NJ;
+  constexpr int DC = S::DC, KS = S::KS, QP = S::QP, BP = S::BP, PP = S::PP;
+  extern __shared__ __align__(16) unsigned char smem_u8[];
+  int8_t* Qs = reinterpret_cast<int8_t*>(smem_u8);          // [BQ][QP]
+  int8_t* Ks = Qs + S::Q_BYTES;                             // [2][BK][QP]
+  int8_t* Vs = Ks + 2 * S::K_BYTES;                         // [2][DP][BP]
+  float* kss = reinterpret_cast<float*>(Vs + 2 * S::V_BYTES);  // [2][BK]
+  unsigned char* Pt = reinterpret_cast<unsigned char*>(kss + 2 * BK);
+  float* mred = reinterpret_cast<float*>(Pt + S::P_BYTES);      // [NC][BQ]
+  float* lred = mred + NC * BQ;                                 // [NC][BQ]
+  int* pred = reinterpret_cast<int*>(lred + NC * BQ);           // [NC][BQ]
+  float* mpart = reinterpret_cast<float*>(pred + NC * BQ);  // [NC][BQ][nkb]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rgi = warp / NC, cw = warp % NC;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = rgi * 16;  // this warp's first row in the block
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const I8Scalars c = i8_scalars(sc, d);
+  const int8_t* kbase = k8 + (size_t)bh * tk * d;
+  const float* ksum = ksum_g + (size_t)bh * tk;
+  // v-code rows P @ V reads: the head dim rounded up to 16
+  const int dv16 = min(DP, (d + 15) & ~15);
+
+  auto load_k = [&](int kt, int stage) {
+    load_i8_rows<DP>(Ks + stage * S::K_BYTES, QP, kbase, kt * BK, BK, tk, d,
+                     gran, tid, S::THREADS);
+    if (tid < BK) {
+      const int key = kt * BK + tid;
+      cp_async4z(kss + stage * BK + tid, key < tk ? ksum + key : ksum,
+                 key < tk ? 4 : 0);
+    }
+  };
+  auto load_v = [&](int kt, int stage) {
+    const int8_t* src = vt + (size_t)bh * DP * tkp + kt * BK;
+    int8_t* dst = Vs + stage * S::V_BYTES;
+    for (int i = tid; i < dv16 * (BK / 16); i += S::THREADS) {
+      const int r = i / (BK / 16), cc = (i % (BK / 16)) * 16;
+      cp_async16(dst + r * BP + cc, src + (size_t)r * tkp + cc);
+    }
+  };
+
+  // this warp's Q code fragments (its 16 rows, all DP columns), once
+  load_i8_rows<DP>(Qs, QP, q8 + (size_t)bh * tq * d, q0, BQ, tq, d, gran,
+                   tid, S::THREADS);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(qa[ks], Qs + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * QP +
+                        ks * 32 + (lane >> 4) * 16);
+  float qs_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + g + 8 * h;
+    qs_r[h] = row < tq ? qsum_g[(size_t)bh * tq + row] : 0.f;
+  }
+
+  // S of this warp's 16 rows and its KW keys of tile kt (in `stage`):
+  // s[j][e] is row g + 8 (e >> 1), key kt*BK + cw*KW + 8j + 2 t4 + (e & 1).
+  // The int32 code products are exact in any order, and the zero-point
+  // corrections dq dk (acc - zk' sum q - zq' sum k + D zq' zk') sm_scale
+  // are taken in the Pallas kernel's order without contraction, so S is
+  // the plain version's bit for bit, in both passes. (A warp with one n8
+  // tile or two sums even and odd k32 steps in two chains.)
+  constexpr int CH = NJ <= 2 && KS % 2 == 0 ? 2 : 1;
+  static_assert(KS % CH == 0, "chains");
+  float s[NJ][4];
+  auto scores = [&](int stage, int kt) {
+    int acc[CH][NJ][4];
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[ch][j][e] = 0;
+    const int8_t* ks = Ks + stage * S::K_BYTES + cw * KW * QP;
+#pragma unroll
+    for (int k2 = 0; k2 < KS; k2 += CH)
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) {
+        const int kk = (k2 + ch) * 32;
+#pragma unroll
+        for (int j = 0; j + 1 < NJ; j += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, ks + (j * 8 + (lane & 7) + (lane >> 4) * 8) * QP + kk +
+                         ((lane >> 3) & 1) * 16);
+          mma_s8_16832(acc[ch][j], qa[k2 + ch], b);
+          mma_s8_16832(acc[ch][j + 1], qa[k2 + ch], b + 2);
+        }
+        if constexpr (NJ % 2 == 1) {
+          uint32_t b[2];
+          ldsm_x2(b, ks + ((NJ - 1) * 8 + (lane & 7)) * QP + kk +
+                         ((lane >> 3) & 1) * 16);
+          mma_s8_16832(acc[ch][NJ - 1], qa[k2 + ch], b);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * BK + cw * KW + j * 8 + 2 * t4 + (e & 1);
+        const int a = CH == 2 ? acc[0][j][e] + acc[CH - 1][j][e]
+                              : acc[0][j][e];
+        const bool valid = key < tk;
+        const float ksv =
+            valid ? kss[stage * BK + cw * KW + j * 8 + 2 * t4 + (e & 1)]
+                  : 0.f;
+        float x = __fsub_rn((float)a, __fmul_rn(c.zk_c, qs_r[e >> 1]));
+        x = __fsub_rn(x, __fmul_rn(c.zq_c, ksv));
+        x = __fadd_rn(x, c.dzz);
+        s[j][e] = valid ? __fmul_rn(__fmul_rn(c.dqdk, x), sm_scale)
+                        : NEG_INF;
+      }
+  };
+  auto key_ok = [&](int kt, int j, int e) {
+    return (kt + 1) * BK <= tk ||
+           kt * BK + cw * KW + j * 8 + 2 * t4 + (e & 1) < tk;
+  };
+  // a row's value over the row group's NC warps (their partials in
+  // shared memory, warp order), after the group meets
+  auto row_reduce_max = [&](float (&x)[2]) {
+    if constexpr (NC > 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (t4 == 0) mred[cw * BQ + row0 + g + 8 * h] = x[h];
+      rg_sync<NC>(rgi);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = mred[row0 + g + 8 * h];
+#pragma unroll
+        for (int cc = 1; cc < NC; ++cc)
+          m = fmaxf(m, mred[cc * BQ + row0 + g + 8 * h]);
+        x[h] = m;
+      }
+    }
+  };
+
+  const int nkt = (tk + BK - 1) / BK;
+  using Acc = typename std::conditional<PQ, int, float>::type;
+  Acc acc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
+  float l_fin[2];   // without the quantizer: the rows' denominators
+  int psum[2] = {0, 0};
+
+  if constexpr (PQ) {
+    const int nkb = ((nkt - 1) * BK) / bk + 1;
+    // pass 1: each warp's running max and denominator over its keys, and
+    // its running max at the end of each key block
+    float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+    load_k(0, 0);
+    cp_async_commit();
+    for (int kt = 0; kt < nkt; ++kt) {
+      cp_async_wait<0>();
+      __syncthreads();   // K(kt) landed; tile kt - 1 is consumed
+      if (kt + 1 < nkt) {
+        load_k(kt + 1, (kt + 1) & 1);
+        cp_async_commit();
+      }
+      scores(kt & 1, kt);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+        const float m_new = fmaxf(m_r[h], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (key_ok(kt, j, e)) sum += expf(s[j][2 * h + e] - m_new);
+        sum += __shfl_xor_sync(FULL, sum, 1);
+        sum += __shfl_xor_sync(FULL, sum, 2);
+        l_r[h] = l_r[h] * expf(m_r[h] - m_new) + sum;
+        m_r[h] = m_new;
+      }
+      if (t4 == 0 && (((kt + 1) * BK) % bk == 0 || kt == nkt - 1)) {
+        const int kb = kt * BK / bk;
+        mpart[(cw * BQ + row0 + g) * nkb + kb] = m_r[0];
+        mpart[(cw * BQ + row0 + g + 8) * nkb + kb] = m_r[1];
+      }
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mred[cw * BQ + row0 + g + 8 * h] = m_r[h];
+        lred[cw * BQ + row0 + g + 8 * h] = l_r[h];
+      }
+    }
+    __syncthreads();
+    // the row's max, its denominator (warps in order) and the block maxes
+    float m_f[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + g + 8 * h;
+      float m = mred[r];
+#pragma unroll
+      for (int cc = 1; cc < NC; ++cc) m = fmaxf(m, mred[cc * BQ + r]);
+      float l = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc)
+        l += lred[cc * BQ + r] * expf(mred[cc * BQ + r] - m);
+      m_f[h] = m;
+      inv[h] = 1.f / (l * c.dw);
+    }
+    for (int i = tid; i < BQ * nkb; i += S::THREADS) {
+      const int r = i / nkb, kb = i - r * nkb;
+      float mb = mpart[r * nkb + kb];
+#pragma unroll
+      for (int cc = 1; cc < NC; ++cc)
+        mb = fmaxf(mb, mpart[(cc * BQ + r) * nkb + kb]);
+      mpart[r * nkb + kb] = mb;
+    }
+
+    // pass 2: recompute S, the levels against their block's max, P
+    // (levels - 128) through shared memory, P @ V on this warp's head-dim
+    // columns on m16n8k32 s8 against the v codes
+    int8_t* P8 = reinterpret_cast<int8_t*>(Pt) + rgi * 16 * BP;
+    load_k(0, 0);
+    load_v(0, 0);
+    cp_async_commit();
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int st = kt & 1;
+      cp_async_wait<0>();
+      __syncthreads();   // tile kt landed; tile kt - 1 (and its P) consumed
+      if (kt + 1 < nkt) {
+        load_k(kt + 1, st ^ 1);
+        load_v(kt + 1, st ^ 1);
+        cp_async_commit();
+      }
+      scores(st, kt);
+      const int kb = kt * BK / bk;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mb = mpart[(row0 + g + 8 * h) * nkb + kb];
+        const float f = __fmul_rn(expf(mb - m_f[h]), inv[h]);
+        const int r = g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          int p8[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = rintf(__fmul_rn(expf(s[j][2 * h + e] - mb), f));
+            const float pq = fminf(fmaxf(__fadd_rn(x, c.zw), wnb), wpb);
+            p8[e] = key_ok(kt, j, e) ? (int)(pq - 128.f) : 0;
+          }
+          psum[h] += p8[0] + p8[1];
+          *reinterpret_cast<uint16_t*>(P8 + r * BP + cw * KW + j * 8 +
+                                       2 * t4) =
+              (uint16_t)((uint8_t)(int8_t)p8[0] |
+                         ((uint16_t)(uint8_t)(int8_t)p8[1] << 8));
+        }
+      }
+      rg_sync<NC>(rgi);
+      const int8_t* vs = Vs + st * S::V_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 32) {
+        uint32_t a[4];
+        ldsm_x4(a, P8 + ((lane & 7) + ((lane >> 3) & 1) * 8) * BP + kk +
+                       (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < DC / 8; j += 2) {
+          if (cw * DC + j * 8 >= d) continue;
+          uint32_t b[4];
+          ldsm_x4(b, vs + (cw * DC + j * 8 + (lane & 7) + (lane >> 4) * 8) *
+                              BP +
+                         kk + ((lane >> 3) & 1) * 16);
+          mma_s8_16832(acc[j], a, b);
+          mma_s8_16832(acc[j + 1], a, b + 2);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 1);
+      psum[h] += __shfl_xor_sync(FULL, psum[h], 2);
+    }
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) pred[cw * BQ + row0 + g + 8 * h] = psum[h];
+    }
+    __syncthreads();
+  } else {
+    // one online pass: the row max of each tile over the group's warps,
+    // p = exp(s - m) split hi + lo into f32 planes, P @ V on TF32 against
+    // (v' - zv'): exact integers below 2^9 where zv is an integer (two
+    // products, p_hi and p_lo), else split too (three); dv in the epilogue
+    float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+    float* Ph = reinterpret_cast<float*>(Pt) + rgi * 2 * 16 * PP;
+    float* Pl = Ph + 16 * PP;
+    const bool zint = rintf(c.zv_c) == c.zv_c;
+    const int zvi = (int)c.zv_c;
+    // P @ V of one tile; ZI: integer zero point
+    auto pv = [&](const int8_t* vs, auto zi) {
+      constexpr bool ZI = decltype(zi)::value;
+#pragma unroll
+      for (int k8 = 0; k8 < BK / 8; ++k8) {
+        // k index t4 <-> key 2 t4, t4 + 4 <-> key 2 t4 + 1 of the 8
+        // (A and B alike): a0 / a2 and b0 / b1 are neighbouring keys
+        uint32_t ah[4], al[4];
+        const float2 h0 = *reinterpret_cast<const float2*>(
+            Ph + g * PP + 8 * k8 + 2 * t4);
+        const float2 h1 = *reinterpret_cast<const float2*>(
+            Ph + (g + 8) * PP + 8 * k8 + 2 * t4);
+        const float2 l0 = *reinterpret_cast<const float2*>(
+            Pl + g * PP + 8 * k8 + 2 * t4);
+        const float2 l1 = *reinterpret_cast<const float2*>(
+            Pl + (g + 8) * PP + 8 * k8 + 2 * t4);
+        ah[0] = __float_as_uint(h0.x); ah[1] = __float_as_uint(h1.x);
+        ah[2] = __float_as_uint(h0.y); ah[3] = __float_as_uint(h1.y);
+        al[0] = __float_as_uint(l0.x); al[1] = __float_as_uint(l1.x);
+        al[2] = __float_as_uint(l0.y); al[3] = __float_as_uint(l1.y);
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n) {
+          if (cw * DC + 8 * n >= d) continue;
+          const uint32_t u = *reinterpret_cast<const uint16_t*>(
+              vs + (cw * DC + 8 * n + g) * BP + 8 * k8 + 2 * t4);
+          const int v0 = (int)(int8_t)(u & 0xffu);
+          const int v1 = (int)(int8_t)(u >> 8);
+          if constexpr (ZI) {
+            const uint32_t b[2] = {__float_as_uint((float)(v0 - zvi)),
+                                   __float_as_uint((float)(v1 - zvi))};
+            mma_tf32_1688(acc[n], ah, b);
+            mma_tf32_1688(acc[n], al, b);
+          } else {
+            uint32_t bh_[2], bl_[2];
+            split_tf32(__fsub_rn((float)v0, c.zv_c), bh_[0], bl_[0]);
+            split_tf32(__fsub_rn((float)v1, c.zv_c), bh_[1], bl_[1]);
+            mma_tf32_1688(acc[n], ah, bh_);
+            mma_tf32_1688(acc[n], ah, bl_);
+            mma_tf32_1688(acc[n], al, bh_);
+          }
+        }
+      }
+    };
+    load_k(0, 0);
+    load_v(0, 0);
+    cp_async_commit();
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int st = kt & 1;
+      cp_async_wait<0>();
+      __syncthreads();   // tile kt landed; tile kt - 1 (and its P) consumed
+      if (kt + 1 < nkt) {
+        load_k(kt + 1, st ^ 1);
+        load_v(kt + 1, st ^ 1);
+        cp_async_commit();
+      }
+      scores(st, kt);
+      float mx[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          m = fmaxf(m, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 1));
+        mx[h] = fmaxf(m, __shfl_xor_sync(FULL, m, 2));
+      }
+      row_reduce_max(mx);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        alpha[h] = expf(m_r[h] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          float p[2];
+          uint32_t hi[2], lo[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            p[e] = key_ok(kt, j, e) ? expf(s[j][2 * h + e] - m_new) : 0.f;
+            sum += p[e];
+            split_tf32(p[e], hi[e], lo[e]);
+          }
+          const int off = (g + 8 * h) * PP + cw * KW + j * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(Ph + off) =
+              make_float2(__uint_as_float(hi[0]), __uint_as_float(hi[1]));
+          *reinterpret_cast<float2*>(Pl + off) =
+              make_float2(__uint_as_float(lo[0]), __uint_as_float(lo[1]));
+        }
+        sum += __shfl_xor_sync(FULL, sum, 1);
+        sum += __shfl_xor_sync(FULL, sum, 2);
+        l_r[h] = l_r[h] * alpha[h] + sum;
+        m_r[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      rg_sync<NC>(rgi);   // the group's P planes are written
+      const int8_t* vs = Vs + st * S::V_BYTES;
+      if (zint)
+        pv(vs, std::true_type{});
+      else
+        pv(vs, std::false_type{});
+    }
+    // the rows' denominators: the warps' partials (one max) in warp order
+    __syncthreads();
+    if (t4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) lred[cw * BQ + row0 + g + 8 * h] = l_r[h];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) l += lred[cc * BQ + row0 + g + 8 * h];
+      l_fin[h] = l;
+    }
+  }
+
+  const long long zvc = __float2ll_rn(c.zv_c);
+  const long long wz = 128 - __float2ll_rn(c.zw);
+  const float dwdv = __fmul_rn(c.dw, c.dv);
+  const bool pair = (d & 1) == 0;
+  const int* vsum = vsum_g + (size_t)bh * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    const int row = q0 + r;
+    if (row >= tq) continue;
+    long long ps = 0;
+    if constexpr (PQ) {
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) ps += pred[cc * BQ + r];
+    }
+    float* orow = o + ((size_t)bh * tq + row) * d;
+#pragma unroll
+    for (int j = 0; j < DC / 8; ++j) {
+      const int col = cw * DC + j * 8 + 2 * t4;
+      if (col >= d) continue;
+      float val[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if constexpr (PQ) {
+          // sum over real keys of (p_q - zw)(v_q - zv), exact in 64 bits
+          const long long vs = col + e < d ? vsum[col + e] : 0;
+          const long long corr = (long long)acc[j][2 * h + e] - zvc * ps +
+                                 wz * vs - wz * zvc * tk;
+          val[e] = __fmul_rn(dwdv, (float)corr);
+        } else {
+          val[e] = __fmul_rn(c.dv, acc[j][2 * h + e]) / l_fin[h];
+        }
+      }
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(val[0], val[1]);
+      } else {
+        orow[col] = val[0];
+        if (col + 1 < d) orow[col + 1] = val[1];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp: f32 q/k/v, one online pass, S and P @ V on 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
+
+// softmax(q k^T sm_scale) v over (B*H, T, d) f32, in the blocking of
+// flash_pq_kernel (FpShape<DP>: NC warps share a 16-row group and split
+// its head dim) with one pass: the row-per-lane softmax rescales its
+// denominator online and hands each row's factor exp(m_old - m_new) to
+// the warps through shared memory, which rescale their O columns.
+// fp's blocking per padded head dim (as PqCfg's, but 4 row groups at d
+// 40: measured faster at SD's 64x64)
+template <int DP> struct FpCfg;
+template <> struct FpCfg<40> { static constexpr int NC = 1, RG = 4; };
+template <> struct FpCfg<80> { static constexpr int NC = 2, RG = 4; };
+template <> struct FpCfg<160> { static constexpr int NC = 4, RG = 2; };
+template <> struct FpCfg<384> { static constexpr int NC = 8, RG = 2; };
+template <int DP> using FpShape = PqShape<DP, FpCfg<DP>>;
+
+template <int DP>
+__global__ void __launch_bounds__(FpShape<DP>::THREADS, 1)
+flash_fp_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int tq,
+                int tk, int d, float sm_scale, int vec) {
+  using S = FpShape<DP>;
+  constexpr int NC = S::NC, BK = S::BK, RW = S::RW, DC = S::DC;
+  constexpr int LPR = S::LPR, E = S::E;
+  constexpr int KP = S::KP, VP = S::VP, SP = S::SP, PP = S::PP;
+  extern __shared__ __align__(16) float smem_fp[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rgi = warp / NC, cw = warp % NC;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = rgi * 16;
+  // the softmax step: lane -> row rl of the group, keys kl .. kl + E - 1
+  const int rl = cw * RW + lane / LPR, kl = (lane % LPR) * E;
+  float* kring = smem_fp;                              // [2][BK][KP]
+  float* vbuf = kring + 2 * S::K_WORDS;                // [BK][VP]
+  // this group's S partials [NC][16][SP], then its P planes
+  float* grp = vbuf + S::V_WORDS + rgi * S::G_WORDS;
+  float* ph = grp + NC * 16 * SP;                      // p, hi [16][PP]
+  float* pl = ph + 16 * PP;                            // lo [16][PP]
+  float* rowf = vbuf + S::V_WORDS + S::RG * S::G_WORDS;  // [BQ]
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * S::BQ;
+  const float* qb = q + (size_t)bh * tq * d;
+  const float* kbase = k + (size_t)bh * tk * d;
+  const float* vbase = v + (size_t)bh * tk * d;
+  const int nkt = (tk + BK - 1) / BK;
+
+  // this warp's Q fragments (rows g, g + 8 of its group; its DC columns),
+  // split once: a0 (g, t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, ..)
+  uint32_t qh[DC / 8][4], ql[DC / 8][4];
+#pragma unroll
+  for (int s8 = 0; s8 < DC / 8; ++s8)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + row0 + g + 8 * (e & 1);
+      const int cc = cw * DC + 8 * s8 + t4 + 4 * (e >> 1);
+      split_tf32((r < tq && cc < d) ? qb[(size_t)r * d + cc] : 0.f,
+                 qh[s8][e], ql[s8][e]);
+    }
+
+  // BK rows of a (tk, d) operand from key tile kt, zero past tk and d
+  auto load_rows = [&](float* dst, int pitch, const float* src, int kt) {
+    for (int i = tid; i < BK * (DP / 4); i += S::THREADS) {
+      const int r = i / (DP / 4), cc = (i - r * (DP / 4)) * 4;
+      const int key = kt * BK + r;
+      float* to = dst + r * pitch + cc;
+      if (vec) {
+        const bool in = key < tk && cc < d;
+        cp_async16z(to, in ? src + (size_t)key * d + cc : src, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool in = key < tk && cc + e < d;
+          cp_async4z(to + e, in ? src + (size_t)key * d + cc + e : src,
+                     in ? 4 : 0);
+        }
+      }
+    }
+  };
+
+  // S of row rl and keys kt BK + kl + i (i < E) in s[i], scaled, NEG_INF
+  // past tk. Each warp takes q k over its DC columns for all BK keys on
+  // the tensor cores (K fragments by ldmatrix, split as read; hi hi in
+  // one chain of f32 accumulators, the cross terms hi lo + lo hi in
+  // another, added after), writes the partial, and adds the group's NC
+  // partials of its rows in warp order.
+  float s[E];
+  auto scores = [&](const float* ks) {
+    float shh[BK / 8][4], sx[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) shh[j][e] = sx[j][e] = 0.f;
+    const float* kw = ks + cw * DC;
+#pragma unroll
+    for (int s8 = 0; s8 < DC / 8; ++s8)
+#pragma unroll
+      for (int j = 0; j < BK / 8; j += 2) {
+        // b[0], b[1]: keys 8j + g, columns t4 and t4 + 4; b[2], b[3]: j + 1
+        uint32_t b[4];
+        ldsm_x4(b, kw + (8 * j + (lane & 7) + (lane >> 4) * 8) * KP +
+                       8 * s8 + ((lane >> 3) & 1) * 4);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          uint32_t bh_[2], bl_[2];
+          split_tf32(__uint_as_float(b[2 * jj]), bh_[0], bl_[0]);
+          split_tf32(__uint_as_float(b[2 * jj + 1]), bh_[1], bl_[1]);
+          mma_tf32_1688(shh[j + jj], qh[s8], bh_);
+          mma_tf32_1688(sx[j + jj], qh[s8], bl_);
+          mma_tf32_1688(sx[j + jj], ql[s8], bh_);
+        }
+      }
+    float* mine = grp + cw * 16 * SP;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(mine + (g + 8 * h) * SP + 8 * j + 2 * t4) =
+            make_float2(shh[j][2 * h] + sx[j][2 * h],
+                        shh[j][2 * h + 1] + sx[j][2 * h + 1]);
+    rg_sync<NC>(rgi);
+    const float* pr = grp + rl * SP + kl;
+#pragma unroll
+    for (int i = 0; i < E; i += 2) {
+      float2 a = *reinterpret_cast<const float2*>(pr + i);
+#pragma unroll
+      for (int cc = 1; cc < NC; ++cc) {
+        const float2 b2 =
+            *reinterpret_cast<const float2*>(pr + cc * 16 * SP + i);
+        a.x += b2.x;
+        a.y += b2.y;
+      }
+      s[i] = a.x * sm_scale;
+      s[i + 1] = a.y * sm_scale;
+    }
+  };
+
+  float m_r = NEG_INF, l_r = 0.f;
+  float oacc[DC / 8][4];
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+
+  // K double-buffered; the V tile is loaded while S is computed
+  load_rows(kring, KP, kbase, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // K(kt) landed; tile kt - 1's V, P and factors consumed
+    load_rows(vbuf, VP, vbase, kt);
+    cp_async_commit();
+    const bool more = kt + 1 < nkt;
+    if (more) {
+      load_rows(kring + ((kt + 1) & 1) * S::K_WORDS, KP, kbase, kt + 1);
+      cp_async_commit();
+    }
+    scores(kring + (kt & 1) * S::K_WORDS);
+#pragma unroll
+    for (int i = 0; i < E; ++i)
+      if (kt * BK + kl + i >= tk) s[i] = NEG_INF;
+    float mx = s[0];
+#pragma unroll
+    for (int i = 1; i < E; ++i) mx = fmaxf(mx, s[i]);
+#pragma unroll
+    for (int off = LPR / 2; off; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    const float m_new = fmaxf(m_r, mx);
+    const float alpha = expf(m_r - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < E; i += 2) {
+      uint32_t hi[2], lo[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p =
+            kt * BK + kl + i + e < tk ? expf(s[i + e] - m_new) : 0.f;
+        sum += p;
+        split_tf32(p, hi[e], lo[e]);
+      }
+      const int off = rl * PP + kl + i;
+      *reinterpret_cast<float2*>(ph + off) =
+          make_float2(__uint_as_float(hi[0]), __uint_as_float(hi[1]));
+      *reinterpret_cast<float2*>(pl + off) =
+          make_float2(__uint_as_float(lo[0]), __uint_as_float(lo[1]));
+    }
+#pragma unroll
+    for (int off = LPR / 2; off; off >>= 1)
+      sum += __shfl_xor_sync(FULL, sum, off);
+    l_r = l_r * alpha + sum;
+    m_r = m_new;
+    if (lane % LPR == 0) rowf[row0 + rl] = alpha;
+    if (more)
+      cp_async_wait<1>();   // V(kt); K(kt + 1) may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();        // V(kt), the group's P and factors are visible
+    const float a0 = rowf[row0 + g], a1 = rowf[row0 + g + 8];
+#pragma unroll
+    for (int n8 = 0; n8 < DC / 8; ++n8) {
+      oacc[n8][0] *= a0;
+      oacc[n8][1] *= a0;
+      oacc[n8][2] *= a1;
+      oacc[n8][3] *= a1;
+    }
+    const float* vs = vbuf + cw * DC + g;
+#pragma unroll
+    for (int k8 = 0; k8 < BK / 8; ++k8) {
+      uint32_t ah[4], al[4];
+      const int poff = ((lane & 7) + ((lane >> 3) & 1) * 8) * PP + 8 * k8 +
+                       (lane >> 4) * 4;
+      ldsm_x4(ah, ph + poff);
+      ldsm_x4(al, pl + poff);
+#pragma unroll
+      for (int n8 = 0; n8 < DC / 8; ++n8) {
+        const float* vr = vs + (8 * k8 + t4) * VP + 8 * n8;
+        uint32_t vh[2], vl[2];
+        split_tf32(vr[0], vh[0], vl[0]);
+        split_tf32(vr[4 * VP], vh[1], vl[1]);
+        mma_tf32_1688(oacc[n8], ah, vh);
+        mma_tf32_1688(oacc[n8], ah, vl);
+        mma_tf32_1688(oacc[n8], al, vh);
+      }
+    }
+  }
+
+  // the rows' denominators to every warp of the group
+  __syncthreads();
+  if (lane % LPR == 0) rowf[row0 + rl] = l_r;
+  __syncthreads();
+  const bool pair = (d & 1) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + g + 8 * h;
+    if (row >= tq) continue;
+    const float l = rowf[row0 + g + 8 * h];
+    float* orow = o + ((size_t)bh * tq + row) * d;
+#pragma unroll
+    for (int n8 = 0; n8 < DC / 8; ++n8) {
+      const int col = cw * DC + 8 * n8 + 2 * t4;
+      const float v0 = oacc[n8][2 * h] / l;
+      const float v1 = oacc[n8][2 * h + 1] / l;
+      if (pair && col + 1 < d) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < d) orow[col] = v0;
+        if (col + 1 < d) orow[col + 1] = v1;
+      }
+    }
+  }
+}
+
+// a key block of bk columns is whole key tiles of every kernel (32 keys or
+// a multiple), and at most MAX_KB of them
 bool key_blocks_ok(int tk, int bk) {
-  return bk > 0 && bk % BK == 0 && (tk + bk - 1) / bk <= MAX_KB;
-}
-
-size_t f32_smem(int d) {
-  const int dp = (d + 3) & ~3;
-  return sizeof(float) * (BQ * dp + BK * (dp + 4) + BK * dp);
-}
-
-size_t i8_smem(int d) {
-  const int dp = (d + 15) & ~15;
-  return sizeof(int) * (BQ * (dp / 4) + BK * (dp / 4 + 4) + BQ * MAX_KB) +
-         BK * dp;
+  return bk > 0 && bk % 32 == 0 && (tk + bk - 1) / bk <= MAX_KB;
 }
 
 // the padded head dim the fqk kernels take for d, or 0
@@ -1521,6 +2067,12 @@ int fqk_dp(int d) {
 int pq_dp(int d) {
   return d <= 0 ? 0 : d <= 40 ? 40 : d <= 80 ? 80 : d <= 160 ? 160
                                                     : d <= 384 ? 384 : 0;
+}
+
+// the padded head dim the int8 kernel takes for d, or 0
+int i8_dp(int d) {
+  return d <= 0 ? 0 : d <= 64 ? 64 : d <= 96 ? 96 : d <= 160 ? 160
+                                                   : d <= 384 ? 384 : 0;
 }
 
 
@@ -1546,17 +2098,19 @@ int launch_fqk(const __nv_bfloat16* q, const __nv_bfloat16* kf,
   return (int)cudaGetLastError();
 }
 
-template <int NC>
-int launch_f32(const float* q, const float* k, const float* v, float* o,
-               int bh, int tq, int tk, int d, float sm_scale,
-               cudaStream_t stream) {
+template <int DP>
+int launch_fp(const float* q, const float* k, const float* v, float* o,
+              int bh, int tq, int tk, int d, float sm_scale,
+              cudaStream_t stream) {
+  using S = FpShape<DP>;
   static SmemAttr attr;
-  const int e = raise_smem(flash_f32_kernel<NC>, attr,
-                           (int)f32_smem(32 * NC));
+  const int e = raise_smem(flash_fp_kernel<DP>, attr, S::smem(1));
   if (e) return e;
-  dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_f32_kernel<NC><<<grid, NTHREADS, f32_smem(d), stream>>>(
-      q, k, v, o, tq, tk, d, sm_scale);
+  const int vec = d % 4 == 0 && (uintptr_t)q % 16 == 0 &&
+                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  dim3 grid((tq + S::BQ - 1) / S::BQ, bh);
+  flash_fp_kernel<DP><<<grid, S::THREADS, S::smem(1), stream>>>(
+      q, k, v, o, tq, tk, d, sm_scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1580,20 +2134,32 @@ int launch_pq(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-template <int NC, bool PQ>
-int launch_i8(const int8_t* q8, const int8_t* k8, const int8_t* v8,
+// the largest cp.async granule (16, 8 or 4 bytes) that d and the bases
+// of q8 and k8 allow, else 1 (bytewise)
+int i8_granule(const void* q8, const void* k8, int d) {
+  for (int gsz = 16; gsz >= 4; gsz >>= 1)
+    if (d % gsz == 0 && (uintptr_t)q8 % gsz == 0 && (uintptr_t)k8 % gsz == 0)
+      return gsz;
+  return 1;
+}
+
+template <int DP, bool PQ>
+int launch_i8(const int8_t* q8, const int8_t* k8, const int8_t* vt,
               const float* qsum, const float* ksum, const int* vsum,
-              const float* sc, float* o, int bh, int tq, int tk, int d,
-              int bk, float sm_scale, float wnb, float wpb,
+              const float* sc, float* o, int bh, int tq, int tk, int tkp,
+              int d, int bk, float sm_scale, float wnb, float wpb,
               cudaStream_t stream) {
+  using S = I8Shape<DP, PQ>;
   static SmemAttr attr;
-  const int e = raise_smem(flash_i8_kernel<NC, PQ>, attr,
-                           (int)i8_smem(32 * NC));
+  const int e = raise_smem(flash_i8_kernel<DP, PQ>, attr, S::smem(MAX_KB));
   if (e) return e;
-  dim3 grid((tq + BQ - 1) / BQ, bh);
-  flash_i8_kernel<NC, PQ><<<grid, NTHREADS, i8_smem(d), stream>>>(
-      q8, k8, v8, qsum, ksum, vsum, sc, o, tq, tk, d, bk, sm_scale, wnb,
-      wpb);
+  if (bk % S::BK) return (int)cudaErrorInvalidValue;
+  const int nkt = (tk + S::BK - 1) / S::BK;
+  const int nkb = ((nkt - 1) * S::BK) / bk + 1;
+  dim3 grid((tq + S::BQ - 1) / S::BQ, bh);
+  flash_i8_kernel<DP, PQ><<<grid, S::THREADS, S::smem(nkb), stream>>>(
+      q8, k8, vt, qsum, ksum, vsum, sc, o, tq, tk, tkp, d, bk, sm_scale, wnb,
+      wpb, i8_granule(q8, k8, d));
   return (int)cudaGetLastError();
 }
 
@@ -1630,42 +2196,67 @@ int tfmq_flash_f32(const void* q, const void* k, const void* v,
     }
 #undef TFMQ_PQ
   }
-#define TFMQ_F32(NC) \
-  return launch_f32<NC>(qf, kf, vf, of, bh, tq, tk, d, sm_scale, s)
-  if (d <= 64) TFMQ_F32(2);
-  if (d <= 160) TFMQ_F32(5);
-  if (d <= 384) TFMQ_F32(12);
-#undef TFMQ_F32
-  return (int)cudaErrorInvalidValue;
+#define TFMQ_FP(DP) \
+  return launch_fp<DP>(qf, kf, vf, of, bh, tq, tk, d, sm_scale, s)
+  switch (pq_dp(d)) {
+    case 40: TFMQ_FP(40);
+    case 80: TFMQ_FP(80);
+    case 160: TFMQ_FP(160);
+    case 384: TFMQ_FP(384);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TFMQ_FP
 }
 
-int tfmq_flash_int8(const void* q8, const void* k8, const void* v8,
-                    const void* qsum, const void* ksum, const void* vsum,
-                    const void* sc, void* o, int bh, int tq, int tk, int d,
-                    int bk, float sm_scale, int quant_w, float wnb,
-                    float wpb, int device, void* stream) {
+// The int8 v-code pre-pass alone: vt (bh, dp, tkp) int8, the codes of v8
+// (bh, tk, d) transposed, zero past tk and d; dp = the padded head dim,
+// tkp = tk rounded up to 64.
+int tfmq_int8_vt(const void* v8, void* vt, int bh, int tk, int d, int dp,
+                 int tkp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!key_blocks_ok(tk, bk)) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || bh > 65535 || tk <= 0 || dp != i8_dp(d) ||
+      tkp != (tk + I8_KPAD - 1) / I8_KPAD * I8_KPAD)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(tkp / I8_KPAD, (dp + I8_PD - 1) / I8_PD, bh);
+  i8_vt_kernel<<<grid, I8_PRE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)v8, (int8_t*)vt, tk, tkp, d, dp);
+  return (int)cudaGetLastError();
+}
+
+// Pre-pass (v codes transposed into the caller's scratch vt, see above)
+// and main kernel. quant_w: the softmax quantizer's levels on [wnb, wpb].
+int tfmq_flash_int8(const void* q8, const void* k8, const void* v8,
+                    const void* qsum, const void* ksum, const void* vsum,
+                    const void* sc, void* o, void* vt, int bh, int tq,
+                    int tk, int d, int dp, int tkp, int bk, float sm_scale,
+                    int quant_w, float wnb, float wpb, int device,
+                    void* stream) {
+  if (!key_blocks_ok(tk, bk) || tq <= 0) return (int)cudaErrorInvalidValue;
+  int err = tfmq_int8_vt(v8, vt, bh, tk, d, dp, tkp, device, stream);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t *qi = (const int8_t*)q8, *ki = (const int8_t*)k8,
-               *vi = (const int8_t*)v8;
+               *vti = (const int8_t*)vt;
   const float *qsf = (const float*)qsum, *ksf = (const float*)ksum,
               *scf = (const float*)sc;
   const int* vsi = (const int*)vsum;
   float* of = (float*)o;
-#define TFMQ_I8(NC)                                                        \
-  return quant_w ? launch_i8<NC, true>(qi, ki, vi, qsf, ksf, vsi, scf, of, \
-                                       bh, tq, tk, d, bk, sm_scale, wnb,  \
-                                       wpb, s)                             \
-                 : launch_i8<NC, false>(qi, ki, vi, qsf, ksf, vsi, scf,   \
-                                        of, bh, tq, tk, d, bk, sm_scale,  \
+#define TFMQ_I8(DP)                                                          \
+  return quant_w ? launch_i8<DP, true>(qi, ki, vti, qsf, ksf, vsi, scf, of,  \
+                                       bh, tq, tk, tkp, d, bk, sm_scale, wnb, \
+                                       wpb, s)                                \
+                 : launch_i8<DP, false>(qi, ki, vti, qsf, ksf, vsi, scf, of, \
+                                        bh, tq, tk, tkp, d, bk, sm_scale,    \
                                         wnb, wpb, s)
-  if (d <= 64) TFMQ_I8(2);
-  if (d <= 160) TFMQ_I8(5);
-  if (d <= 384) TFMQ_I8(12);
+  switch (dp) {
+    case 64: TFMQ_I8(64);
+    case 96: TFMQ_I8(96);
+    case 160: TFMQ_I8(160);
+    case 384: TFMQ_I8(384);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef TFMQ_I8
-  return (int)cudaErrorInvalidValue;
 }
 
 // The fqk pre-pass alone: kf (bh, tkp, dp) bf16, and vf (bh, tkp, dp)

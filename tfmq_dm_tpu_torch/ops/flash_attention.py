@@ -13,7 +13,9 @@ tensors (int8 codes for ``flash_int8``), ``flash_fqk`` bf16 ones; each
 dispatches on the device: a CPU tensor takes the plain PyTorch version
 beside it (the tests use it); a CUDA tensor launches the kernel, or
 raises. Nothing falls back from one to the other. The kernels take head
-dims up to ``MAX_HEAD_DIM``; a larger one raises.
+dims up to ``MAX_HEAD_DIM``; a larger one raises. ``flash_int8`` and
+``flash_fqk`` launch a pre-pass kernel first (K/V or v codes into scratch
+once per call); one wrapper call counts one launch.
 
 The plain versions materialize the (T, T) scores and round where the
 kernels round. The softmax quantizer's operand is the Pallas kernels' own:
@@ -58,8 +60,10 @@ def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tfmq_flash_f32.argtypes = [p] * 5 + [i] * 5 + [f, i, f, f, i, i, p]
     lib.tfmq_flash_f32.restype = i
-    lib.tfmq_flash_int8.argtypes = [p] * 8 + [i] * 5 + [f, i, f, f, i, p]
+    lib.tfmq_flash_int8.argtypes = [p] * 9 + [i] * 7 + [f, i, f, f, i, p]
     lib.tfmq_flash_int8.restype = i
+    lib.tfmq_int8_vt.argtypes = [p] * 2 + [i] * 6 + [p]
+    lib.tfmq_int8_vt.restype = i
     lib.tfmq_flash_fqk.argtypes = [p] * 9 + [i] * 7 + [f, i, i] \
         + [f] * 8 + [i, p]
     lib.tfmq_flash_fqk.restype = i
@@ -355,18 +359,69 @@ def flash_int8(q8, k8, v8, qsum, ksum, vsum, sc, sm_scale: float,
     if qrange is not None and not (qrange[0] == 0 and qrange[1] <= 255):
         raise ValueError(f"flash_int8: softmax grid {qrange} does not fit "
                          "centered int8 levels")
-    bk = _n_blocks("flash_int8", tk, block_k)
+    bk = _n_blocks("flash_int8", tk, block_k, INT8_KEY_PAD)
     nb, pb = qrange if qrange is not None else (0, 0)
+    dp, tkp, vt = int8_scratch(bh, tk, d, dev)
     lib = build()
     out = torch.empty((bh, tq, d), dtype=torch.float32, device=dev)
     err = lib.tfmq_flash_int8(ptr(q8), ptr(k8), ptr(v8), ptr(qsum),
-                              ptr(ksum), ptr(vsum), ptr(sc), ptr(out), bh,
-                              tq, tk, d, bk, float(sm_scale),
-                              int(qrange is not None), float(nb), float(pb),
-                              dev.index or 0, _stream(dev))
+                              ptr(ksum), ptr(vsum), ptr(sc), ptr(out),
+                              ptr(vt), bh, tq, tk, d, dp, tkp, bk,
+                              float(sm_scale), int(qrange is not None),
+                              float(nb), float(pb), dev.index or 0,
+                              _stream(dev))
     launch_check("flash_int8", err)
     LAUNCHES["flash_int8"] += 1
     return out
+
+
+# the int8 kernel: head dims padded to one of these (multiples of the s8
+# tensor-core product's depth, 32), keys of the v-code scratch to a
+# multiple of INT8_KEY_PAD (every key tile divides it, and so must the key
+# block)
+INT8_HEAD_DIMS = (64, 96, 160, 384)
+INT8_KEY_PAD = 64
+
+
+def int8_scratch(bh: int, tk: int, d: int, dev):
+    """``flash_int8``'s v-code scratch, allocated (``torch.empty``): vt
+    (B*H, DP, Tkp) int8, which its pre-pass fills with the v codes
+    transposed (keys contiguous per head-dim column, the layout of the s8
+    tensor-core operand of P @ V), zero past Tk and D; DP is the padded
+    head dim, Tkp the keys rounded up to 64. Returns (DP, Tkp, vt)."""
+    dp = next(p for p in INT8_HEAD_DIMS if d <= p)
+    tkp = -(-tk // INT8_KEY_PAD) * INT8_KEY_PAD
+    return dp, tkp, torch.empty((bh, dp, tkp), dtype=torch.int8, device=dev)
+
+
+def int8_vt_plain(v8: torch.Tensor) -> torch.Tensor:
+    """The pre-pass of ``flash_int8`` in PyTorch ops: v codes (B*H, Tk, D)
+    int8 -> (B*H, DP, Tkp), transposed and zero-padded (``int8_scratch``'s
+    shape)."""
+    bh, tk, d = v8.shape
+    dp, tkp, _ = int8_scratch(0, tk, d, v8.device)
+    vt = torch.zeros((bh, dp, tkp), dtype=torch.int8, device=v8.device)
+    vt[:, :d, :tk] = v8.transpose(1, 2)
+    return vt
+
+
+def int8_vt(v8: torch.Tensor) -> torch.Tensor:
+    """The pre-pass kernel of ``flash_int8`` alone on CUDA v codes, in
+    ``int8_vt_plain``'s layout. Used by the tests; ``flash_int8`` launches
+    the pre-pass itself."""
+    if not _device_or_raise("int8_vt", v8):
+        raise ValueError("int8_vt: the kernel takes CUDA tensors; "
+                         "int8_vt_plain is the CPU version")
+    bh, tk, d = v8.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"int8_vt: head dim {d} > {MAX_HEAD_DIM}")
+    dev = v8.device
+    check("v8", v8, torch.int8, (bh, tk, d), dev)
+    dp, tkp, vt = int8_scratch(bh, tk, d, dev)
+    err = build().tfmq_int8_vt(ptr(v8), ptr(vt), bh, tk, d, dp, tkp,
+                               dev.index or 0, _stream(dev))
+    launch_check("int8_vt", err)
+    return vt
 
 
 # the fqk kernels: head dims padded to one of these, keys to a multiple of
