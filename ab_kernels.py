@@ -1,8 +1,10 @@
-"""A/B timing of the redesigned kernels (``int4_linear``, ``flash_fqk``,
-``flash_pquant``, the int8 GEMM, ``flash_int8`` and ``flash_fp``) against
-another checkout of the port, on one card, in one process.
+"""A/B timing of the redesigned kernels (``int4_conv2d``,
+``int8_matmul_fused``, ``int4_linear``, ``flash_fqk``, ``flash_pquant``,
+the int8 GEMM, ``flash_int8`` and ``flash_fp``) against another checkout
+of the port, on one card, in one process.
 
     python3 ab_kernels.py --other DIR [--rounds N] [--kernels a,b,..]
+                          [--sweep]
 
 ``DIR`` is the root of another checkout of this repository (for example
 ``git archive <commit> tfmq_dm_tpu_torch | tar -x -C DIR``). Its
@@ -13,22 +15,31 @@ per call, 20 calls captured in one CUDA graph and timed with CUDA events.
 The two outputs are compared (largest absolute difference; 0 where both
 round the same).
 
-The shapes, modes and inputs are ``chip_smoke.py``'s timed ones
-(``timed_linear_shapes``, ``linear_case``, ``FQK_SHAPES``, ``FQK_MODES``,
-``fqk_args``; ``flash_pquant`` at the 8- and 16-bit softmax grids at
-cin256 and SD's 64x64; the int8 GEMM at cin256's ``ff.net.0.proj``
-(bf16 out, the weights deployed K-major here and (K, N) in a tree
-before the redesign), on the im2col of cin256's 64x64 3x3 192 -> 192
-conv and of CIFAR-10's largest conv (int32 out), whose outputs must agree
-exactly; ``flash_int8`` with and without the 8-bit softmax quantizer and
-``flash_fp`` at cin256 and SD's 64x64, where the two trees' ``flash_int8``
-outputs with the quantizer must agree within the one-level rule), and as
-controls two kernels that a slice leaves alone, ``int4_conv2d`` at
-cin256's 64x64 3x3 192 -> 192 (batch 4) and ``int8_matmul_fused`` at
-cin256's ``ff.net.0.proj``. ``--kernels`` picks some of int4_linear,
-flash_fqk, flash_pquant, int8_gemm, flash_int8, flash_fp, controls
-(default: all). Prints the card's name and power limit, one line per
-shape and a JSON line with every time.
+The shapes, modes and inputs are ``chip_smoke.py``'s (``conv_case`` at
+every packed-conv geometry of the CIFAR-10 and cin256 int4-serving paths,
+``conv_geometry_cases``, where the two trees' convs must agree within the
+conv's rule; ``int8_matmul_fused`` with bf16 x and out at cin256's
+``ff.net.0.proj``, ``attn1.to_out`` and ``ff.net.2`` and the 8x8 level's
+``ff.net.2`` (K 384, 1536, 3840), outputs equal; ``timed_linear_shapes``,
+``linear_case``, ``FQK_SHAPES``, ``FQK_MODES``, ``fqk_args``;
+``flash_pquant`` at the 8- and 16-bit softmax grids at cin256 and SD's
+64x64; the int8 GEMM at cin256's ``ff.net.0.proj`` (bf16 out) and on the
+im2col of cin256's 64x64 3x3 192 -> 192 conv and of CIFAR-10's largest
+conv (int32 out), outputs equal; ``flash_int8`` with and without the 8-bit
+softmax quantizer and ``flash_fp`` at cin256 and SD's 64x64, where the two
+trees' ``flash_int8`` outputs with the quantizer must agree within the
+one-level rule), and as controls two kernels that a slice leaves alone,
+``int4_linear`` at cin256's ``ff.net.0.proj`` and the int8 GEMM
+(``int8_matmul_pre``) there and at the 8x8 level's ``ff.net.2`` (K 3840,
+the wgmma route), outputs equal. ``--kernels`` picks some of int4_conv2d,
+int8_matmul_fused, int4_linear, flash_fqk, flash_pquant, int8_gemm,
+flash_int8, flash_fp, controls (default: all). ``--sweep`` also times, of
+those picked, this tree's ``int4_conv2d`` at every conv geometry under
+every plan it can take (each block tile, K whole or split), each checked
+against the plain version, with the plan ``conv_plan`` picks marked, and
+its ``int8_matmul_fused`` under each route and panel height (bit-equal to
+the plain version; ``fused_plan``'s pick marked). Prints the card's name
+and power limit, one line per shape and a JSON line with every time.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -51,8 +63,9 @@ from tfmq_dm_tpu_torch.ops import int8_kernels as I8
 from tfmq_dm_tpu_torch.ops.nn import exact_f32
 from tfmq_dm_tpu_torch.utils.timing import device_ms
 
-KERNELS = ("int4_linear", "flash_fqk", "flash_pquant", "int8_gemm",
-           "flash_int8", "flash_fp", "controls")
+KERNELS = ("int4_conv2d", "int8_matmul_fused", "int4_linear", "flash_fqk",
+           "flash_pquant", "int8_gemm", "flash_int8", "flash_fp",
+           "controls")
 
 
 def load_other(root: Path, name: str = "tfmq_other_port"):
@@ -185,28 +198,194 @@ def ab_flash_fp(oFA, g, dev, rounds: int, out: list) -> None:
         torch.cuda.empty_cache()
 
 
-def ab_controls(oK, oI8, g, dev, rounds: int, out: list) -> None:
-    """``int4_conv2d`` at cin256's 64x64 3x3 192 -> 192 (batch 2 x CFG)
-    and ``int8_matmul_fused`` at M 4096, 384 -> 3072 (bf16 x and out),
-    the same call in both trees."""
-    case = S.conv_case(g, 2 * S.CIN_N, 64, 3, 192, 192, dev)
-    r = ab(lambda: oK.int4_conv2d(*case), lambda: K.int4_conv2d(*case),
-           rounds)
-    r.update(shape=[2 * S.CIN_N, 64, 192, 192], what="int4_conv2d")
-    out.append(r)
-    report(f"int4_conv2d b{2 * S.CIN_N} 64x64 3x3 192->192", r)
-    m, kk, n = 2 * S.CIN_N * 1024, 384, 3072
-    iw = S.int8_weight(g, kk, n, False, dev)
-    x = torch.randn(m, kk, generator=g).to(torch.bfloat16).to(dev)
+def conv_cases():
+    """Every packed-conv geometry of the two int4-serving paths
+    (``chip_smoke.conv_geometry_cases``)."""
+    cifar, _ = S.cifar_geometries(ddim_unet.cifar10_config())
+    return S.conv_geometry_cases(
+        cifar, S.cin_conv_counts(get_task("cin256_v2").unet))
+
+
+def ab_conv(oK, g, dev, rounds: int, out: list) -> None:
+    """``int4_conv2d`` at every conv geometry of both int4-serving paths
+    (cin256's 64x64 3x3 192 -> 192, CIFAR-10's 32x32 128 -> 128 and 4x4
+    512 -> 256 among them); the two trees' outputs must agree within the
+    kernel's rule against its plain version (2e-5 of the largest output,
+    in proportion to K beyond 4608)."""
+    for path, b, r, k, ci, co, per_fwd in conv_cases():
+        case = S.conv_case(g, b, r, k, ci, co, dev)
+        res = ab(lambda: oK.int4_conv2d(*case), lambda: K.int4_conv2d(*case),
+                 rounds)
+        res.update(shape=[b, r, k, ci, co], path=path,
+                   launches_per_forward=per_fwd)
+        out.append(res)
+        report(f"int4_conv2d {path} b{b} {r}x{r} {k}x{k} {ci}->{co}", res)
+        S.check_close(f"int4_conv2d {path} {r}x{r} {ci}->{co}, this vs "
+                      "other", K.int4_conv2d(*case), oK.int4_conv2d(*case),
+                      [], depth=k * k * ci)
+        del case
+    torch.cuda.empty_cache()
+
+
+def fused_case(g, m, k, n, dev):
+    """``int8_matmul_fused``'s arguments: bf16 x (M, K), deployed int8
+    weights, the act grid and a bias."""
+    iw = S.int8_weight(g, k, n, False, dev)
+    x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(dev)
     a = (x, iw.w_q, iw.delta, iw.zp_c, iw.wsum.float(),
          torch.tensor(0.021, device=dev), torch.tensor(-3.0, device=dev),
          torch.randn(n, generator=g).to(dev))
-    r = ab(lambda: oI8.int8_matmul_fused(*a, out_dtype=torch.bfloat16),
-           lambda: I8.int8_matmul_fused(*a, out_dtype=torch.bfloat16),
-           rounds)
-    r.update(shape=[m, kk, n], what="int8_matmul_fused, bf16")
+    return a, iw.w_t
+
+
+# M, K, N of the fused GEMM's A/B: cin256's ff.net.0.proj, attn1.to_out
+# (K 384 -> 384), ff.net.2 (K 1536) and the 8x8 level's ff.net.2 (K 3840)
+FUSED_SHAPES = [(4096, 384, 3072), (4096, 384, 384), (4096, 1536, 384),
+                (256, 3840, 960)]
+
+
+def ab_fused(oI8, g, dev, rounds: int, out: list) -> None:
+    """``int8_matmul_fused`` (bf16 x and out) at ``FUSED_SHAPES``, with
+    the deployed K-major weights in each tree that takes them (a tree
+    without ``w_t`` makes its own copy a call); outputs must be equal."""
+    takes_wt = "w_t" in inspect.signature(oI8.int8_matmul_fused).parameters
+    for m, k, n in FUSED_SHAPES:
+        a, w_t = fused_case(g, m, k, n, dev)
+        kw = {"w_t": w_t} if takes_wt else {}
+        res = ab(lambda: oI8.int8_matmul_fused(*a, out_dtype=torch.bfloat16,
+                                               **kw),
+                 lambda: I8.int8_matmul_fused(*a, out_dtype=torch.bfloat16,
+                                              w_t=w_t), rounds)
+        res.update(shape=[m, k, n], what="int8_matmul_fused, bf16")
+        out.append(res)
+        report(f"int8_matmul_fused M{m} {k}->{n} bf16", res)
+        if not res["equal"]:
+            raise AssertionError("int8_matmul_fused: the trees' outputs "
+                                 "differ")
+
+
+def ab_controls(oK, oI8, g, dev, rounds: int, out: list) -> None:
+    """Two kernels this slice leaves alone, the same call in both trees:
+    ``int4_linear`` at cin256's ``ff.net.0.proj`` (M 4096, 384 -> 3072)
+    and the int8 GEMM (``int8_matmul_pre``, K-major weights given, bf16
+    out) there (mma.sync) and at the 8x8 level's ``ff.net.2`` (M 256,
+    3840 -> 960: wgmma, K split); the GEMM's outputs must be equal."""
+    m, kk, n = 2 * S.CIN_N * 1024, 384, 3072
+    x = S.linear_case(g, m, kk, n, dev)
+    r = ab(lambda: oK.int4_linear(*x), lambda: K.int4_linear(*x), rounds)
+    r.update(shape=[m, kk, n], what="int4_linear")
     out.append(r)
-    report(f"int8_matmul_fused M{m} {kk}->{n} bf16", r)
+    report(f"int4_linear M{m} {kk}->{n}", r)
+    for m, kk, n in ((m, kk, n), (256, 3840, 960)):
+        iw = S.int8_weight(g, kk, n, False, dev)
+        xq, zx, dx = S.int8_act(g, (m, kk), dev)
+        xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+        a = (xq, xs, iw.w_q, iw.delta, iw.zp_c, iw.wsum.float(), dx, zx,
+             torch.randn(n, generator=g).to(dev))
+        r = ab(lambda: oI8.int8_matmul_pre(*a, out_dtype=torch.bfloat16,
+                                           w_t=iw.w_t),
+               lambda: I8.int8_matmul_pre(*a, out_dtype=torch.bfloat16,
+                                          w_t=iw.w_t), rounds)
+        r.update(shape=[m, kk, n], what="int8_matmul_pre, bf16",
+                 plan=list(I8.gemm_plan(m, n, kk)))
+        out.append(r)
+        report(f"int8_matmul_pre M{m} {kk}->{n} bf16 {r['plan']}", r)
+        if not r["equal"]:
+            raise AssertionError("int8_matmul_pre: the trees' outputs "
+                                 "differ")
+
+
+# the fused GEMM's sweep: FUSED_SHAPES and K 2304 and 3072, where the
+# 64-row panel still fits beside the ring and the streamed panel competes
+FUSED_SWEEP_SHAPES = FUSED_SHAPES + [(1024, 2304, 576), (4096, 2304, 384),
+                                     (4096, 3072, 384)]
+
+
+def sweep_fused(g, dev, out: list) -> None:
+    """This tree's ``int8_matmul_fused`` (bf16 x and out) at
+    ``FUSED_SWEEP_SHAPES`` under each route and panel height it can take
+    (groups from ``fused_groups``; device ms each, the outputs equal to
+    the plain version's), the plan ``fused_plan`` picks marked."""
+    real = I8.fused_plan
+    for m, k, n in FUSED_SWEEP_SHAPES:
+        a, w_t = fused_case(g, m, k, n, dev)
+        ref = I8.int8_matmul_fused_plain(*a, out_dtype=torch.bfloat16)
+        picked = real(m, n, k)
+        times = {}
+        for route in ("panel", "stream"):
+            for bm in (128, 64):
+                if I8.fused_smem(route, bm, k) > I8.SMEM_PER_SM:
+                    continue
+                plan = (route, bm, I8.FUSED_BN,
+                        I8.fused_groups(route, bm, m, n, k))
+                I8.fused_plan = lambda *_a, plan=plan, **_k: plan
+                try:
+                    def fn():
+                        return I8.int8_matmul_fused(
+                            *a, out_dtype=torch.bfloat16, w_t=w_t)
+                    if not torch.equal(fn(), ref):
+                        raise AssertionError(f"int8_matmul_fused M{m} "
+                                             f"{k}->{n} {plan}: differs "
+                                             "from the plain version")
+                    times[plan] = device_ms(fn)
+                finally:
+                    I8.fused_plan = real
+        best = min(times, key=times.get)
+        out.append({"shape": [m, k, n], "picked": list(picked),
+                    "picked_ms": times[picked], "best": list(best),
+                    "best_ms": times[best],
+                    "all": [[*p, t] for p, t in times.items()]})
+        print(f"sweep int8_matmul_fused M{m} {k}->{n} bf16: picked {picked} "
+              f"{times[picked]:.4f} ms, best {best} {times[best]:.4f}; "
+              + ", ".join(f"{p}: {t:.4f}" for p, t in sorted(times.items())),
+              flush=True)
+        del a, w_t, ref
+    torch.cuda.empty_cache()
+
+
+def sweep_conv(g, dev, out: list) -> None:
+    """This tree's ``int4_conv2d`` at every conv geometry under every plan
+    it can take (``conv_plans`` without the half-card limit; device ms
+    each, the outputs within the rule), the plan ``conv_plan`` picks
+    marked."""
+    real = K.conv_plan
+    bad = []
+    for path, b, r, k, ci, co, per_fwd in conv_cases():
+        case = S.conv_case(g, b, r, k, ci, co, dev)
+        ref = K.int4_conv2d_plain(*case)
+        m, picked = b * r * r, real(b * r * r, co, k * k, ci)
+        times = {}
+        for plan in set(K.conv_plans(m, co, k * k, ci, fill=False)) \
+                | {picked}:
+            K.conv_plan = lambda *_a, plan=plan, **_k: plan
+            try:
+                S.check_close(f"int4_conv2d {r}x{r} {ci}->{co} {plan}",
+                              K.int4_conv2d(*case), ref, [],
+                              depth=k * k * ci)
+                times[plan] = device_ms(lambda: K.int4_conv2d(*case))
+            except AssertionError as e:    # reported, and not timed
+                print(f"sweep: {plan} disagrees: {e}", flush=True)
+                bad.append([path, [b, r, k, ci, co], list(plan)])
+            finally:
+                K.conv_plan = real
+        if picked not in times:
+            continue
+        best = min(times, key=times.get)
+        out.append({"path": path, "shape": [b, r, k, ci, co],
+                    "launches_per_forward": per_fwd,
+                    "picked": list(picked), "picked_ms": times[picked],
+                    "best": list(best), "best_ms": times[best],
+                    "all": [[*p, t] for p, t in times.items()]})
+        print(f"sweep int4_conv2d {path} b{b} {r}x{r} {k}x{k} {ci}->{co}: "
+              f"picked {picked} {times[picked]:.4f} ms, best {best} "
+              f"{times[best]:.4f}; " + ", ".join(
+                  f"{p}: {t:.4f}" for p, t in sorted(times.items())),
+              flush=True)
+        del case, ref
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"int4_conv2d: plans that disagree with the "
+                             f"plain version: {bad}")
 
 
 def main(argv=None) -> int:
@@ -216,6 +395,11 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ", ".join(KERNELS))
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time this tree's int4_conv2d under every "
+                         "plan at every conv geometry, and "
+                         "int8_matmul_fused under every route (those "
+                         "picked)")
     args = ap.parse_args(argv)
     picked = args.kernels.split(",")
     if not set(picked) <= set(KERNELS):
@@ -225,8 +409,14 @@ def main(argv=None) -> int:
     exact_f32()
     dev = torch.device("cuda")
     oK, oFA, oI8 = load_other(args.other.resolve())
-    for mod in (oK, oFA, oI8, K, FA, I8):
-        mod.build()
+    uses = {"int4": ("int4_conv2d", "int4_linear", "controls"),
+            "flash": ("flash_fqk", "flash_pquant", "flash_int8", "flash_fp"),
+            "int8": ("int8_matmul_fused", "int8_gemm", "controls")}
+    for key, mods in (("int4", (oK, K)), ("flash", (oFA, FA)),
+                      ("int8", (oI8, I8))):
+        if set(uses[key]) & set(picked):
+            for mod in mods:      # built ahead of the timings
+                mod.build()
     smi = S.nvidia_smi()
     print(smi, flush=True)
     out = {"card": smi, **{name: [] for name in picked}}
@@ -259,8 +449,18 @@ def main(argv=None) -> int:
         ab_flash_int8(oFA, g, dev, args.rounds, out["flash_int8"])
     if "flash_fp" in picked:
         ab_flash_fp(oFA, g, dev, args.rounds, out["flash_fp"])
+    if "int4_conv2d" in picked:
+        ab_conv(oK, g, dev, args.rounds, out["int4_conv2d"])
+    if "int8_matmul_fused" in picked:
+        ab_fused(oI8, g, dev, args.rounds, out["int8_matmul_fused"])
     if "controls" in picked:
         ab_controls(oK, oI8, g, dev, args.rounds, out["controls"])
+    if args.sweep and "int8_matmul_fused" in picked:
+        out["sweep_fused"] = []
+        sweep_fused(g, dev, out["sweep_fused"])
+    if args.sweep and "int4_conv2d" in picked:
+        out["sweep"] = []
+        sweep_conv(g, dev, out["sweep"])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -28,6 +28,13 @@ when one is exceeded):
               times kernel, plain version and one PyTorch library call on
               the device (calls captured in a CUDA graph), and the
               kernel's wall time per eager call, beside the card's bound:
+              ``int4_conv2d`` and cuDNN's bf16 conv at every conv geometry
+              of both int4-serving paths with its launches per forward (a
+              walk of the model's layers, held after phase 5 against the
+              launches the int4-serving runs counted) and the
+              launch-weighted sums per forward (``int4_conv2d`` is
+              also checked for two bit-identical calls: split K adds its
+              partial sums in a fixed order),
               ``int4_linear`` at every distinct cin256 geometry and
               CIFAR-10's, ``flash_fqk`` in its three modes, ``flash_fp``,
               ``flash_pquant`` (8- and 16-bit softmax grids) and
@@ -141,15 +148,55 @@ CARD_PEAKS = {"H100": {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12,
 GN_MAX_LEVELS, GN_MAX_SHARE = 1, 1e-4
 
 # device ms of the kernels before their redesign for the tensor cores
-# (PERF.md section 6: chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W),
-# at the shapes where they were taken; printed for reading only
+# (PERF.md section 6: chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W; the
+# int4_conv2d geometries from ab_kernels.py against the tree before the
+# redesign, the same inputs), at the shapes where they were taken;
+# printed for reading only
 EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("int4_linear", 4096, 384, 3072): 0.7676,
               ("flash_fqk", "cin256", "p levels"): 1.6757,
               ("flash_pquant", "cin256", "f32, 8-bit grid"): 0.8766,
               ("int8", "linear"): 0.1824, ("int8", "conv_gemm"): 0.2506,
               ("flash_int8", "cin256", "8-bit p"): 0.6829,
-              ("flash_fp", "cin256", "f32"): 0.5694}
+              ("flash_fp", "cin256", "f32"): 0.5694,
+              ("int8_matmul_fused", 4096, 384, 3072): 0.2053,
+              ("int4_conv2d", 8, 4, 1, 256, 256): 0.0208,
+              ("int4_conv2d", 8, 4, 3, 256, 256): 0.1404,
+              ("int4_conv2d", 8, 4, 3, 512, 256): 0.3177,
+              ("int4_conv2d", 8, 8, 3, 256, 256): 0.1298,
+              ("int4_conv2d", 8, 8, 3, 512, 256): 0.3002,
+              ("int4_conv2d", 8, 16, 1, 256, 256): 0.0210,
+              ("int4_conv2d", 8, 16, 3, 128, 256): 0.0684,
+              ("int4_conv2d", 8, 16, 3, 256, 256): 0.1301,
+              ("int4_conv2d", 8, 16, 3, 384, 256): 0.2195,
+              ("int4_conv2d", 8, 16, 3, 512, 256): 0.3109,
+              ("int4_conv2d", 8, 32, 3, 128, 128): 0.0680,
+              ("int4_conv2d", 8, 32, 3, 256, 128): 0.1260,
+              ("int4_conv2d", 8, 32, 3, 256, 256): 0.1694,
+              ("int4_conv2d", 8, 32, 3, 384, 128): 0.2011,
+              ("int4_conv2d", 4, 8, 1, 960, 960): 0.0655,
+              ("int4_conv2d", 4, 8, 3, 576, 960): 0.3533,
+              ("int4_conv2d", 4, 8, 3, 960, 960): 0.5792,
+              ("int4_conv2d", 4, 8, 3, 1536, 960): 0.9273,
+              ("int4_conv2d", 4, 8, 3, 1920, 960): 1.1612,
+              ("int4_conv2d", 4, 16, 1, 576, 576): 0.0412,
+              ("int4_conv2d", 4, 16, 3, 384, 576): 0.2245,
+              ("int4_conv2d", 4, 16, 3, 576, 576): 0.3427,
+              ("int4_conv2d", 4, 16, 3, 960, 576): 0.5674,
+              ("int4_conv2d", 4, 16, 3, 960, 960): 0.5576,
+              ("int4_conv2d", 4, 16, 3, 1152, 576): 0.6797,
+              ("int4_conv2d", 4, 16, 3, 1536, 576): 0.9146,
+              ("int4_conv2d", 4, 32, 1, 384, 384): 0.0354,
+              ("int4_conv2d", 4, 32, 3, 192, 384): 0.1212,
+              ("int4_conv2d", 4, 32, 3, 384, 384): 0.2540,
+              ("int4_conv2d", 4, 32, 3, 576, 384): 0.3797,
+              ("int4_conv2d", 4, 32, 3, 576, 576): 0.4075,
+              ("int4_conv2d", 4, 32, 3, 768, 384): 0.4989,
+              ("int4_conv2d", 4, 32, 3, 960, 384): 0.6184,
+              ("int4_conv2d", 4, 64, 3, 192, 192): 0.1377,
+              ("int4_conv2d", 4, 64, 3, 384, 192): 0.2768,
+              ("int4_conv2d", 4, 64, 3, 384, 384): 0.5764,
+              ("int4_conv2d", 4, 64, 3, 576, 192): 0.4127}
 
 STEPS, BATCH, SEED = 10, 8, 1234
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
@@ -557,6 +604,110 @@ def cin_geometries(cfg):
                 res *= 2
                 convs.add((res, 3, s.c_in, s.c_out))
     return sorted(convs), sorted(linears)
+
+
+def cin_conv_counts(cfg) -> dict:
+    """Launches per UNet forward of each packed-conv geometry (res, k, cin,
+    cout) of ``cin_geometries``: the quantized convs of ``iter_layers``."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    from tfmq_dm_tpu_torch.quant.policy import build_policy
+    pol = build_policy(ldm_unet.layer_infos(cfg))
+    quantized = {n for n in pol.weight_layers() if pol.get(n).wq}
+    res, counts = cfg.image_size, {}
+    for kind, name, shape in ldm_unet.iter_layers(cfg):
+        if kind == "conv_ds":
+            res //= 2
+            continue
+        if kind == "conv" and name.endswith(".conv"):    # an Upsample's
+            res *= 2
+        if kind == "conv" and name in quantized:
+            key = (res, shape[0], shape[2], shape[3])
+            counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def conv_geometry_cases(cifar_counts, cin_counts) -> list:
+    """(path, batch, res, k, cin, cout, launches per forward) of every
+    distinct packed conv of the two int4-serving paths: CIFAR-10 at batch
+    8, cin256 at batch 2 x CFG."""
+    return [("cifar10", BATCH, *key, c) for key, c in
+            sorted(cifar_counts.items())] + \
+        [("cin256", 2 * CIN_N, *key, c) for key, c in
+         sorted(cin_counts.items())]
+
+
+def time_conv_geometries(g, dev, peaks, cases) -> list:
+    """``int4_conv2d`` and cuDNN's bf16 conv (weights dequantized ahead of
+    time) at every conv geometry of both int4-serving paths, device ms
+    per call beside the bound and the launches per forward; then the
+    launch-weighted sums per forward of each path (the plain version is
+    not timed here)."""
+    import torch
+    import torch.nn.functional as F
+    from tfmq_dm_tpu_torch.ops import int4_kernels as K
+    rows = []
+    for path, b, r, k, ci, co, per_fwd in cases:
+        case = conv_case(g, b, r, k, ci, co, dev)
+        x, wp, d, z, kh, kw, bias, pad = case
+        wd = ((K.unpack_int4(wp, co).float() - z) * d).to(torch.bfloat16)
+        wd = wd.reshape(kh, kw, ci, co).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        xn, bd, p = x.permute(0, 3, 1, 2), bias.to(torch.bfloat16), kh // 2
+        flops = 2 * b * r * r * co * kh * kw * ci
+        nbytes = x.numel() * 2 + wp.numel() + 3 * co * 4 + b * r * r * co * 4
+        t_ops, t_bytes = flops / peaks["bf16"] * 1e3, nbytes / peaks["hbm"] \
+            * 1e3
+        row = {"path": path, "shape": [b, r, k, ci, co],
+               "launches_per_forward": per_fwd,
+               "plan": list(K.conv_plan(b * r * r, co, k * k, ci)),
+               "ms": device_ms(lambda: K.int4_conv2d(*case)),
+               "library_ms": device_ms(lambda: F.conv2d(xn, wd, bd,
+                                                        padding=p)),
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        e = EARLIER_MS.get(("int4_conv2d", b, r, k, ci, co))
+        rows.append(row)
+        print(f"   int4_conv2d {path} b{b} {r}x{r} {k}x{k} {ci}->{co} "
+              f"x{per_fwd}: {row['ms']:.4f} / cuDNN {row['library_ms']:.4f}"
+              f"; bound {row['bound_ms']:.6f} ({row['bound_by']}); plan "
+              f"{row['plan']}" + ("" if e is None else
+                                  f"; earlier design {e:.4f} "
+                                  f"({e / row['ms']:.2f}x this)"),
+              flush=True)
+        del case, x, wp, wd, xn
+    for path in ("cifar10", "cin256"):
+        sel = [x for x in rows if x["path"] == path]
+
+        def wsum(key, sel=sel):
+            return sum(x[key] * x["launches_per_forward"] for x in sel)
+        line = (f"   int4_conv2d {path} per forward "
+                f"({sum(x['launches_per_forward'] for x in sel)} launches):"
+                f" kernel {wsum('ms'):.4f} ms, cuDNN "
+                f"{wsum('library_ms'):.4f}, bound {wsum('bound_ms'):.4f}")
+        earlier = [EARLIER_MS.get(("int4_conv2d", *x["shape"])) for x in sel]
+        if None not in earlier:      # for reading only, not in the report
+            line += ", earlier design " + format(sum(
+                e * x["launches_per_forward"]
+                for e, x in zip(earlier, sel)), ".4f")
+        print(line, flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_conv_counts(rows, measured) -> None:
+    """Hold the launches per forward that ``time_conv_geometries`` weighs
+    by (a walk of each model's layers) against those the int4-serving
+    runs counted: ``measured`` maps a path to (launches, forwards)."""
+    for path, (n, forwards) in measured.items():
+        walked = sum(x["launches_per_forward"] for x in rows
+                     if x["path"] == path)
+        if n != walked * forwards:
+            raise AssertionError(
+                f"int4_conv2d {path}: {n} launches in {forwards} forwards, "
+                f"but the geometry walk counts {walked} per forward")
+        print(f"   int4_conv2d {path}: {n} launches in {forwards} forwards "
+              f"= {walked} per forward, as the geometry walk counts",
+              flush=True)
 
 
 def check_one_level(label, got, ref, level, errors):
@@ -985,7 +1136,7 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
             "psnr_images_kernel_vs_plain": p_img,
             "psnr_quant_vs_fp": p_qf, "forward_max_rel": f_max,
             "forward_mean_rel": f_mean, "noise_mean_rel": n_mean,
-            "profile": prof, "ckpt": ckpt, "art": arts[8],
+            "profile": prof, "ckpt": ckpt, "art": arts[8], "steps": steps,
             "fp_lat": runs["fp"]["lat"], "fp_img": runs["fp"]["img"]}
 
 
@@ -1334,7 +1485,8 @@ def check_fused(g, dev, errs, linears) -> None:
             for od in (torch.float32, torch.bfloat16):
                 for bias in (b, None):
                     args = (x, iw.w_q, iw.delta, iw.zp_c, ws, dx, zx, bias)
-                    got = I8.int8_matmul_fused(*args, out_dtype=od)
+                    got = I8.int8_matmul_fused(*args, out_dtype=od,
+                                               w_t=iw.w_t)
                     refs = (I8.int8_matmul_fused_plain(*args, out_dtype=od),
                             I8.int8_matmul_pre(xq, xs, iw.w_q, iw.delta,
                                                iw.zp_c, ws, dx, zc, bias,
@@ -1436,7 +1588,8 @@ def check_gn(g, dev, errs) -> None:
 
 def time_fused(g, dev, peaks) -> dict:
     """``int8_matmul_fused`` at cin256's ``ff.net.0.proj`` (M 4096, 384 ->
-    3072, bf16 x and out; ``int8_matmul_pre``'s timing shape): kernel,
+    3072, bf16 x and out, the deployed K-major weights;
+    ``int8_matmul_pre``'s timing shape): kernel,
     plain version, and as the library call the quantization in PyTorch
     ops, ``torch._int_mm`` and the epilogue in PyTorch ops; also the port's
     current pair, ``quantize_act_int8`` + ``int8_matmul_pre``."""
@@ -1466,20 +1619,29 @@ def time_fused(g, dev, peaks) -> dict:
         xq, zc = int_ops.quantize_act_int8(x, dx, zx + 128.0, cfg)
         xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
         return I8.int8_matmul_pre(xq, xs, iw.w_q, iw.delta, iw.zp_c, ws, dx,
-                                  zc, b, out_dtype=torch.bfloat16)
+                                  zc, b, out_dtype=torch.bfloat16, w_t=iw.w_t)
+
+    xq0, zc0 = int_ops.quantize_act_int8(x, dx, zx + 128.0, cfg)
+    pre_args = (xq0, xq0.to(torch.int32).sum(-1, keepdim=True).float(),
+                iw.w_q, iw.delta, iw.zp_c, ws, dx, zc0, b)
 
     flops = 2 * m * n * k
     nbytes = 2 * m * k + k * n + 4 * 4 * n + 8 + 2 * m * n
-    tm = timings(lambda: I8.int8_matmul_fused(*args, out_dtype=torch.bfloat16),
+    tm = timings(lambda: I8.int8_matmul_fused(*args, out_dtype=torch.bfloat16,
+                                              w_t=iw.w_t),
                  lambda: I8.int8_matmul_fused_plain(*args,
                                                     out_dtype=torch.bfloat16),
                  library, flops, nbytes, peaks, rate="int8")
     tm["library"] = "quantize in PyTorch ops + torch._int_mm + epilogue"
     tm["pair_ms"] = device_ms(pair)
     tm["pair"] = "int_ops.quantize_act_int8 + int8_matmul_pre"
+    tm["pre_ms"] = device_ms(lambda: I8.int8_matmul_pre(
+        *pre_args, out_dtype=torch.bfloat16, w_t=iw.w_t))
     print(f"   int8_matmul_fused M{m} {k}->{n} bf16: " + timing_line(tm)
           + f"; quantize + int8_matmul_pre {tm['pair_ms']:.4f} "
-          f"({tm['pair_ms'] / tm['ms']:.2f}x the fused kernel)", flush=True)
+          f"({tm['pair_ms'] / tm['ms']:.2f}x the fused kernel); "
+          f"int8_matmul_pre alone {tm['pre_ms']:.4f}"
+          + earlier_note(tm, ("int8_matmul_fused", m, k, n)), flush=True)
     return tm
 
 
@@ -1742,9 +1904,14 @@ def run() -> None:
                         for (r, k, ci, co) in cin_convs]
         for (b, r, k, ci, co) in conv_shapes:
             case = conv_case(g, b, r, k, ci, co, dev)
-            check_close(f"int4_conv2d b{b} {r}x{r} {k}x{k} {ci}->{co}",
-                        K.int4_conv2d(*case), K.int4_conv2d_plain(*case),
-                        errs["int4_conv2d"], depth=k * k * ci)
+            got = K.int4_conv2d(*case)
+            check_close(f"int4_conv2d b{b} {r}x{r} {k}x{k} {ci}->{co}", got,
+                        K.int4_conv2d_plain(*case), errs["int4_conv2d"],
+                        depth=k * k * ci)
+            if not torch.equal(got, K.int4_conv2d(*case)):
+                raise AssertionError(f"int4_conv2d b{b} {r}x{r} {ci}->{co}: "
+                                     "two calls differ (the split-K order "
+                                     "is fixed)")
         lin_shapes = [(BATCH, k, n) for (k, n) in linears]
         lin_shapes += [(1, 512, 256), (3, 100, 37), (64, 512, 256)]
         lin_shapes += [(2 * CIN_N * m, k, n) for (m, k, n) in cin_linears]
@@ -1766,13 +1933,17 @@ def run() -> None:
 
         print("   timing, ms per call (device: kernel / plain / library; "
               "kernel wall per eager call; bound):", flush=True)
-        measured = {}
+        measured = {"conv_geometries": time_conv_geometries(
+            g, dev, peaks, conv_geometry_cases(
+                convs, cin_conv_counts(get_task("cin256_v2").unet)))}
         for b, r, ci in ((64, 16, 256), (64, 32, 128), (BATCH, 32, 128),
                          (2 * CIN_N, 64, 192), (2 * CIN_N, 32, 384)):
             measured[("conv", b, r, ci)] = t = time_conv(
                 conv_case(g, b, r, 3, ci, ci, dev), peaks)
             print(f"   int4_conv2d b{b} {r}x{r} 3x3 {ci}->{ci}: "
-                  + timing_line(t), flush=True)
+                  + timing_line(t)
+                  + earlier_note(t, ("int4_conv2d", b, r, 3, ci, ci)),
+                  flush=True)
         for m, k, n in timed_linear_shapes(cin_linears):
             measured[("linear", m, k, n)] = t = time_linear(
                 linear_case(g, m, k, n, dev), peaks)
@@ -1804,6 +1975,10 @@ def run() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
     runs = ldm["runs"]
+    check_conv_counts(measured["conv_geometries"], {
+        "cifar10": (launches["int4_conv2d"], STEPS),
+        "cin256": (runs["deployed"]["launches"]["int4_conv2d"],
+                   ldm["steps"])})
     tc = measured[("conv", BATCH, 32, 128)]
     tl = measured[("linear", BATCH, 512, 256)]
     fqk = measured["flash_fqk"]
@@ -1825,7 +2000,8 @@ def run() -> None:
          "launches": launches["int4_conv2d"],
          "launches_cin256": runs["deployed"]["launches"]["int4_conv2d"],
          "max_abs_err": max(errs["int4_conv2d"]), **tc,
-         "cin256": measured[("conv", 2 * CIN_N, 64, 192)]},
+         "cin256": measured[("conv", 2 * CIN_N, 64, 192)],
+         "geometries": measured["conv_geometries"]},
         {"name": "int4_linear", "route": "cuda",
          "source": "tfmq_dm_tpu_torch/csrc/int4_kernels.cu",
          "replaces": "tfmq_dm_tpu/ops/pallas_kernels.py:275",

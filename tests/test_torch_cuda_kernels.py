@@ -105,6 +105,67 @@ def test_cuda_int4_linear_reruns_bit_identical(cuda, m, k, n):
     assert torch.equal(first, K.int4_linear(x, wp, d, z, b))
 
 
+# (batch, res, cin, cout, k, padding): ragged Cin (20: the scalar A
+# route; 48: K steps past Cin), ragged N (37, 10, 70), a ragged image (9x9,
+# M 243), CIFAR's 4x4 512 -> 256, cin256's 8x8 960 -> 960 (K 8640) and
+# 64x64 192 -> 192 (M 16384)
+CONV_ROUTE_SHAPES = [(2, 5, 20, 37, 3, "SAME"), (1, 7, 48, 10, 1, "VALID"),
+                     (3, 9, 64, 70, 3, "SAME"), (8, 4, 512, 256, 3, "SAME"),
+                     (4, 8, 960, 960, 3, "SAME"),
+                     (4, 64, 192, 192, 3, "SAME")]
+
+
+def _conv_args(b, h, cin, n, kk, padding, dev):
+    g = torch.Generator().manual_seed(b * h + cin + n)
+    wp, d, z, bias = _weights(g, (kk * kk, cin), n, dev)
+    x = torch.randn(b, h, h, cin, generator=g).to(torch.bfloat16).to(dev)
+    return (x, wp, d, z, kk, kk, bias, padding)
+
+
+def _conv_close(got, ref, depth):
+    """The conv's rule: 2e-5 of the largest output, in proportion to the
+    depth K of the sum beyond 4608 (the tensor cores' sums)."""
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.abs().max()))
+    tol = REL_TOL * max(1.0, depth / 4608)
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("b,h,cin,n,kk,padding,route,tile", [
+    (*shape, route, tile) for shape in CONV_ROUTE_SHAPES
+    for route, tiles in K.CONV_TILES.items() for tile in tiles
+    if route == "mma" or shape[2] % K.CONV_WG_BK == 0])
+@pytest.mark.parametrize("splits", [1, 3])
+def test_cuda_int4_conv2d_routes_match_plain(cuda, b, h, cin, n, kk,
+                                             padding, route, tile, splits):
+    """Each route and block tile of the conv (wgmma where Cin comes in
+    whole 64-channel steps, as it requires), with K whole and split three
+    ways (the plan forced), against the plain version."""
+    steps = K.conv_steps(route, kk * kk, cin)
+    spc = -(-steps // splits)
+    plan = (route, *tile, -(-steps // spc), spc)
+    args = _conv_args(b, h, cin, n, kk, padding, cuda)
+    with mock.patch.object(K, "conv_plan", lambda *a, **k: plan):
+        before = K.LAUNCHES["int4_conv2d"]
+        got = K.int4_conv2d(*args)
+        assert K.LAUNCHES["int4_conv2d"] == before + 1
+    _conv_close(got, K.int4_conv2d_plain(*args), kk * kk * cin)
+
+
+@pytest.mark.parametrize("b,h,cin,n,kk,padding", [
+    (8, 4, 512, 256, 3, "SAME"), (4, 8, 960, 960, 3, "SAME"),
+    (8, 8, 256, 256, 3, "SAME")])
+def test_cuda_int4_conv2d_split_k_reruns_bit_identical(cuda, b, h, cin, n,
+                                                       kk, padding):
+    """Shapes whose plan splits K: the partial sums are added in split
+    order (no atomics), so two calls give the same bits."""
+    m = b * h * h
+    assert K.conv_plan(m, n, kk * kk, cin)[3] > 1
+    args = _conv_args(b, h, cin, n, kk, padding, cuda)
+    first = K.int4_conv2d(*args)
+    assert torch.equal(first, K.int4_conv2d(*args))
+
+
 def test_cuda_wrappers_reject_bad_inputs(cuda):
     """The wrapper checks type, shape and contiguity before it launches."""
     g = torch.Generator().manual_seed(0)
@@ -682,6 +743,61 @@ def test_cuda_int8_matmul_fused_matches_plain(cuda, m, k, n, x_dtype,
         torch.cuda.synchronize()
         assert got.dtype == out_dtype
         assert torch.equal(got, ref) and torch.equal(got, pre)
+
+
+def _fused_routes(k):
+    """The routes ``int8_matmul_fused`` can take at depth K: the 128- and
+    64-row A panels where they fit beside the weight ring, and both
+    streamed."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    out = [("stream", 128, I8.FUSED_BN), ("stream", 64, I8.FUSED_BN)]
+    for bm in (128, 64):
+        if I8.fused_smem("panel", bm, k) <= I8.SMEM_PER_SM:
+            out.append(("panel", bm, I8.FUSED_BN))
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 384, 3072), (130, 1152, 70),
+                                   (77, 1536, 960), (97, 2304, 300),
+                                   (257, 3840, 200)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_matmul_fused_routes_match_plain(cuda, m, k, n, x_dtype,
+                                                   out_dtype):
+    """Every route of the fused GEMM (the plan forced, each with 1 and 3
+    groups of N tiles), with the K-major copy given: bit-equal to its
+    plain version and to ``quantize_act_int8`` + ``int8_matmul_pre``."""
+    from tfmq_dm_tpu_torch.ops import int8_kernels as I8
+    from tfmq_dm_tpu_torch.ops import int_ops
+    from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+    g = torch.Generator().manual_seed(m + k + n)
+    x = (torch.randn(m, k, generator=g) * 1.5).to(x_dtype).to(cuda)
+    w = _codes(g, (k, n), cuda)
+    d = (torch.rand(n, generator=g) * 0.01 + 1e-3).to(cuda)
+    z = torch.randint(-10, 10, (n,), generator=g).float().to(cuda)
+    ws = w.to(torch.int32).sum(0).float()
+    b = torch.randn(n, generator=g).to(cuda)
+    dx, zx = torch.tensor(0.021, device=cuda), torch.tensor(-3.0, device=cuda)
+    xq, zc = int_ops.quantize_act_int8(x, dx, zx + 128.0, QCfg(bits=8))
+    xs = xq.to(torch.int32).sum(-1, keepdim=True).float()
+    w_t = I8.kmajor(w)
+    args = (x, w, d, z, ws, dx, zx, b)
+    ref = I8.int8_matmul_fused_plain(*args, out_dtype=out_dtype)
+    pre = I8.int8_matmul_pre(xq, xs, w, d, z, ws, dx, zc, b,
+                             out_dtype=out_dtype, w_t=w_t)
+    torch.cuda.synchronize()
+    assert torch.equal(ref, pre)
+    for route, bm, bn in _fused_routes(k):
+        for groups in (1, 3):
+            plan = (route, bm, bn, groups)
+            with mock.patch.object(I8, "fused_plan", lambda *a, **kw: plan):
+                copies = I8.KMAJOR_COPIES["int8_matmul_fused"]
+                got = I8.int8_matmul_fused(*args, out_dtype=out_dtype,
+                                           w_t=w_t)
+                assert I8.KMAJOR_COPIES["int8_matmul_fused"] == copies
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            assert torch.equal(got, ref), plan
 
 
 # ---------------------------------------------------------------------------

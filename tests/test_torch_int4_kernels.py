@@ -178,3 +178,42 @@ def test_int4_linear_plan_partitions_k(m, k, n):
         assert splits <= K.MAX_SPLITS
         assert 2 * tiles * splits >= min(
             132, tiles * min(k // min_chunk, K.MAX_SPLITS))
+
+
+# (batch, res, k, cin, cout) of every distinct packed conv of the CIFAR-10
+# (batch 8) and cin256 (batch 2 x CFG) int4-serving paths, and the two
+# ragged shapes of chip_smoke.py's conv checks
+CONV_PLAN_SHAPES = [
+    (8, 4, 1, 256, 256), (8, 4, 3, 256, 256), (8, 4, 3, 512, 256),
+    (8, 8, 3, 256, 256), (8, 8, 3, 512, 256), (8, 16, 1, 256, 256),
+    (8, 16, 3, 128, 256), (8, 16, 3, 256, 256), (8, 16, 3, 384, 256),
+    (8, 16, 3, 512, 256), (8, 32, 3, 128, 128), (8, 32, 3, 256, 128),
+    (8, 32, 3, 256, 256), (8, 32, 3, 384, 128),
+    (4, 8, 1, 960, 960), (4, 8, 3, 576, 960), (4, 8, 3, 960, 960),
+    (4, 8, 3, 1536, 960), (4, 8, 3, 1920, 960), (4, 16, 1, 576, 576),
+    (4, 16, 3, 384, 576), (4, 16, 3, 576, 576), (4, 16, 3, 960, 576),
+    (4, 16, 3, 960, 960), (4, 16, 3, 1152, 576), (4, 16, 3, 1536, 576),
+    (4, 32, 1, 384, 384), (4, 32, 3, 192, 384), (4, 32, 3, 384, 384),
+    (4, 32, 3, 576, 384), (4, 32, 3, 576, 576), (4, 32, 3, 768, 384),
+    (4, 32, 3, 960, 384), (4, 64, 3, 192, 192), (4, 64, 3, 384, 192),
+    (4, 64, 3, 384, 384), (4, 64, 3, 576, 192),
+    (2, 5, 3, 20, 37), (1, 7, 1, 48, 10)]
+
+
+@pytest.mark.parametrize("b,r,k,cin,n", CONV_PLAN_SHAPES)
+def test_int4_conv2d_plan_partitions_k(b, r, k, cin, n):
+    """The conv's plan: one of its route's block tiles; the K steps (k*k
+    taps x channel chunks of the route) cut into whole steps, every split
+    non-empty; splits only where the output tiles fill under half the
+    blocks the card holds, never more than 16; wgmma only where Cin comes
+    in whole 64-channel steps."""
+    m = b * r * r
+    route, bm, bn, splits, spc = K.conv_plan(m, n, k * k, cin, sms=132)
+    assert (bm, bn) in K.CONV_TILES[route]
+    steps = K.conv_steps(route, k * k, cin)
+    assert spc >= 1 and (splits - 1) * spc < steps <= splits * spc
+    tiles = -(-m // bm) * -(-n // bn)
+    if 2 * tiles >= 132 * K.CONV_BLOCKS_PER_SM[route]:
+        assert splits == 1
+    assert 1 <= splits <= max(K.CONV_SPLITS)
+    assert route == "mma" or cin % K.CONV_WG_BK == 0

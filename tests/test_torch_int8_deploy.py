@@ -452,3 +452,65 @@ def test_gemm_plan_tiles_and_splits(m, k, n):
     tiles = -(-m // bm) * -(-n // bn)
     assert split == 1 or 2 * tiles < I8.GEMM_SMS
     assert I8.gemm_plan(m, n, k, batch=3)[3] == 1
+
+
+# the fused GEMM's shapes: cin256's linears at batch 2 x CFG (K 384,
+# 1536, 3840), the card tests' K 1152 and 2304, the last K whose 64-row
+# panel fits (3072) and the first that does not, and ragged ones
+FUSED_PLAN_SHAPES = [(4096, 384, 3072), (4096, 384, 384), (4096, 1536, 384),
+                     (4096, 1152, 384), (256, 3840, 960), (1024, 576, 4608),
+                     (3, 100, 37), (130, 1100, 70), (77, 1536, 960),
+                     (1, 64, 128), (97, 2304, 300), (1024, 2304, 576),
+                     (4096, 3072, 384), (4096, 3073, 384)]
+
+
+@pytest.mark.parametrize("m,k,n", FUSED_PLAN_SHAPES)
+def test_fused_plan_routes_and_groups(m, k, n):
+    """``int8_matmul_fused``'s plan: an A panel of 128 or 64 rows where it
+    fits in shared memory beside the weight ring and either shares its N
+    tiles or runs in one wave, else the streamed panel; its N tiles cut
+    into groups that each hold at least one tile (one tile a group when
+    streamed)."""
+    route, bm, bn, groups = I8.fused_plan(m, n, k)
+    kp = -(-k // I8.FUSED_KB) * I8.FUSED_KB
+    assert bm in (64, 128) and bn == I8.FUSED_BN
+    assert bm == 64 or kp <= I8.FUSED_PANEL128_K or route == "stream"
+    smem = I8.fused_smem(route, bm, k)
+    assert smem <= I8.SMEM_PER_SM
+    ntiles = -(-n // bn)
+    tpg = -(-ntiles // groups)
+    assert 1 <= groups <= ntiles and (groups - 1) * tpg < ntiles
+    blocks = -(-m // bm) * groups
+    if route == "panel":
+        assert bm * kp + 4 * bn * I8.FUSED_KB + 4 * bm == smem
+        per_sm = 2 if 2 * smem <= I8.SMEM_PER_SM else 1
+        assert tpg > 1 or blocks <= per_sm * I8.GEMM_SMS
+    else:
+        assert groups == ntiles
+        fits = 64 * kp + 4 * bn * I8.FUSED_KB + 4 * 64 <= I8.SMEM_PER_SM
+        assert not fits or -(-m // 64) * ntiles > I8.GEMM_SMS
+    # cin256's ff.net.0.proj: 128-row panels, each shared by 3 N tiles
+    assert I8.fused_plan(4096, 3072, 384) == ("panel", 128, 128, 8)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_fused_plain_ignores_kmajor_copy(x_dtype):
+    """The plain version takes the kernel's K-major weights ``w_t`` and
+    does not read them: the same output with and without."""
+    rng = np.random.default_rng(5)
+    m, k, n = 7, 100, 37
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    x = x.to(x_dtype)
+    w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8))
+    d = torch.from_numpy(rng.uniform(1e-3, 1e-2, n).astype(np.float32))
+    z = torch.from_numpy(rng.integers(-10, 10, n).astype(np.float32))
+    ws = w.to(torch.int32).sum(0).float()
+    b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    args = (x, w, d, z, ws, torch.tensor(0.021), torch.tensor(-3.0), b)
+    for od in (torch.float32, torch.bfloat16):
+        ref = I8.int8_matmul_fused_plain(*args, out_dtype=od)
+        got = I8.int8_matmul_fused_plain(*args, out_dtype=od,
+                                         w_t=I8.kmajor(w))
+        assert torch.equal(got, ref)
+        assert torch.equal(I8.int8_matmul_fused(*args, out_dtype=od,
+                                                w_t=I8.kmajor(w)), ref)

@@ -56,22 +56,32 @@
 //     split order (exact in any order) before the epilogue;
 //   - epilogue stores in pairs (int2, float2, bf16x2).
 //
-// tfmq_int8_gemm_fused (int8_matmul_fused) keeps the first design of this
-// kernel: w (K, N) row-major, transposed byte by byte on its way into
-// shared memory, one stage, 128 x 64 tiles of four warps. It takes f32 or
-// bf16 x and quantizes each A tile in registers on its way to shared
-// memory, as _int8_mm_kernel does in VMEM: code = clip(rint(x * (1/dx)) +
-// zp_xc + 128, 0, 255) - 128, with 1/dx rounded once (IEEE division; the
-// build has no --use_fast_math) and rintf, which rounds half to even as
-// jnp.round does (roundf would not). Each thread sums the codes it
-// quantizes into its rows' int32 sums over the real K (masked positions
-// are code 0, not quantize(0)); four lanes share a row and add theirs
-// with shuffles before the epilogue, which is int8_matmul_pre's. Like the
-// TPU kernel, each N-tile re-quantizes its x rows (N / 64 times per row;
-// the re-reads come from L2). Its bound at cin256's ff.net.0.proj (M 4096,
-// 384 -> 3072, bf16 x and out) is bytes: 3.1 MB of x + 1.2 MB of w +
-// 25 MB of output, about 8.8 us at 3.35 TB/s; the 9.7 G operations take
-// about 4.9 us at the 1979 TOP/s int8 peak.
+// tfmq_int8_gemm_fused (int8_matmul_fused) runs on the same machinery:
+// the K-major weights (the deployed record's copy, or one the wrapper
+// makes and counts), the four-stage cp.async ring, the 64-byte stages and
+// mma.sync m16n8k32 fed by ldmatrix. It takes f32 or bf16 x and quantizes
+// it on its way into shared memory, as _int8_mm_kernel does in VMEM:
+// code = clip(rint(x * (1/dx)) + zp_xc + 128, 0, 255) - 128, with 1/dx
+// rounded once (IEEE division; the build has no --use_fast_math) and
+// rintf, which rounds half to even as jnp.round does (roundf would not);
+// the codes' int32 row sums are taken over the real K (masked positions
+// are code 0, not quantize(0)), and the epilogue is int8_matmul_pre's, so
+// the result is bit-equal to quantize_act_int8 + int8_matmul_pre on every
+// route (integer sums are exact; no error). A block owns a panel of 128
+// or 64 rows of x and walks a group of 128-wide N tiles against it while
+// the weight tiles stream through the ring; the groups are sized to fill
+// the card. Two routes, chosen by ops/int8_kernels.fused_plan from a
+// sweep on the card: where the panel fits beside the ring (K up to 3072
+// at 64 rows) and pays (a group holds several N tiles, or the blocks run
+// in one wave), the block quantizes it once into shared memory, so each
+// row is quantized once a group instead of once an N tile; otherwise the
+// panel streams through a ring of its own, each stage quantized as its
+// step is loaded (x read into registers before a step's products, stored
+// as codes after them), once an N tile, with small shared memory and two
+// blocks an SM. At cin256's ff.net.0.proj (M 4096, 384 -> 3072, bf16 x
+// and out) the bound is bytes: 3.1 MB of x + 1.2 MB of w + 25 MB of
+// output, about 8.8 us at 3.35 TB/s; the 9.7 G operations take about
+// 4.9 us at the 1979 TOP/s int8 peak. Times in PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -171,14 +181,15 @@ __device__ __forceinline__ float epilogue(int a, float xs, int n,
   return v;
 }
 
-// accumulators a0, a1 of row m, columns n, n + 1 (n + 1 may be past N):
-// int32 (mode 0) or the epilogue as f32 (1) / bf16 (2), paired stores
-// where N is even (then n is even and the pair aligned)
-__device__ __forceinline__ void store_pair(void* out, size_t o, int m,
-                                           int n, int N, int a0, int a1,
-                                           int mode, const Epi& e,
-                                           float dx, float zp_xc,
-                                           float kzx) {
+// accumulators a0, a1 of a row whose code sum is xs, columns n, n + 1
+// (n + 1 may be past N): int32 (mode 0) or the epilogue as f32 (1) /
+// bf16 (2), paired stores where N is even (then n is even and the pair
+// aligned)
+__device__ __forceinline__ void store_pair_xs(void* out, size_t o, int n,
+                                              int N, int a0, int a1,
+                                              int mode, const Epi& e,
+                                              float xs, float dx,
+                                              float zp_xc, float kzx) {
   const bool both = n + 1 < N;
   const bool pair = both && (N & 1) == 0;
   if (mode == 0) {
@@ -191,7 +202,6 @@ __device__ __forceinline__ void store_pair(void* out, size_t o, int m,
     }
     return;
   }
-  const float xs = e.xsum[m];
   const float v0 = epilogue(a0, xs, n, e, dx, zp_xc, kzx);
   const float v1 = both ? epilogue(a1, xs, n + 1, e, dx, zp_xc, kzx) : 0.f;
   if (mode == 1) {
@@ -211,6 +221,16 @@ __device__ __forceinline__ void store_pair(void* out, size_t o, int m,
       if (both) p[1] = __float2bfloat16_rn(v1);
     }
   }
+}
+
+// the same for row m of the GEMM, its code sum read from e.xsum
+__device__ __forceinline__ void store_pair(void* out, size_t o, int m,
+                                           int n, int N, int a0, int a1,
+                                           int mode, const Epi& e,
+                                           float dx, float zp_xc,
+                                           float kzx) {
+  store_pair_xs(out, o, n, N, a0, a1, mode, e, mode ? e.xsum[m] : 0.f, dx,
+                zp_xc, kzx);
 }
 
 // blockIdx.z: the batch index (batched, mode 0) or the K split (ws != 0:
@@ -373,6 +393,78 @@ __global__ void int8_gemm_reduce(const int* __restrict__ ws, int split,
     }
     store_pair(out, o, m, n, N, s0, s1, mode, ep, dx, zp_xc, kzx);
   }
+}
+
+// ---------------------------------------------------------------------------
+// x quantized on its way into shared memory (int8_matmul_fused)
+// ---------------------------------------------------------------------------
+
+// One f32 x value -> its centered int8 code.
+__device__ __forceinline__ int quant_code(float v, float inv_dx, float zp) {
+  float r = __fadd_rn(rintf(__fmul_rn(v, inv_dx)), zp);
+  r = fminf(fmaxf(r, 0.f), 255.f);
+  return (int)r - 128;
+}
+
+// 16 consecutive x values of row m from column k, zero past M and K.
+__device__ __forceinline__ void load16(const float* x, int m, int k, int M,
+                                       int K, int vec, float* v) {
+  if (vec && m < M && k + 16 <= K) {
+    const float4* p = reinterpret_cast<const float4*>(x + (size_t)m * K + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 f = p[j];
+      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e] = (m < M && k + e < K) ? x[(size_t)m * K + k + e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void load16(const __nv_bfloat16* x, int m, int k,
+                                       int M, int K, int vec, float* v) {
+  if (vec && m < M && k + 16 <= K) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint4 u = p[j];
+      const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {   // bf16 -> f32 is exact: a shift
+        v[8 * j + 2 * h] = __uint_as_float(wd[h] << 16);
+        v[8 * j + 2 * h + 1] = __uint_as_float(wd[h] & 0xffff0000u);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      v[e] = (m < M && k + e < K) ? __bfloat162float(x[(size_t)m * K + k + e])
+                                  : 0.f;
+  }
+}
+
+// x values v of row m, columns k .. k + 15 -> their centered codes packed
+// in four words (code 0 past M and K, not quantize(0)); adds the codes to
+// sum
+__device__ __forceinline__ uint4 codes16(const float* v, int m, int k,
+                                         int M, int K, float inv_dx,
+                                         float zp, int& sum) {
+  uint32_t p[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = (m < M && k + 4 * j + e < K)
+                        ? quant_code(v[4 * j + e], inv_dx, zp) : 0;
+      sum += q;
+      w |= (uint32_t)(q & 0xff) << (8 * e);
+    }
+    p[j] = w;
+  }
+  return make_uint4(p[0], p[1], p[2], p[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,229 +741,248 @@ int launch_gemm(const int8_t* x, const int8_t* wt, const Epi& ep, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// tfmq_int8_gemm_fused: the first design's loop, x quantized on the way in
+// int8_matmul_fused on mma.sync: a block takes a BM-row panel of x and a
+// group of 128-wide N tiles, the weight tiles streaming through the
+// four-stage ring. STREAM false: the block quantizes its whole panel once
+// into shared memory ([K / 64][BM][64] codes in the GEMM's stage layout)
+// and walks its N tiles against it. STREAM true, for a K whose panel does
+// not fit beside the ring: the panel's stages take a four-stage ring of
+// their own, each step's x read into registers before the step's products
+// and quantized into its stage after them, once for each N tile.
 // ---------------------------------------------------------------------------
 
-constexpr int F_BM = 128;
-constexpr int F_BN = 64;
-constexpr int F_BKT = 64;          // K step through shared memory
-constexpr int F_LD = F_BKT + 16;   // byte pitch 80: conflict-free fragments
-constexpr int F_THREADS = 128;
+constexpr int FP_BN = 128;   // N tile of the panel kernel
 
-// One f32 x value -> its centered int8 code.
-__device__ __forceinline__ int quant_code(float v, float inv_dx, float zp) {
-  float r = __fadd_rn(rintf(__fmul_rn(v, inv_dx)), zp);
-  r = fminf(fmaxf(r, 0.f), 255.f);
-  return (int)r - 128;
-}
+template <int BM>
+struct PanelTile {
+  static constexpr int RING = GEMM_STAGES * FP_BN * KB;
+  static constexpr int A_IT = BM * KB / 16 / GEMM_THREADS;  // x chunks a
+                                                            // thread, a step
+  // na stages of the panel, the weights' ring, the row sums
+  static int smem(int na) { return na * BM * KB + RING + BM * 4; }
+};
 
-// 16 consecutive x values of row m from column k, zero past M and K.
-__device__ __forceinline__ void load16(const float* x, int m, int k, int M,
-                                       int K, int vec, float* v) {
-  if (vec && m < M && k + 16 <= K) {
-    const float4* p = reinterpret_cast<const float4*>(x + (size_t)m * K + k);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 f = p[j];
-      v[4 * j] = f.x; v[4 * j + 1] = f.y; v[4 * j + 2] = f.z; v[4 * j + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 16; ++e)
-      v[e] = (m < M && k + e < K) ? x[(size_t)m * K + k + e] : 0.f;
-  }
-}
+template <typename AT, int BM, bool STREAM>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
+int8_fused_panel_kernel(const AT* __restrict__ x,
+                        const int8_t* __restrict__ bt, Epi ep,
+                        void* __restrict__ out, int M, int N, int K,
+                        int ldb, int tpg, int mode, int vec_x, int vec_b) {
+  using T = GemmTile<BM, FP_BN>;
+  constexpr int MI = T::MI, NI = T::NI, A_IT = PanelTile<BM>::A_IT;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int nk = (K + KB - 1) / KB;
+  uint8_t* panel = smem;
+  uint8_t* ring = smem + (size_t)(STREAM ? GEMM_STAGES : nk) * BM * KB;
+  int* xs = reinterpret_cast<int*>(ring + PanelTile<BM>::RING);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = blockIdx.x * BM;
+  const int t_begin = blockIdx.y * tpg;
+  const int t_end = min((N + FP_BN - 1) / FP_BN, t_begin + tpg);
+  const int total = (t_end - t_begin) * nk;   // (N tile, K stage) steps
+  const int wm = (warp >> 2) * T::WM, wn = (warp & 3) * T::WN;
+  const float inv_dx = 1.0f / ep.sc[0];
+  const float zp_x = __fadd_rn(ep.sc[1], 128.f);
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* x, int m, int k,
-                                       int M, int K, int vec, float* v) {
-  if (vec && m < M && k + 16 <= K) {
-    const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
+  // step it -> ring stage st: w^T rows of its N tile, its 64 bytes of K
+  auto load_b = [&](int st, int it) {
+    const int n0 = (t_begin + it / nk) * FP_BN, k0 = (it % nk) * KB;
+    uint8_t* Bs = ring + st * FP_BN * KB;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const uint4 u = p[j];
-      const uint32_t wd[4] = {u.x, u.y, u.z, u.w};
+    for (int i = 0; i < FP_BN * KB / 16 / GEMM_THREADS; ++i) {
+      const int idx = tid + i * GEMM_THREADS;
+      const int r = idx >> 2, c = idx & 3, k = k0 + 16 * c;
+      const bool row_ok = n0 + r < N;
+      const int8_t* src = bt + (size_t)(n0 + r) * ldb + k;
+      uint8_t* dst = Bs + swz(r, c);
+      if (vec_b) {
+        const bool in = row_ok && k < K;
+        cp_async16(dst, in ? src : bt, in ? 16 : 0);
+      } else {
+        uint32_t w[4];
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {   // bf16 -> f32 is exact: a shift
-        v[8 * j + 2 * h] = __uint_as_float(wd[h] << 16);
-        v[8 * j + 2 * h + 1] = __uint_as_float(wd[h] & 0xffff0000u);
+        for (int q = 0; q < 4; ++q) {
+          uint32_t p = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int v = (row_ok && k + 4 * q + e < K) ? src[4 * q + e] : 0;
+            p |= (uint32_t)(v & 0xff) << (8 * e);
+          }
+          w[q] = p;
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
       }
     }
-  } else {
+  };
+
+  // STREAM: this thread's x chunks of step it are chunk idx & 3 of row
+  // idx >> 2, idx = tid + GEMM_THREADS i; fetch_a reads them, store_a
+  // writes their codes to panel stage st and, in the group's first N
+  // tile, adds them to the row sums
+  float xv[A_IT][16];
+  auto fetch_a = [&](int it) {
+    const int k0 = (it % nk) * KB;
 #pragma unroll
-    for (int e = 0; e < 16; ++e)
-      v[e] = (m < M && k + e < K) ? __bfloat162float(x[(size_t)m * K + k + e])
-                                  : 0.f;
+    for (int i = 0; i < A_IT; ++i) {
+      const int idx = tid + i * GEMM_THREADS;
+      load16(x, m0 + (idx >> 2), k0 + 16 * (idx & 3), M, K, vec_x, xv[i]);
+    }
+  };
+  auto store_a = [&](int st, int it) {
+    const int k0 = (it % nk) * KB;
+#pragma unroll
+    for (int i = 0; i < A_IT; ++i) {
+      const int idx = tid + i * GEMM_THREADS, r = idx >> 2, c = idx & 3;
+      int sum = 0;
+      *reinterpret_cast<uint4*>(panel + (size_t)st * BM * KB + swz(r, c)) =
+          codes16(xv[i], m0 + r, k0 + 16 * c, M, K, inv_dx, zp_x, sum);
+      if (it < nk && sum) atomicAdd(&xs[r], sum);
+    }
+  };
+
+  for (int i = tid; i < BM; i += GEMM_THREADS) xs[i] = 0;
+#pragma unroll
+  for (int s = 0; s < GEMM_STAGES - 1; ++s) {   // the weights' first steps
+    if (s < total) load_b(s, s);
+    cp_async_commit();
   }
-}
-
-// AT float / __nv_bfloat16: x quantized on the way in and its row sums
-// taken in the kernel; mode 1: f32 epilogue; 2: bf16. The loop of the
-// first int8 GEMM as it was compiled (its batch offset, int32 store and
-// unused xsum included): the fused variant is not redesigned, and its
-// time is held to the first design's.
-template <typename AT>
-__global__ void __launch_bounds__(F_THREADS)
-int8_fused_kernel(const AT* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ xsum,
-                 const float* __restrict__ delta,
-                 const float* __restrict__ zpc,
-                 const float* __restrict__ wsum,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ sc, void* __restrict__ out,
-                 int M, int K, int N, int mode, int vec_x, int vec_w) {
-  __shared__ __align__(16) int8_t As[F_BM][F_LD];
-  __shared__ __align__(16) int8_t Bs[F_BN][F_LD];
-  __shared__ int xs_sh[F_BM];   // the rows' code sums
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int m_base = blockIdx.x * F_BM;
-  const int n_base = blockIdx.y * F_BN;
-  const size_t z = blockIdx.z;
-  x += z * (size_t)M * K;
-  w += z * (size_t)K * N;
-
-  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 32;
-  int acc[4][4][4];
+  __syncthreads();   // the row sums are zero
+  if constexpr (STREAM) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < GEMM_STAGES - 1; ++s)
+      if (s < total) {
+        fetch_a(s);
+        store_a(s, s);
+      }
+  } else {
+    // the panel: chunk c (16 codes) of row r, its codes' sum added to xs[r]
+    const int cpr = nk * (KB / 16);
+    for (int idx = tid; idx < BM * cpr; idx += GEMM_THREADS) {
+      const int r = idx / cpr, c = idx - r * cpr;
+      float v[16];
+      int sum = 0;
+      load16(x, m0 + r, 16 * c, M, K, vec_x, v);
+      *reinterpret_cast<uint4*>(panel + (size_t)(c >> 2) * BM * KB +
+                                swz(r, c & 3)) =
+          codes16(v, m0 + r, 16 * c, M, K, inv_dx, zp_x, sum);
+      if (sum) atomicAdd(&xs[r], sum);
+    }
+  }
+
+  const float dx = ep.sc[0], zp_xc = ep.sc[1];
+  const float kzx = __fmul_rn((float)K, zp_xc);
+  int acc[MI][NI][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const float inv_dx = 1.0f / sc[0];          // 1/dx, zp_xc + 128
-  const float zp_x = __fadd_rn(sc[1], 128.f);
-  int rsum[4] = {0, 0, 0, 0};      // code sums of rows r + 32 i
-
-  for (int k0 = 0; k0 < K; k0 += F_BKT) {
-    __syncthreads();  // the previous step's fragments are consumed
-    // A: 128 rows x 64 bytes = 512 chunks of 16 bytes, 4 per thread; the
-    // thread's chunk i lies in row (tid >> 2) + 32 i at every K step
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int r = idx >> 2, c = (idx & 3) * 16;
-      const int m = m_base + r, k = k0 + c;
-      int8_t* dst = &As[r][c];
-      float v[16];
-      load16(x, m, k, M, K, vec_x, v);
-      uint32_t packed[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t p = 0;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kk = k + 4 * j + e;
-          const int q =
-              (m < M && kk < K) ? quant_code(v[4 * j + e], inv_dx, zp_x) : 0;
-          rsum[i] += q;
-          p |= (uint32_t)(q & 0xff) << (8 * e);
-        }
-        packed[j] = p;
-      }
-      *reinterpret_cast<uint4*>(dst) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-    // B: 64 k-rows x 64 n-columns, read along n (4 bytes), stored [n][k]
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * F_THREADS;
-      const int kr = idx >> 4, nc = (idx & 15) * 4;
-      const int k = k0 + kr, n = n_base + nc;
-      int8_t v[4];
-      if (vec_w && k < K && n + 4 <= N) {
-        const char4 q = *reinterpret_cast<const char4*>(w + (size_t)k * N + n);
-        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = (k < K && n + e < N) ? w[(size_t)k * N + n + e] : (int8_t)0;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) Bs[nc + e][kr] = v[e];
-    }
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<GEMM_STAGES - 2>();
+    // step it's weights (and, STREAM, its x codes) landed; step it - 1's
+    // are consumed; the row sums are complete by the first tile's last
+    // step; without STREAM, at it = 0 the whole panel is
     __syncthreads();
+    const int nxt = it + GEMM_STAGES - 1;
+    if (nxt < total) load_b(nxt % GEMM_STAGES, nxt);
+    cp_async_commit();
+    if (STREAM && nxt < total) fetch_a(nxt);
+    const int kt = it % nk;
+    const uint8_t* As =
+        panel + (size_t)(STREAM ? it % GEMM_STAGES : kt) * BM * KB;
+    const uint8_t* Bs = ring + (it % GEMM_STAGES) * FP_BN * KB;
 #pragma unroll
-    for (int kk = 0; kk < F_BKT; kk += 32) {
-      uint32_t af[4][4], bf[4][2];
+    for (int kk = 0; kk < 2; ++kk) {   // two k32 steps a stage
+      uint32_t af[MI][4], bf[NI][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + g;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 4 * t4]);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 4 * t4]);
-        af[i][2] =
-            *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + 4 * t4]);
-        af[i][3] =
-            *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + 4 * t4]);
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(af[i], As + swz(wm + 16 * i + (lane & 15),
+                                2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int j = 0; j < NI; j += 2) {
+        uint32_t r[4];
+        ldsm_x4(r, Bs + swz(wn + 8 * j + (lane & 7) + ((lane >> 4) << 3),
+                            2 * kk + ((lane >> 3) & 1)));
+        bf[j][0] = r[0];
+        bf[j][1] = r[1];
+        bf[j + 1][0] = r[2];
+        bf[j + 1][1] = r[3];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn + j * 8 + g;
-        bf[j][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][kk + 4 * t4]);
-        bf[j][1] =
-            *reinterpret_cast<const uint32_t*>(&Bs[n][kk + 16 + 4 * t4]);
-      }
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[i][j], af[i], bf[j]);
+        for (int j = 0; j < NI; ++j) mma_s8_16832(acc[i][j], af[i], bf[j]);
     }
-  }
-
-  // the four lanes of a row add their sums; one writes the row's total
+    // stage nxt % GEMM_STAGES was step it - 1's, which every thread is past
+    if (STREAM && nxt < total) store_a(nxt % GEMM_STAGES, nxt);
+    if (kt != nk - 1) continue;
+    // the N tile is done: the epilogue, then the next tile from zero
+    const int n0 = (t_begin + it / nk) * FP_BN;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int t = rsum[i];
-    t += __shfl_xor_sync(0xffffffffu, t, 1);
-    t += __shfl_xor_sync(0xffffffffu, t, 2);
-    if ((tid & 3) == 0) xs_sh[(tid >> 2) + 32 * i] = t;
-  }
-  __syncthreads();
-
-  float dx = 0.f, zp_xc = 0.f, kzx = 0.f;
-  if (mode != 0) {
-    dx = sc[0];
-    zp_xc = sc[1];
-    kzx = __fmul_rn((float)K, zp_xc);
-  }
-  const size_t obase = z * (size_t)M * N;
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + g + 8 * h;
+        if (m >= M) continue;
+        const float xsum = (float)xs[m - m0];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m_base + wm + i * 16 + g + 8 * h;
-      if (m >= M) continue;
-      const float xs = (float)xs_sh[m - m_base];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n_base + wn + j * 8 + 2 * t4 + e;
+        for (int j = 0; j < NI; ++j) {
+          const int n = n0 + wn + 8 * j + 2 * t4;
           if (n >= N) continue;
-          const int a = acc[i][j][2 * h + e];
-          const size_t o = obase + (size_t)m * N + n;
-          if (mode == 0) {
-            reinterpret_cast<int*>(out)[o] = a;
-            continue;
-          }
-          const float zc = zpc[n];
-          float corr = __fsub_rn((float)a, __fmul_rn(zc, xs));
-          corr = __fsub_rn(corr, __fmul_rn(zp_xc, wsum[n]));
-          corr = __fadd_rn(corr, __fmul_rn(kzx, zc));
-          float v = __fmul_rn(__fmul_rn(dx, delta[n]), corr);
-          if (bias) v = __fadd_rn(v, bias[n]);
-          if (mode == 1)
-            reinterpret_cast<float*>(out)[o] = v;
-          else
-            reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+          store_pair_xs(out, (size_t)m * N + n, n, N, acc[i][j][2 * h],
+                        acc[i][j][2 * h + 1], mode, ep, xsum, dx, zp_xc,
+                        kzx);
         }
       }
-    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
   }
+  cp_async_wait<0>();
 }
 
+template <typename AT, int BM, bool STREAM>
+int launch_panel(const AT* x, const int8_t* wt, const Epi& ep, void* out,
+                 int M, int N, int K, int ldb, int groups, int mode,
+                 int vec_x, int vec_b, cudaStream_t stream) {
+  static SmemAttr attr;
+  const int smem =
+      PanelTile<BM>::smem(STREAM ? GEMM_STAGES : (K + KB - 1) / KB);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  int err = raise_smem(int8_fused_panel_kernel<AT, BM, STREAM>, attr, smem);
+  if (err) return err;
+  const int ntiles = (N + FP_BN - 1) / FP_BN;
+  const int tpg = (ntiles + groups - 1) / groups;
+  dim3 grid((M + BM - 1) / BM, (ntiles + tpg - 1) / tpg);
+  int8_fused_panel_kernel<AT, BM, STREAM>
+      <<<grid, GEMM_THREADS, smem, stream>>>(x, wt, ep, out, M, N, K, ldb,
+                                             tpg, mode, vec_x, vec_b);
+  return (int)cudaGetLastError();
+}
+
+template <typename AT>
+int launch_fused(const AT* x, const int8_t* wt, const Epi& ep, void* out,
+                 int M, int N, int K, int ldb, int stream_a, int bm,
+                 int groups, int mode, int vec_x, int vec_b,
+                 cudaStream_t s) {
+  if (bm == 128)
+    return stream_a ? launch_panel<AT, 128, true>(x, wt, ep, out, M, N, K,
+                                                  ldb, groups, mode, vec_x,
+                                                  vec_b, s)
+                    : launch_panel<AT, 128, false>(x, wt, ep, out, M, N, K,
+                                                   ldb, groups, mode, vec_x,
+                                                   vec_b, s);
+  return stream_a ? launch_panel<AT, 64, true>(x, wt, ep, out, M, N, K, ldb,
+                                               groups, mode, vec_x, vec_b, s)
+                  : launch_panel<AT, 64, false>(x, wt, ep, out, M, N, K, ldb,
+                                                groups, mode, vec_x, vec_b,
+                                                s);
+}
 }  // namespace
 
 extern "C" {
@@ -931,32 +1042,35 @@ int tfmq_int8_gemm(const void* x, const void* wt, const void* xsum,
 }
 
 // int8_matmul_fused: x (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1),
-// quantized in the kernel with sc = [dx, zp_xc]; w (K, N) row-major;
-// mode 1 (f32) or 2 (bf16) output.
-int tfmq_int8_gemm_fused(const void* x, int x_bf16, const void* w,
+// quantized in the kernel with sc = [dx, zp_xc]; wt (N, ldb) the weight
+// codes K-major as for tfmq_int8_gemm; mode 1 (f32) or 2 (bf16) output.
+// The plan from the caller (ops/int8_kernels.fused_plan): panels of bm
+// (128 or 64) rows, N tiles of bn = 128 cut into `groups` groups, x
+// quantized once a panel (stream 0; the panel must fit beside the ring)
+// or stage by stage (stream 1).
+int tfmq_int8_gemm_fused(const void* x, int x_bf16, const void* wt,
                          const void* delta, const void* zp_c,
                          const void* wsum, const void* bias, const void* sc,
-                         void* out, int M, int K, int N, int mode, int device,
-                         void* stream) {
+                         void* out, int M, int K, int N, int ldb, int mode,
+                         int stream_a, int bm, int bn, int groups,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (mode < 1 || mode > 2) return (int)cudaErrorInvalidValue;
+  if (mode < 1 || mode > 2 || M <= 0 || N <= 0 || K <= 0 || ldb < K ||
+      ldb % 16 || groups < 1 || groups > 65535 || (bm != 128 && bm != 64) ||
+      bn != FP_BN)
+    return (int)cudaErrorInvalidValue;
   const int vec_x = (K % 16 == 0) && ((uintptr_t)x % 16 == 0);
-  const int vec_w = (N % 4 == 0) && ((uintptr_t)w % 4 == 0);
-  dim3 grid((M + F_BM - 1) / F_BM, (N + F_BN - 1) / F_BN, 1);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (x_bf16)
-    int8_fused_kernel<__nv_bfloat16><<<grid, F_THREADS, 0, st>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)w, nullptr,
-        (const float*)delta, (const float*)zp_c, (const float*)wsum,
-        (const float*)bias, (const float*)sc, out, M, K, N, mode, vec_x,
-        vec_w);
-  else
-    int8_fused_kernel<float><<<grid, F_THREADS, 0, st>>>(
-        (const float*)x, (const int8_t*)w, nullptr, (const float*)delta,
-        (const float*)zp_c, (const float*)wsum, (const float*)bias,
-        (const float*)sc, out, M, K, N, mode, vec_x, vec_w);
-  return (int)cudaGetLastError();
+  const int vec_b = (uintptr_t)wt % 16 == 0;
+  const Epi ep = {nullptr, (const float*)delta, (const float*)zp_c,
+                  (const float*)wsum, (const float*)bias, (const float*)sc};
+  const int8_t* wi = (const int8_t*)wt;
+  cudaStream_t s = (cudaStream_t)stream;
+  return x_bf16 ? launch_fused((const __nv_bfloat16*)x, wi, ep, out, M, N,
+                               K, ldb, stream_a, bm, groups, mode, vec_x,
+                               vec_b, s)
+                : launch_fused((const float*)x, wi, ep, out, M, N, K, ldb,
+                               stream_a, bm, groups, mode, vec_x, vec_b, s);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tfmq_int4_linear.argtypes = [p] * 7 + [i] * 7 + [p]
     lib.tfmq_int4_linear.restype = i
-    lib.tfmq_int4_conv2d.argtypes = [p] * 6 + [i] * 10 + [p]
+    lib.tfmq_int4_conv2d.argtypes = [p] * 8 + [i] * 15 + [p]
     lib.tfmq_int4_conv2d.restype = i
 
 
@@ -196,6 +196,87 @@ def int4_conv2d_plain(x: torch.Tensor, w_packed: torch.Tensor,
     return out if bias is None else out + bias
 
 
+# K steps of the conv: one tap and CONV_BK input channels (mma.sync), or
+# CONV_WG_BK (wgmma)
+CONV_BK, CONV_WG_BK = 32, 64
+# block tiles (BM output pixels x BN output channels) of each route, the
+# blocks of each that an SM holds, and their relative rates (output
+# elements x K a unit of time) for the plan's cost model, fitted to a
+# sweep of every tile and split at every conv geometry of the two
+# int4-serving paths on an H100 (PERF.md section 6: ab_kernels.py --sweep)
+CONV_TILES = {"mma": ((128, 64), (128, 128)), "wgmma": ((128, 192),)}
+CONV_BLOCKS_PER_SM = {"mma": 2, "wgmma": 1}
+CONV_RATES = {("mma", 128, 64): 0.8, ("mma", 128, 128): 1.0,
+              ("wgmma", 128, 192): 4.5}
+# in those units: a split's partial sums, per output element; the wgmma
+# route's dequant pre-pass, per weight and per call
+CONV_SPLIT_COST = 1.0
+CONV_PREPASS_COST = (0.5, 2e6)
+# the split counts the plan tries (each range keeps at least 4 steps)
+CONV_SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def conv_steps(route: str, taps: int, cin: int) -> int:
+    """K steps of the conv on ``route``: taps x channel chunks."""
+    return taps * -(-cin // (CONV_BK if route == "mma" else CONV_WG_BK))
+
+
+def conv_plans(m: int, n: int, taps: int, cin: int, sms: int = 132,
+               fill: bool = True) -> list:
+    """Every (route, bm, bn, splits, spc) ``int4_conv2d`` may take for M
+    output pixels, N output channels and K = taps x cin: each route and
+    block tile of ``CONV_TILES`` (wgmma only where Cin comes in whole
+    64-channel steps), the K steps (``conv_steps``) cut into ``splits``
+    ranges of ``spc`` whole steps for each count of ``CONV_SPLITS`` that
+    leaves every range at least 4 steps. With ``fill``, K is split only
+    while the output tiles fill under half of the blocks the card holds
+    (without, the sweep's every plan)."""
+    out = []
+    for route, tiles in CONV_TILES.items():
+        if route == "wgmma" and cin % CONV_WG_BK:
+            continue
+        steps = conv_steps(route, taps, cin)
+        slots = sms * CONV_BLOCKS_PER_SM[route]
+        for bm, bn in tiles:
+            full = 2 * -(-m // bm) * -(-n // bn) >= slots
+            for want in CONV_SPLITS:
+                if want > 1 and (steps // want < 4 or (fill and full)):
+                    break
+                spc = -(-steps // want)
+                plan = (route, bm, bn, -(-steps // spc), spc)
+                if plan not in out:
+                    out.append(plan)
+    return out
+
+
+def conv_cost(plan, m: int, n: int, taps: int, cin: int,
+              sms: int = 132) -> float:
+    """The plan's modelled time: the waves of blocks
+    (``CONV_BLOCKS_PER_SM`` an SM) times a block's steps over its tile's
+    rate (``CONV_RATES``), plus the split's partial sums and the wgmma
+    route's pre-pass."""
+    route, bm, bn, splits, spc = plan
+    kstep = CONV_BK if route == "mma" else CONV_WG_BK
+    slots = sms * CONV_BLOCKS_PER_SM[route]
+    tiles = -(-m // bm) * -(-n // bn)
+    cost = -(-tiles * splits // slots) * spc * kstep * bm * bn \
+        / CONV_RATES[(route, bm, bn)]
+    if splits > 1:
+        cost += CONV_SPLIT_COST * splits * m * n
+    if route == "wgmma":
+        per_weight, per_call = CONV_PREPASS_COST
+        cost += per_weight * taps * cin * n + per_call
+    return cost
+
+
+def conv_plan(m: int, n: int, taps: int, cin: int, sms: int = 132):
+    """(route, bm, bn, splits, spc) of ``int4_conv2d`` for M = B*Ho*Wo
+    output pixels, N output channels and K = taps x cin: of
+    ``conv_plans``, the first with the least ``conv_cost``."""
+    return min(conv_plans(m, n, taps, cin, sms),
+               key=lambda plan: conv_cost(plan, m, n, taps, cin, sms))
+
+
 def int4_conv2d(x: torch.Tensor, w_packed: torch.Tensor,
                 delta: torch.Tensor, zp_c: torch.Tensor, kh: int, kw: int,
                 bias: Optional[torch.Tensor] = None,
@@ -219,13 +300,22 @@ def int4_conv2d(x: torch.Tensor, w_packed: torch.Tensor,
     if bias is not None:
         _check("bias", bias, torch.float32, (n,), dev)
     ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    m = b * ho * wo
+    route, bm, bn, splits, spc = conv_plan(m, n, kh * kw, cin,
+                                           _sm_count(dev))
     lib = build()
     out = torch.empty((b, ho, wo, n), dtype=torch.float32, device=dev)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=dev) \
+        if splits > 1 else None
+    # the wgmma route's weights, dequantized by its pre-pass: (N, K) bf16
+    wdq = torch.empty((n, kh * kw * cin), dtype=torch.bfloat16, device=dev) \
+        if route == "wgmma" else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tfmq_int4_conv2d(_ptr(x), _ptr(w_packed), _ptr(delta),
-                               _ptr(zp_c), _ptr(bias), _ptr(out), b, h, w,
-                               cin, n, kh, kw, ph, pw, dev.index or 0,
-                               stream)
+                               _ptr(zp_c), _ptr(bias), _ptr(out), _ptr(ws),
+                               _ptr(wdq), b, h, w, cin, n, kh, kw, ph, pw,
+                               int(route == "wgmma"), bm, bn, splits, spc,
+                               dev.index or 0, stream)
     _launch_check("int4_conv2d", err)
     LAUNCHES["int4_conv2d"] += 1
     return out

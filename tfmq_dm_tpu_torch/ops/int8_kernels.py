@@ -48,7 +48,8 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "int8_kernels.cu"
 LAUNCHES = {"int8_matmul_pre": 0, "int8_matmul_fused": 0, "int8_conv2d": 0,
             "int8_bmm": 0}
 # K-major weight copies made by a call on the card that came without one
-KMAJOR_COPIES = {"int8_matmul_pre": 0, "int8_conv2d": 0, "int8_bmm": 0}
+KMAJOR_COPIES = {"int8_matmul_pre": 0, "int8_matmul_fused": 0,
+                 "int8_conv2d": 0, "int8_bmm": 0}
 
 _MODES = {None: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -57,7 +58,7 @@ def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tfmq_int8_gemm.argtypes = [p] * 10 + [i] * 12 + [p]
     lib.tfmq_int8_gemm.restype = i
-    lib.tfmq_int8_gemm_fused.argtypes = [p, i] + [p] * 7 + [i] * 5 + [p]
+    lib.tfmq_int8_gemm_fused.argtypes = [p, i] + [p] * 7 + [i] * 10 + [p]
     lib.tfmq_int8_gemm_fused.restype = i
 
 
@@ -126,6 +127,61 @@ def gemm_plan(m: int, n: int, k: int, batch: int = 1,
         split = min(_ceil(sms, tiles(bm, bn)), steps // 2, 16)
     kchunk = _ceil(steps, split) * GEMM_KB
     return route, bm, bn, _ceil(k, kchunk), kchunk
+
+
+# K bytes of a stage of the fused GEMM's A panel; panels of 128 rows up
+# to this K (two blocks an SM), of 64 rows above
+FUSED_KB = 64
+FUSED_PANEL128_K = 768
+FUSED_BN = 128
+# shared memory of an SM a block may take (H100: 227 KB)
+SMEM_PER_SM = 232448
+
+
+def fused_smem(route: str, bm: int, k: int) -> int:
+    """Shared-memory bytes of a block of the fused GEMM: the A panel (all
+    of K for "panel", a four-stage ring for "stream"), the weights' ring
+    and the row sums."""
+    stages = 4 if route == "stream" else _ceil(k, FUSED_KB)
+    return (stages * bm + 4 * FUSED_BN) * FUSED_KB + 4 * bm
+
+
+def fused_groups(route: str, bm: int, m: int, n: int, k: int,
+                 sms: int = GEMM_SMS) -> int:
+    """The groups of 128-wide N tiles of the fused GEMM: "panel" cuts them
+    so that the blocks fill the card (two an SM where two fit); "stream"
+    gives each block one tile (its x is quantized once a tile anyway)."""
+    ntiles = _ceil(n, FUSED_BN)
+    if route == "stream":
+        return ntiles
+    per_sm = 2 if 2 * fused_smem(route, bm, k) <= SMEM_PER_SM else 1
+    groups = min(ntiles, max(1, _ceil(per_sm * sms, _ceil(m, bm))))
+    return _ceil(ntiles, _ceil(ntiles, groups))
+
+
+def fused_plan(m: int, n: int, k: int, sms: int = GEMM_SMS):
+    """(route, bm, bn, groups) of ``int8_matmul_fused``, from a sweep of
+    every route and panel height on an H100 (PERF.md section 6). The
+    panel has 128 rows up to K ``FUSED_PANEL128_K`` where its blocks
+    still cover the card's SMs, else 64. "panel" (a block quantizes its
+    panel once and walks a group of 128-wide N tiles against it) where
+    the panel fits in shared memory beside the weight ring and pays: a
+    group holds more than one N tile, or the blocks run in one wave.
+    Otherwise "stream" (the panel's stages quantized as they are
+    loaded), 128 rows where its tiles fill the card twice, else 64.
+    Groups from ``fused_groups``."""
+    kp = _ceil(k, FUSED_KB) * FUSED_KB
+    ntiles = _ceil(n, FUSED_BN)
+    bm = 128 if kp <= FUSED_PANEL128_K and _ceil(m, 128) * fused_groups(
+        "panel", 128, m, n, k, sms) >= sms else 64
+    smem = fused_smem("panel", bm, k)
+    if smem <= SMEM_PER_SM:
+        groups = fused_groups("panel", bm, m, n, k, sms)
+        per_sm = 2 if 2 * smem <= SMEM_PER_SM else 1
+        if groups < ntiles or _ceil(m, bm) * groups <= per_sm * sms:
+            return "panel", bm, FUSED_BN, groups
+    bm = 128 if _ceil(m, 128) * ntiles >= 2 * sms else 64
+    return "stream", bm, FUSED_BN, fused_groups("stream", bm, m, n, k, sms)
 
 
 def kmajor(w_q: torch.Tensor, align: int = 16) -> torch.Tensor:
@@ -255,11 +311,12 @@ def int8_matmul_pre(x_q: torch.Tensor, xsum: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def int8_matmul_fused_plain(x, w_q, delta_w, zp_wc, wsum, dx, zp_xc,
-                            bias=None, out_dtype=torch.float32):
+                            bias=None, out_dtype=torch.float32, w_t=None):
     """The kernel's arithmetic in PyTorch ops: ``_int8_mm_kernel``'s
     quantization, clip(round(x (1/dx)) + zp_xc + 128, 0, 255) - 128 with
     1/dx rounded once to f32, the codes' row sums over K, then
-    ``int8_matmul_pre_plain``."""
+    ``int8_matmul_pre_plain`` (``w_t``, the kernel's weight layout, is not
+    read)."""
     dx = torch.as_tensor(dx, dtype=torch.float32, device=x.device)
     zp_xc = torch.as_tensor(zp_xc, dtype=torch.float32, device=x.device)
     x_q = (torch.clamp(torch.round(x.float() * (1.0 / dx)) + (zp_xc + 128.0),
@@ -273,12 +330,14 @@ def int8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,
                       delta_w: torch.Tensor, zp_wc: torch.Tensor,
                       wsum: torch.Tensor, dx, zp_xc,
                       bias: Optional[torch.Tensor] = None,
-                      out_dtype=torch.float32) -> torch.Tensor:
+                      out_dtype=torch.float32,
+                      w_t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) f32 or bf16, quantized per tensor to centered int8 codes
     with the 8-bit grid (dx, zp_xc + 128) inside the kernel; then as
     ``int8_matmul_pre``: w_q (K, N) centered int8, per-channel delta_w /
     zp_wc / wsum (N,) f32, optional f32 bias (N,), ``out_dtype`` f32 or
-    bf16. The TPU block sizes are not taken: the kernel tiles by itself."""
+    bf16. ``w_t``: w_q's K-major copy (``kmajor(w_q)``), which the kernel
+    reads. The TPU block sizes are not taken: ``fused_plan`` tiles."""
     if not _on_cuda("int8_matmul_fused", x):
         return int8_matmul_fused_plain(x, w_q, delta_w, zp_wc, wsum, dx,
                                        zp_xc, bias, out_dtype)
@@ -295,15 +354,24 @@ def int8_matmul_fused(x: torch.Tensor, w_q: torch.Tensor,
         check(nm, t, torch.float32, (n,), dev)
     if bias is not None:
         check("bias", bias, torch.float32, (n,), dev)
+    w_t = _weight_t("int8_matmul_fused", w_q, w_t)
+    kp = w_t.shape[-1]
+    if kp < k or kp % 16:
+        raise ValueError(f"int8_matmul_fused: K-major weights of width {kp} "
+                         f"for K {k} (needs >= K, a multiple of 16)")
+    check("w_t", w_t, torch.int8, (n, kp), dev)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return out
+    if k == 0:
+        raise ValueError("int8_matmul_fused: K = 0")
     sc = _scalars(dx, zp_xc, dev)
+    route, bm, bn, groups = fused_plan(m, n, k)
     err = build().tfmq_int8_gemm_fused(
-        ptr(x), int(x.dtype == torch.bfloat16), ptr(w_q), ptr(delta_w),
-        ptr(zp_wc), ptr(wsum), ptr(bias), ptr(sc), ptr(out), m, k, n,
-        _MODES[out_dtype], dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(x), int(x.dtype == torch.bfloat16), ptr(w_t), ptr(delta_w),
+        ptr(zp_wc), ptr(wsum), ptr(bias), ptr(sc), ptr(out), m, k, n, kp,
+        _MODES[out_dtype], int(route == "stream"), bm, bn, groups,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     launch_check("int8_matmul_fused", err)
     LAUNCHES["int8_matmul_fused"] += 1
     return out
