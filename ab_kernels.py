@@ -1,10 +1,10 @@
 """A/B timing of the redesigned kernels (``int4_conv2d``,
 ``int8_matmul_fused``, ``int4_linear``, ``flash_fqk``, ``flash_pquant``,
-the int8 GEMM, ``flash_int8`` and ``flash_fp``) against another checkout
-of the port, on one card, in one process.
+the int8 GEMM, ``flash_int8``, ``flash_fp`` and ``gn_swish_quant_int8``)
+against another checkout of the port, on one card, in one process.
 
     python3 ab_kernels.py --other DIR [--rounds N] [--kernels a,b,..]
-                          [--sweep]
+                          [--sweep] [--other-unchecked]
 
 ``DIR`` is the root of another checkout of this repository (for example
 ``git archive <commit> tfmq_dm_tpu_torch | tar -x -C DIR``). Its
@@ -28,17 +28,27 @@ im2col of cin256's 64x64 3x3 192 -> 192 conv and of CIFAR-10's largest
 conv (int32 out), outputs equal; ``flash_int8`` with and without the 8-bit
 softmax quantizer and ``flash_fp`` at cin256 and SD's 64x64, where the two
 trees' ``flash_int8`` outputs with the quantizer must agree within the
-one-level rule), and as controls two kernels that a slice leaves alone,
+one-level rule; ``gn_swish_quant_int8`` with SiLU at SD's three resblock
+shapes and every ``gn_geometries`` GroupNorm, each tree's codes within
+the one-level rule of the plain version's, with torch.profiler rows of
+each tree's device work by kernel at SD's shapes), and as controls two
+kernels that a slice leaves alone,
 ``int4_linear`` at cin256's ``ff.net.0.proj`` and the int8 GEMM
 (``int8_matmul_pre``) there and at the 8x8 level's ``ff.net.2`` (K 3840,
 the wgmma route), outputs equal. ``--kernels`` picks some of int4_conv2d,
 int8_matmul_fused, int4_linear, flash_fqk, flash_pquant, int8_gemm,
-flash_int8, flash_fp, controls (default: all). ``--sweep`` also times, of
-those picked, this tree's ``int4_conv2d`` at every conv geometry under
-every plan it can take (each block tile, K whole or split), each checked
-against the plain version, with the plan ``conv_plan`` picks marked, and
-its ``int8_matmul_fused`` under each route and panel height (bit-equal to
-the plain version; ``fused_plan``'s pick marked). Prints the card's name
+flash_int8, flash_fp, gn_swish_quant_int8, controls (default: all).
+``--sweep`` also times, of those picked, this tree's ``int4_conv2d`` at
+every conv geometry under every plan it can take (each block tile, K
+whole or split), each checked against the plain version, with the plan
+``conv_plan`` picks marked, its ``int8_matmul_fused`` under each route
+and panel height (bit-equal to the plain version; ``fused_plan``'s pick
+marked), and its ``gn_swish_quant_int8`` at the A/B's shapes under every
+plan of ``gn_plans`` (each route, slice width and cluster size, within
+the one-level rule; ``gn_plan``'s pick marked). ``--other-unchecked``
+times another tree's ``gn_swish_quant_int8`` without holding its codes
+to the rule: a build with one part removed (the statistics, the apply,
+the cluster exchange) shows what that part costs. Prints the card's name
 and power limit, one line per shape and a JSON line with every time.
 """
 
@@ -58,19 +68,22 @@ import chip_smoke as S
 from tfmq_dm_tpu_torch.configs.tasks import get_task
 from tfmq_dm_tpu_torch.models import ddim_unet
 from tfmq_dm_tpu_torch.ops import flash_attention as FA
+from tfmq_dm_tpu_torch.ops import gn_kernels as G
 from tfmq_dm_tpu_torch.ops import int4_kernels as K
 from tfmq_dm_tpu_torch.ops import int8_kernels as I8
 from tfmq_dm_tpu_torch.ops.nn import exact_f32
+from tfmq_dm_tpu_torch.quant.quantizer import QCfg
+from tfmq_dm_tpu_torch.scripts import micro_gn
 from tfmq_dm_tpu_torch.utils.timing import device_ms
 
 KERNELS = ("int4_conv2d", "int8_matmul_fused", "int4_linear", "flash_fqk",
            "flash_pquant", "int8_gemm", "flash_int8", "flash_fp",
-           "controls")
+           "gn_swish_quant_int8", "controls")
 
 
 def load_other(root: Path, name: str = "tfmq_other_port"):
     """``root``'s ``tfmq_dm_tpu_torch`` as package ``name``; returns its
-    int4, flash and int8 modules."""
+    int4, flash, int8 and GroupNorm modules."""
     pkg = root / "tfmq_dm_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
@@ -78,7 +91,8 @@ def load_other(root: Path, name: str = "tfmq_other_port"):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
-                 ("int4_kernels", "flash_attention", "int8_kernels"))
+                 ("int4_kernels", "flash_attention", "int8_kernels",
+                  "gn_kernels"))
 
 
 def ab(fn_other, fn_this, rounds: int) -> dict:
@@ -388,6 +402,137 @@ def sweep_conv(g, dev, out: list) -> None:
                              f"plain version: {bad}")
 
 
+def profile_rows(fn, calls: int = 20) -> list:
+    """Device work of one eager call of ``fn`` by kernel, under
+    torch.profiler over ``calls`` calls: [name, launches a call, device
+    us a call], longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [[e.key, e.count / calls, e.self_device_time_total / calls]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def gn_ab_cases(g, dev):
+    """``gn_swish_quant_int8``'s A/B and sweep shapes: SD's three resblock
+    shapes on the micro_gn twin's inputs (bf16 N(0, 1), the identity
+    affine; ``chip_smoke.time_gn``'s), then every GroupNorm of
+    ``chip_smoke.gn_geometries`` on ``chip_smoke.gn_case``'s; SiLU on, no
+    scale-shift. Yields (label, shape, eps, args)."""
+    dz = (torch.tensor(0.02, device=dev), torch.tensor(117.0, device=dev))
+    for b, h, w, c, eps, dt in S.gn_shapes(odd=False):
+        if (b, h, w, c) in micro_gn.SHAPES:
+            x, gamma, beta, d, z = micro_gn.inputs((b, h, w, c), dev)
+            args = (x, gamma, beta, d, z)
+            label = "SD"
+        else:
+            x, gamma, beta, _ = S.gn_case(g, b, h, w, c, dt, dev)
+            args = (x, gamma, beta, *dz)
+            label = "cin256" if dt == torch.bfloat16 else "cifar10"
+        yield label, (b, h, w, c), eps, args + (QCfg(bits=8),)
+
+
+def gn_rule(label: str, got, ref, check: bool = True) -> list:
+    """Codes within ``chip_smoke``'s one-level rule of the plain version's
+    (unless not ``check``); returns [levels, share]."""
+    levels, share = S.gn_levels(got, ref)
+    if check and not (levels <= S.GN_MAX_LEVELS
+                      and share < S.GN_MAX_SHARE):
+        raise AssertionError(f"{label}: {levels} levels, {share:.2e} of "
+                             "codes off the plain version")
+    return [levels, share]
+
+
+def gn_plan_of(mod, shape, x) -> list:
+    """The plan ``mod`` takes at ``shape`` (none for a tree without
+    ``gn_plan``)."""
+    b, h, w, c = shape
+    plan = getattr(mod, "gn_plan", None)
+    return None if plan is None else list(plan(b, h * w, c, 32,
+                                               x.element_size()))
+
+
+def ab_gn(oG, g, dev, rounds: int, out: list,
+          check_other: bool = True) -> None:
+    """``gn_swish_quant_int8`` (SiLU on, no scale-shift) at
+    ``gn_ab_cases``: each tree's codes within the one-level rule of the
+    plain version (the other tree's only reported when not
+    ``check_other``: a build with a part removed), and at SD's shapes
+    each tree's device work by kernel (torch.profiler rows: launches and
+    device us a call)."""
+    slots = {k: G.cluster_slots(k) for k in G.CLUSTERS}
+    print(f"gn_swish_quant_int8: clusters the card runs at once, by size "
+          f"(200000 B of shared memory a block): {slots}", flush=True)
+    for label, shape, eps, a in gn_ab_cases(g, dev):
+        def this():
+            return G.gn_swish_quant_int8(*a, eps=eps)[0]
+
+        def other():
+            return oG.gn_swish_quant_int8(*a, eps=eps)[0]
+
+        r = ab(other, this, rounds)
+        ref = G.gn_swish_quant_int8_plain(*a, eps=eps)[0]
+        tag = f"gn_swish_quant_int8 {label} {shape} {str(a[0].dtype)[6:]}"
+        r.update(shape=list(shape), dtype=str(a[0].dtype)[6:],
+                 plan=gn_plan_of(G, shape, a[0]),
+                 this_levels=gn_rule(f"{tag}, this", this(), ref),
+                 other_levels=gn_rule(f"{tag}, other", other(), ref,
+                                      check_other))
+        report(f"{tag} {r['plan']}", r)
+        if label == "SD":
+            for tree, fn in (("other", other), ("this", this)):
+                r[f"profile_{tree}"] = rows = profile_rows(fn)
+                print(f"  {tree}: " + "; ".join(
+                    f"{name[:60]} x{n:g} {us:.2f} us" for name, n, us in rows),
+                    flush=True)
+        out.append(r)
+        del a, ref
+    torch.cuda.empty_cache()
+
+
+def sweep_gn(g, dev, out: list) -> None:
+    """This tree's ``gn_swish_quant_int8`` at ``gn_ab_cases`` under every
+    plan it can take (``gn_plans``: each route, slice width, cluster size
+    and phase count; device ms each, the codes within the one-level rule),
+    the plan ``gn_plan`` picks marked."""
+    real = G.gn_plan
+    for label, shape, eps, a in gn_ab_cases(g, dev):
+        b, h, w, c = shape
+        item = a[0].element_size()
+        ref = G.gn_swish_quant_int8_plain(*a, eps=eps)[0]
+        picked = real(b, h * w, c, 32, item)
+        times = {}
+        for plan in G.gn_plans(b, h * w, c, 32, item):
+            G.gn_plan = lambda *_a, plan=plan, **_k: plan
+            try:
+                def fn():
+                    return G.gn_swish_quant_int8(*a, eps=eps)[0]
+                gn_rule(f"gn_swish_quant_int8 {shape} {plan}", fn(), ref)
+                times[plan] = device_ms(fn)
+            finally:
+                G.gn_plan = real
+        best = min(times, key=times.get)
+        out.append({"shape": list(shape), "dtype": str(a[0].dtype)[6:],
+                    "picked": list(picked), "picked_ms": times[picked],
+                    "best": list(best), "best_ms": times[best],
+                    "all": [[*p, t] for p, t in times.items()]})
+        print(f"sweep gn_swish_quant_int8 {label} {shape}: picked {picked} "
+              f"{times[picked]:.4f} ms, best {best} {times[best]:.4f} "
+              f"({times[picked] / times[best]:.3f}x); " + ", ".join(
+                  f"{p}: {t:.4f}" for p, t in sorted(times.items())),
+              flush=True)
+        del a, ref
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", required=True, type=Path,
@@ -397,9 +542,13 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ", ".join(KERNELS))
     ap.add_argument("--sweep", action="store_true",
                     help="also time this tree's int4_conv2d under every "
-                         "plan at every conv geometry, and "
-                         "int8_matmul_fused under every route (those "
-                         "picked)")
+                         "plan at every conv geometry, int8_matmul_fused "
+                         "under every route and gn_swish_quant_int8 under "
+                         "every plan (those picked)")
+    ap.add_argument("--other-unchecked", action="store_true",
+                    help="time the other tree's gn_swish_quant_int8 "
+                         "without holding its codes to the rule (a build "
+                         "with one part removed)")
     args = ap.parse_args(argv)
     picked = args.kernels.split(",")
     if not set(picked) <= set(KERNELS):
@@ -408,12 +557,13 @@ def main(argv=None) -> int:
         raise SystemExit("ab_kernels: needs an NVIDIA card")
     exact_f32()
     dev = torch.device("cuda")
-    oK, oFA, oI8 = load_other(args.other.resolve())
+    oK, oFA, oI8, oG = load_other(args.other.resolve())
     uses = {"int4": ("int4_conv2d", "int4_linear", "controls"),
             "flash": ("flash_fqk", "flash_pquant", "flash_int8", "flash_fp"),
-            "int8": ("int8_matmul_fused", "int8_gemm", "controls")}
+            "int8": ("int8_matmul_fused", "int8_gemm", "controls"),
+            "gn": ("gn_swish_quant_int8",)}
     for key, mods in (("int4", (oK, K)), ("flash", (oFA, FA)),
-                      ("int8", (oI8, I8))):
+                      ("int8", (oI8, I8)), ("gn", (oG, G))):
         if set(uses[key]) & set(picked):
             for mod in mods:      # built ahead of the timings
                 mod.build()
@@ -453,6 +603,9 @@ def main(argv=None) -> int:
         ab_conv(oK, g, dev, args.rounds, out["int4_conv2d"])
     if "int8_matmul_fused" in picked:
         ab_fused(oI8, g, dev, args.rounds, out["int8_matmul_fused"])
+    if "gn_swish_quant_int8" in picked:
+        ab_gn(oG, g, dev, args.rounds, out["gn_swish_quant_int8"],
+              check_other=not args.other_unchecked)
     if "controls" in picked:
         ab_controls(oK, oI8, g, dev, args.rounds, out["controls"])
     if args.sweep and "int8_matmul_fused" in picked:
@@ -461,6 +614,9 @@ def main(argv=None) -> int:
     if args.sweep and "int4_conv2d" in picked:
         out["sweep"] = []
         sweep_conv(g, dev, out["sweep"])
+    if args.sweep and "gn_swish_quant_int8" in picked:
+        out["sweep_gn"] = []
+        sweep_gn(g, dev, out["sweep_gn"])
     print(json.dumps(out), flush=True)
     return 0
 

@@ -22,9 +22,11 @@ when one is exceeded):
               (``gn_swish_quant_int8``) at the cin256 and CIFAR-10
               GroupNorms and SD's resblock shapes: each CUDA kernel
               against its plain PyTorch version on the same inputs (and
-              ``int4_linear`` and ``flash_int8`` with the softmax
-              quantizer against themselves: two calls bit-identical;
-              the fqk pre-pass bit-equal to its plain version); then
+              ``int4_linear``, ``flash_int8`` with the softmax quantizer
+              and ``gn_swish_quant_int8`` against themselves: two calls
+              bit-identical; the fqk pre-pass bit-equal to its plain
+              version; ``gn_swish_quant_int8``'s plan printed a shape);
+              then
               times kernel, plain version and one PyTorch library call on
               the device (calls captured in a CUDA graph), and the
               kernel's wall time per eager call, beside the card's bound:
@@ -160,6 +162,9 @@ EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("flash_int8", "cin256", "8-bit p"): 0.6829,
               ("flash_fp", "cin256", "f32"): 0.5694,
               ("int8_matmul_fused", 4096, 384, 3072): 0.2053,
+              ("gn_swish_quant_int8", 8, 64, 64, 320): 0.0474,
+              ("gn_swish_quant_int8", 8, 32, 32, 640): 0.0334,
+              ("gn_swish_quant_int8", 8, 16, 16, 1280): 0.0216,
               ("int4_conv2d", 8, 4, 1, 256, 256): 0.0208,
               ("int4_conv2d", 8, 4, 3, 256, 256): 0.1404,
               ("int4_conv2d", 8, 4, 3, 512, 256): 0.3177,
@@ -1538,41 +1543,83 @@ def gn_geometries():
     return out
 
 
+def gn_shapes(odd: bool = True):
+    """(b, h, w, c, eps, dtype) of ``check_gn``: SD's resblock shapes (the
+    micro_gn twin's, bf16), every cin256 and CIFAR-10 GroupNorm and, with
+    ``odd``, two odd shapes (hw not a multiple of 512, C not a multiple of
+    128)."""
+    import torch
+    from tfmq_dm_tpu_torch.scripts import micro_gn
+    shapes = [(b, h, w, c, micro_gn.EPS, torch.bfloat16)
+              for b, h, w, c in micro_gn.SHAPES]
+    shapes += [(b, r, r, c, eps, dt) for b, r, c, eps, dt in gn_geometries()]
+    if odd:
+        shapes += [(2, 33, 17, 96, 1e-5, torch.bfloat16),
+                   (3, 5, 7, 64, 1e-6, torch.float32)]
+    return shapes
+
+
+def gn_case(g, b, h, w, c, dt, dev):
+    """x (b, h, w, c) of ``dt``, gamma, beta and the scale-shift pair."""
+    import torch
+    x = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.3).to(dt).to(dev)
+    gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+    beta = (0.1 * torch.randn(c, generator=g)).to(dev)
+    ss = tuple((0.1 * torch.randn(b, c, generator=g)).to(dev)
+               for _ in range(2))
+    return x, gamma, beta, ss
+
+
+def gn_levels(got, ref):
+    """The largest code difference in levels and the share of codes that
+    differ."""
+    diff = (got.int() - ref.int()).abs()
+    return int(diff.max()), float((diff > 0).float().mean())
+
+
+def gn_plan_note(x, groups: int = 32) -> str:
+    """The plan ``gn_swish_quant_int8`` takes for ``x``: route, slices,
+    cluster size, and the dynamic shared memory of a block (ptxas reports
+    only the static, none)."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    b, h, w, c = x.shape
+    item = x.element_size()
+    route, slices, cluster = G.gn_plan(b, h * w, c, groups, item)
+    smem = G.gn_smem(route, h * w, c, groups, item, slices, cluster)
+    return (f"{route}, {slices} slices of {c // slices} channels, clusters "
+            f"of {cluster}, {smem} B of shared memory a block")
+
+
 def check_gn(g, dev, errs) -> None:
-    """``gn_swish_quant_int8`` against its plain version at SD's resblock
-    shapes (the micro_gn twin's), every cin256 and CIFAR-10 GroupNorm, and
-    odd shapes (hw not a multiple of 512, C not a multiple of 128), with
-    and without SiLU and the scale-shift pair: codes at most
-    GN_MAX_LEVELS apart on under GN_MAX_SHARE of them, zp_c equal."""
+    """``gn_swish_quant_int8`` against its plain version at ``gn_shapes``,
+    with and without SiLU and the scale-shift pair: codes at most
+    GN_MAX_LEVELS apart on under GN_MAX_SHARE of them, zp_c equal, one
+    launch a call, and two calls bit-identical (the sums run in a fixed
+    order). Prints each shape's plan."""
     import torch
     from tfmq_dm_tpu_torch.ops import gn_kernels as G
     from tfmq_dm_tpu_torch.quant.quantizer import QCfg
-    from tfmq_dm_tpu_torch.scripts import micro_gn
     cfg = QCfg(bits=8)
-    shapes = [(b, h, w, c, 1e-5, torch.bfloat16)
-              for b, h, w, c in micro_gn.SHAPES]
-    shapes += [(b, r, r, c, eps, dt) for b, r, c, eps, dt in gn_geometries()]
-    shapes += [(2, 33, 17, 96, 1e-5, torch.bfloat16),
-               (3, 5, 7, 64, 1e-6, torch.float32)]
+    shapes = gn_shapes()
     delta, zp = torch.tensor(0.02, device=dev), torch.tensor(117.0, device=dev)
     worst = (0, 0.0)
     for b, h, w, c, eps, dt in shapes:
-        x = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.3).to(dt).to(dev)
-        gamma = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
-        beta = (0.1 * torch.randn(c, generator=g)).to(dev)
-        ss = tuple((0.1 * torch.randn(b, c, generator=g)).to(dev)
-                   for _ in range(2))
+        x, gamma, beta, ss = gn_case(g, b, h, w, c, dt, dev)
         for swish in (True, False):
             for pair in (None, ss):
                 kw = dict(eps=eps, do_swish=swish, ss=pair)
+                before = G.LAUNCHES["gn_swish_quant_int8"]
                 got, gz = G.gn_swish_quant_int8(x, gamma, beta, delta, zp,
                                                 cfg, **kw)
+                if G.LAUNCHES["gn_swish_quant_int8"] != before + 1:
+                    raise AssertionError("gn_swish_quant_int8: not one "
+                                         "launch a call")
+                again, _ = G.gn_swish_quant_int8(x, gamma, beta, delta, zp,
+                                                 cfg, **kw)
                 ref, rz = G.gn_swish_quant_int8_plain(x, gamma, beta, delta,
                                                       zp, cfg, **kw)
                 torch.cuda.synchronize()
-                diff = (got.int() - ref.int()).abs()
-                levels, share = int(diff.max()), float((diff > 0).float()
-                                                       .mean())
+                levels, share = gn_levels(got, ref)
                 worst = max(worst, (levels, share))
                 errs["gn_swish_quant_int8"].append(levels)
                 if not (levels <= GN_MAX_LEVELS and share < GN_MAX_SHARE
@@ -1582,8 +1629,14 @@ def check_gn(g, dev, errs) -> None:
                         f"{swish} ss {pair is not None}: {levels} levels, "
                         f"{share:.2e} of codes off, zp_c {float(gz)} / "
                         f"{float(rz)}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"gn_swish_quant_int8 {(b, h, w, c)}"
+                                         ": two calls differ")
+        print(f"   gn_swish_quant_int8 {(b, h, w, c)} {str(dt)[6:]}: "
+              f"{gn_plan_note(x)}", flush=True)
     print(f"   gn_swish_quant_int8 {len(shapes)} shapes x (SiLU, ss): worst "
-          f"{worst[0]} level(s), {worst[1]:.2e} of codes off", flush=True)
+          f"{worst[0]} level(s), {worst[1]:.2e} of codes off; two calls "
+          "bit-identical", flush=True)
 
 
 def time_fused(g, dev, peaks) -> dict:
@@ -1676,11 +1729,14 @@ def time_gn(dev, peaks) -> list:
         tm["library"] = "F.group_norm + F.silu + quantize in PyTorch ops"
         twin = micro_gn.time_shape(shape, dev)
         tm["shape"] = f"{shape} bf16"
+        tm["plan"] = gn_plan_note(x)
         tm["unfused_chain_ms"] = twin["unfused_ms"]
         tm["unfused_vs_fused"] = twin["ratio"]
-        print(f"   gn_swish_quant_int8 {shape} bf16: " + timing_line(tm)
+        print(f"   gn_swish_quant_int8 {shape} bf16 ({tm['plan']}): "
+              + timing_line(tm)
               + f"; micro_gn twin: unfused chain {twin['unfused_ms']:.4f}, "
-              f"fused {twin['fused_ms']:.4f} ({twin['ratio']:.2f}x)",
+              f"fused {twin['fused_ms']:.4f} ({twin['ratio']:.2f}x)"
+              + earlier_note(tm, ("gn_swish_quant_int8", *shape)),
               flush=True)
         out.append(tm)
     return out

@@ -804,17 +804,32 @@ def test_cuda_int8_matmul_fused_routes_match_plain(cuda, m, k, n, x_dtype,
 # gn_swish_quant_int8: codes within one level of the plain version
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("b,h,w,c,eps,dtype", [
+GN_SHAPES = [
     (8, 64, 64, 320, 1e-5, torch.bfloat16),     # SD v1.4, micro_gn
     (4, 8, 8, 1920, 1e-5, torch.bfloat16),      # cin256's widest concat
     (8, 4, 4, 512, 1e-6, torch.float32),        # CIFAR-10
     (2, 33, 17, 96, 1e-5, torch.bfloat16),      # hw 561: not % 512
-    (3, 5, 7, 64, 1e-6, torch.float32)])
-@pytest.mark.parametrize("swish,use_ss", [(True, False), (True, True),
-                                          (False, False), (False, True)])
-def test_cuda_gn_swish_quant_int8_matches_plain(cuda, b, h, w, c, eps, dtype,
-                                                swish, use_ss):
+    (3, 5, 7, 64, 1e-6, torch.float32)]
+
+
+def _gn_forced(shape):
+    """The plans forced on ``shape``: for each route and cluster size the
+    plan function can take, the first such plan of ``gn_plans`` (where
+    one fits); "auto" is ``gn_plan``'s pick."""
     from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    b, h, w, c, _, dt = shape
+    item = 2 if dt == torch.bfloat16 else 4
+    plans = G.gn_plans(b, h * w, c, 32, item)
+    out = ["auto"]
+    for route, sizes in (("resident", G.CLUSTERS), ("stream", (1, 2, 4, 8))):
+        for k in sizes:
+            cands = [p for p in plans if p[0] == route and p[2] == k]
+            if cands:
+                out.append(cands[0])
+    return out
+
+
+def _gn_args(cuda, b, h, w, c, dtype, use_ss):
     from tfmq_dm_tpu_torch.quant.quantizer import QCfg
     g = torch.Generator().manual_seed(b * h * w + c)
     x = (torch.randn(b, h, w, c, generator=g) * 1.5 + 0.3).to(dtype).to(cuda)
@@ -822,18 +837,96 @@ def test_cuda_gn_swish_quant_int8_matches_plain(cuda, b, h, w, c, eps, dtype,
     beta = (0.1 * torch.randn(c, generator=g)).to(cuda)
     ss = tuple((0.1 * torch.randn(b, c, generator=g)).to(cuda)
                for _ in range(2)) if use_ss else None
-    args = (x, gamma, beta, torch.tensor(0.02, device=cuda),
-            torch.tensor(117.0, device=cuda), QCfg(bits=8))
-    kw = dict(eps=eps, do_swish=swish, ss=ss)
-    before = G.LAUNCHES["gn_swish_quant_int8"]
-    got, gz = G.gn_swish_quant_int8(*args, **kw)
-    assert G.LAUNCHES["gn_swish_quant_int8"] == before + 1
-    ref, rz = G.gn_swish_quant_int8_plain(*args, **kw)
+    return (x, gamma, beta, torch.tensor(0.02, device=cuda),
+            torch.tensor(117.0, device=cuda), QCfg(bits=8)), ss
+
+
+def _gn_one_level(got, ref, x):
     torch.cuda.synchronize()
     diff = (got.int() - ref.int()).abs()
     assert got.dtype == torch.int8 and got.shape == x.shape
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-4
+
+
+@pytest.mark.parametrize("b,h,w,c,eps,dtype,plan", [
+    (*shape, plan) for shape in GN_SHAPES for plan in _gn_forced(shape)])
+@pytest.mark.parametrize("swish,use_ss", [(True, False), (True, True),
+                                          (False, False), (False, True)])
+def test_cuda_gn_swish_quant_int8_matches_plain(cuda, b, h, w, c, eps, dtype,
+                                                plan, swish, use_ss):
+    """Each route and cluster size (the plan forced; "auto": the plan's
+    pick): one launch a call, codes within one level of the plain
+    version's on under 1e-4 of them, zp_c equal."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    args, ss = _gn_args(cuda, b, h, w, c, dtype, use_ss)
+    kw = dict(eps=eps, do_swish=swish, ss=ss)
+    forced = contextlib.nullcontext() if plan == "auto" else \
+        mock.patch.object(G, "gn_plan", lambda *a, **k: plan)
+    with forced:
+        before = G.LAUNCHES["gn_swish_quant_int8"]
+        got, gz = G.gn_swish_quant_int8(*args, **kw)
+        assert G.LAUNCHES["gn_swish_quant_int8"] == before + 1
+    ref, rz = G.gn_swish_quant_int8_plain(*args, **kw)
+    _gn_one_level(got, ref, args[0])
     assert float(gz) == float(rz) == 117.0 - 128
+
+
+def test_cuda_gn_reciprocal_is_correctly_rounded(cuda):
+    """The kernel's reciprocal of 1 + exp(-y) (rcp.approx and one Newton
+    step, no slow-path branch) equals __frcp_rn and IEEE division on every
+    float in [1, 2^126)."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    assert G.rcp_mismatches() == 0
+
+
+def test_cuda_gn_cluster_slots_hold_the_plan(cuda):
+    """The card runs at least as many clusters of each size at once as
+    the plan counts a wave (``CLUSTER_SLOTS``), at the most shared memory
+    a resident block of a check shape takes."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    for k in G.CLUSTERS:
+        assert G.cluster_slots(k, 200000) >= G.CLUSTER_SLOTS[k], k
+
+
+@pytest.mark.parametrize("route", ["resident", "stream"])
+def test_cuda_gn_swish_quant_int8_reruns_bit_identical(cuda, route):
+    """Two calls give bit-identical codes: every sum runs in a fixed
+    order, with no atomics (SD's 8x64x64x320, SiLU and scale-shift)."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    args, ss = _gn_args(cuda, 8, 64, 64, 320, torch.bfloat16, True)
+    plan = G.gn_plan(8, 4096, 320, 32, 2)
+    if route == "stream":
+        plan = next(p for p in G.gn_plans(8, 4096, 320, 32, 2)
+                    if p[0] == "stream" and p[2] == 8)
+    with mock.patch.object(G, "gn_plan", lambda *a, **k: plan):
+        first = G.gn_swish_quant_int8(*args, ss=ss)[0]
+        second = G.gn_swish_quant_int8(*args, ss=ss)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,h,w,c,groups,dtype", [
+    (1, 384, 384, 320, 32, torch.bfloat16),    # SD's channels at 384x384
+    (1, 256, 256, 256, 32, torch.float32),
+    (2, 5, 7, 27, 3, torch.bfloat16)])         # 18-byte slice rows
+def test_cuda_gn_swish_quant_int8_stream_route_matches_plain(cuda, b, h, w,
+                                                             c, groups,
+                                                             dtype):
+    """Shapes no cluster's shared memory can hold a slice of take the
+    stream route (its plan unforced): one launch a call, the one-level
+    rule, two calls bit-identical."""
+    from tfmq_dm_tpu_torch.ops import gn_kernels as G
+    assert G.gn_plan(b, h * w, c, groups, 2 if dtype == torch.bfloat16
+                     else 4)[0] == "stream"
+    args, ss = _gn_args(cuda, b, h, w, c, dtype, True)
+    kw = dict(groups=groups, ss=ss)
+    before = G.LAUNCHES["gn_swish_quant_int8"]
+    got, gz = G.gn_swish_quant_int8(*args, **kw)
+    assert G.LAUNCHES["gn_swish_quant_int8"] == before + 1
+    ref, rz = G.gn_swish_quant_int8_plain(*args, **kw)
+    _gn_one_level(got, ref, args[0])
+    assert float(gz) == float(rz)
+    assert torch.equal(got, G.gn_swish_quant_int8(*args, **kw)[0])
 
 
 def test_cuda_fused_wrappers_reject_bad_inputs(cuda):
