@@ -50,15 +50,25 @@ when one is exceeded):
               kernels (tests and ``scripts/micro_gn.py`` only): their
               launches are counted over this phase's timing runs, which
               include the port's twin of ``scripts/micro_gn.py``.
-4. main     - the full-width CIFAR-10 w4a8 int4-serving path: trained
-              weights from runs/cifar10_ddpm.npz, minmax weight grids, a
-              10-step calibration harvest at batch 8, the FSC init pass,
-              a calibration artifact in a temporary directory, then the
-              port's CLI (``cli.main``) samples 8 images in 10 DDIM steps
-              with the packed-int4 kernels; launch counts are read around
-              that call. The same sampling with the plain versions gives
-              the kernel-vs-plain PSNR; the FP sampling gives the
-              quantized-vs-FP PSNR (information only).
+4. main     - the full-width CIFAR-10 w4a8 int4-serving path: the port's
+              CLI calibrates the trained weights of runs/cifar10_ddpm.npz
+              on the card (``cli.main --ptq --cali``: a 10-step harvest of
+              16 samples a step, TIAR/AdaRound reconstruction of all 32
+              units with ``CALI_ITERS`` iterations each, running-stat FSC,
+              the artifact in a temporary directory); the phase prints the
+              calibration's seconds, each unit's first and last loss and
+              the guard's decisions, and fails unless every layer that
+              reconstruction trains carries an alpha and at least one unit
+              kept its trained alphas. Then ``cli.main`` samples 8 images
+              in 10 DDIM steps from that artifact with the packed-int4
+              kernels; launch counts are read around that call. The same
+              sampling with the plain versions gives the kernel-vs-plain
+              PSNR; the FP sampling gives the quantized-vs-FP PSNR, printed
+              beside that of an artifact of minmax grids and the FSC init
+              pass only (information). The deploy phase's CIFAR-10
+              artifacts (w4a8 with symmetric grids, and w8a8) are of that
+              second kind, calibrated here on a 10-step harvest at batch 8:
+              no reconstruction.
 5. ldm      - the full-width class-conditional LDM (cin256_v2) w4a8
               int4-serving path: a seeded random-init checkpoint in the
               reference's Lightning layout (UNet, VQ-f4 decoder, class
@@ -204,6 +214,10 @@ EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("int4_conv2d", 4, 64, 3, 576, 192): 0.4127}
 
 STEPS, BATCH, SEED = 10, 8, 1234
+# phase main's calibration through the CLI: samples a step (at least the
+# FSC running-stat pass's batch of 16, so that the pass runs) and
+# reconstruction iterations a unit
+CALI_N, CALI_ITERS = 16, 300
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "scripts/micro_gn.py); launches of the kernels phase's "
                  "timing runs, the micro_gn twin's included")
@@ -479,12 +493,51 @@ def profile_sampling(cfg, dev, argv: list, steps: int) -> dict:
                           f"{steps}-step sample")
 
 
+def check_calibration(cfg, art: str, dev) -> dict:
+    """Read the CLI's artifact: per-unit losses and guard decisions, an
+    alpha for every layer that reconstruction trains, at least one unit on
+    its trained alphas, and an FSC state for every step."""
+    from tfmq_dm_tpu_torch.models import ddim_units
+    from tfmq_dm_tpu_torch.quant.calibrate import load_cali_model
+
+    wstate, astate, meta = load_cali_model(art, device=dev)
+    units = meta["recon"]["units"]
+    for name, u in units.items():
+        print(f"   recon {name:24s} loss {u['loss_first']:.6f} -> "
+              f"{u['loss_last']:.6f}; hard loss nearest "
+              f"{u['hard_nearest']:.6f}, trained {u['hard_trained']:.6f}: "
+              f"keep {u['kept']}", flush=True)
+    kept = sum(u["kept"] == "trained" for u in units.values())
+    print(f"   guard: {kept} of {len(units)} units kept their trained "
+          f"alphas, {len(units) - kept} reverted to nearest rounding",
+          flush=True)
+    adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8)
+    trained = [full for u in adapter.units for role, full in u.layers
+               if role in adapter.default_train_roles(u)]
+    missing = [n for n in trained if "alpha" not in wstate.get(n, {})]
+    if missing or len(units) != 32:
+        raise AssertionError(f"reconstruction: {len(units)} units, no "
+                             f"alpha for {missing}")
+    if kept == 0:
+        raise AssertionError("the guard reverted every unit: no trained "
+                             "alpha reached the artifact")
+    groups = {st["delta"].shape[0] for st in astate.values()}
+    if groups != {len(meta["cali_t"])}:
+        raise AssertionError(f"FSC groups {groups}, expected "
+                             f"{len(meta['cali_t'])}")
+    return {"units": len(units), "kept_trained": kept,
+            "layers_with_alpha": len(trained)}
+
+
 def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
-    """Calibrate the full-width model on the card, then sample through the
-    port's CLI with the packed-int4 kernels; launch counts are read around
-    that one call. Also writes, into ``tmp``, the artifacts of the deploy
-    phase's CIFAR-10 runs (w4a8 with symmetric weight grids, and w8a8) and
-    keeps the FP samples. Returns counts, seconds, PSNRs and paths."""
+    """Calibrate the full-width model on the card through the port's CLI
+    (reconstruction and running-stat FSC), then sample from that artifact
+    through the CLI with the packed-int4 kernels; launch counts are read
+    around that one call. Also writes, into ``tmp``, the artifacts of
+    minmax grids and the FSC init pass of the deploy phase's CIFAR-10 runs
+    (w4a8 with symmetric weight grids, and w8a8) and of an init-only w4a8
+    for comparison, and keeps the FP samples. Returns counts, seconds,
+    PSNRs and paths."""
     import numpy as np
     import torch
     from tfmq_dm_tpu_torch import cli
@@ -496,6 +549,23 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     tmp = tmp / "c10"
     tmp.mkdir()
     ckpt = ROOT / "runs" / "cifar10_ddpm.npz"
+    art = str(tmp / "cali_w4a8_recon.npz")
+    t0 = time.perf_counter()
+    rc = cli.main(["--task", "cifar10", "--ckpt", str(ckpt), "--ptq",
+                   "--cali", "--wq", "4", "--aq", "8", "--use_aq",
+                   "--timesteps", str(steps), "--cali_n", str(CALI_N),
+                   "--interval_length", "1", "--cali_iters",
+                   str(CALI_ITERS), "--cali_save_path", art, "--seed",
+                   str(SEED), "--device", dev.type])
+    sync(dev)
+    cali_s = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli.main --cali returned {rc}")
+    print(f"   cli.main --ptq --cali (harvest {steps} steps x {CALI_N}, "
+          f"reconstruction of every unit at {CALI_ITERS} iterations, "
+          f"running-stat FSC): {cali_s:.2f} s", flush=True)
+    recon = check_calibration(cfg, art, dev)
+
     t0 = time.perf_counter()
     params, _ = load_params(str(ckpt), device=dev)
     betas, seq = cli.cifar10_schedule(steps)
@@ -504,24 +574,26 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     xs, ts = harvest_trajectory(
         lambda x, t, s: ddim_unet.apply(params, cfg, x, t), betas, seq,
         x_cali.to(dev))
-    # w4a8 (int4-serving here), and the deploy phase's bench
-    # configuration (w4a8, symmetric weight grids) and w8a8
+    # minmax grids and the FSC init pass only: w4a8 (for comparison), and
+    # the deploy phase's bench configuration (w4a8, symmetric weight
+    # grids) and w8a8
     arts = {}
-    for name, wq, sym in (("w4a8", 4, False), ("bench", 4, True),
+    for name, wq, sym in (("w4a8_init", 4, False), ("bench", 4, True),
                           ("w8a8", 8, False)):
         arts[name] = str(tmp / f"cali_{name}.npz")
         cali_model(ddim_units.build_adapter(cfg, w_bits=wq, a_bits=8,
                                             w_sym=sym),
-                   params, (xs, ts), torch.Generator().manual_seed(2),
+                   params, None, (xs, ts), hp=None, use_aq=True,
+                   running_stat=False,
+                   generator=torch.Generator().manual_seed(2),
                    path=arts[name], w_scaler="minmax",
                    act_scaler="minmax", init_samples=BATCH,
                    meta={"wq": wq, "aq": 8,
                          "cali_t": [float(v) for v in seq[::-1]]})
-    art = arts["w4a8"]
     sync(dev)
-    print(f"   calibration (harvest {steps} steps x {BATCH}, FSC init "
-          f"of w4a8, w4a8 symmetric and w8a8): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"   init-only calibrations (harvest {steps} steps x {BATCH}, "
+          f"minmax grids and the FSC init pass of w4a8, w4a8 symmetric "
+          f"and w8a8): {time.perf_counter() - t0:.2f} s", flush=True)
     del params, xs, ts
 
     common = ["--task", "cifar10", "--ckpt", str(ckpt), "--timesteps",
@@ -561,13 +633,20 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     cli.main(common + ["--out", str(tmp / "fp")])
     sync(dev)
     fp_s = time.perf_counter() - t0
+    cli.main(common + ["--ptq", "--cali_ckpt", arts["w4a8_init"],
+                       "--use_aq", "--int-kernels", "--int4-serving",
+                       "--out", str(tmp / "init")])
     plain = np.load(tmp / "plain" / "samples.npy")
     fp = np.load(tmp / "fp" / "samples.npy")
+    init = np.load(tmp / "init" / "samples.npy")
     p_kp, p_qf = psnr(q, plain), psnr(q, fp)
+    p_init = psnr(init, fp)
     print(f"   plain-version sampling {plain_s:.2f} s, FP sampling "
           f"{fp_s:.2f} s", flush=True)
     print(f"   PSNR kernels vs plain versions: {p_kp:.2f} dB; quantized "
-          f"vs FP (information): {p_qf:.2f} dB", flush=True)
+          f"vs FP (information): {p_qf:.2f} dB from the reconstructed "
+          f"artifact, {p_init:.2f} dB from minmax grids and the FSC init "
+          "pass", flush=True)
     if not p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB:
         raise AssertionError(f"kernel vs plain PSNR {p_kp:.2f} dB < "
                              f"{MIN_PSNR_KERNEL_VS_PLAIN_DB}")
@@ -576,8 +655,9 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
                          steps)
     return {"launches": launches, "e2e_s": e2e_s, "plain_s": plain_s,
             "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
-            "psnr_quant_vs_fp": p_qf, "arts": arts, "ckpt": str(ckpt),
-            "fp_img": fp}
+            "psnr_quant_vs_fp": p_qf, "psnr_init_only_vs_fp": p_init,
+            "cali_s": cali_s, "recon": recon, "arts": arts,
+            "ckpt": str(ckpt), "fp_img": fp}
 
 
 def cin_geometries(cfg):
@@ -1022,9 +1102,10 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
                                           softmax_a_bit=bits,
                                           use_aq=True)
         arts[bits] = str(tmp / f"cali_sm{bits}.npz")
-        cali_model(adapter, params, a_cali,
-                   torch.Generator().manual_seed(2), path=arts[bits],
-                   w_scaler="minmax", act_scaler="minmax",
+        cali_model(adapter, params, None, a_cali, hp=None, use_aq=True,
+                   running_stat=False,
+                   generator=torch.Generator().manual_seed(2),
+                   path=arts[bits], w_scaler="minmax", act_scaler="minmax",
                    init_samples=2 * n,
                    meta={"task": task.name, "wq": 4, "aq": 8,
                          "softmax_a_bit": bits, "use_aq": True,
@@ -2128,7 +2209,13 @@ def run() -> None:
     print(json.dumps({"e2e_s": main_path["e2e_s"], "images": BATCH,
                       "steps": STEPS, "psnr_kernel_vs_plain_db":
                       main_path["psnr_kernel_vs_plain"],
-                      "psnr_quant_vs_fp_db": main_path["psnr_quant_vs_fp"]}),
+                      "psnr_quant_vs_fp_db": main_path["psnr_quant_vs_fp"],
+                      "psnr_init_only_vs_fp_db":
+                          main_path["psnr_init_only_vs_fp"],
+                      "calibration_s": main_path["cali_s"],
+                      "calibration": {"cali_n": CALI_N,
+                                      "iters": CALI_ITERS,
+                                      **main_path["recon"]}}),
           flush=True)
     print(json.dumps({"ldm": {
         "task": "cin256_v2", "images": CIN_N,

@@ -145,7 +145,7 @@ def slice_runs(tmp_path_factory):
     txs, tts = t_harvest(lambda x, t, s: T.apply(tparams, tcfg, x, t),
                          BETAS, SEQ, torch.from_numpy(x_cali))
     tast = t_fsc(ta, tparams, tw, (txs, tts), torch.Generator().manual_seed(3),
-                 init_samples=8, act_scaler="minmax")
+                 running_stat=False, init_samples=8, act_scaler="minmax")
     td = tdep.deploy_weights(ta.policy, tparams, tw, int4_serving=True)
     tfn = tdep.make_deployed_model_fn(ta, tparams, td, tast, use_aq=True)
     timg = t_scan(tfn, BETAS, SEQ, torch.from_numpy(x_T)).numpy()

@@ -242,8 +242,8 @@ def tiny_cin_deploy():
     adapter = TLU.build_adapter(task.unet, w_bits=4, a_bits=8, use_aq=True)
     wstate = t_iwq(adapter.policy, params, scaler="minmax")
     astate = t_fsc(adapter, params, wstate, a_cali,
-                   torch.Generator().manual_seed(2), init_samples=4,
-                   act_scaler="minmax")
+                   torch.Generator().manual_seed(2), running_stat=False,
+                   init_samples=4, act_scaler="minmax")
     deployed = tdep.deploy_weights(adapter.policy, params, wstate)
     x = torch.randn((4, 8, 8, 3), generator=g)
     t = torch.full((4,), 50, dtype=torch.int32)

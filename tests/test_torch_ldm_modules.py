@@ -165,8 +165,8 @@ def quant_setup(request):
                            use_aq=True)
     tast = t_fsc(ta, params_from_numpy(np_p, "cpu"), tree_torch(jw),
                  tuple(torch.from_numpy(a)[None] for a in (x, t, c)),
-                 torch.Generator().manual_seed(0), init_samples=2,
-                 act_scaler="minmax")
+                 torch.Generator().manual_seed(0), running_stat=False,
+                 init_samples=2, act_scaler="minmax")
     jast = jax.tree.map(lambda a: jnp.asarray(a[0].numpy()), tast)
     return dict(jcfg=jcfg, np_p=np_p, jp=jp, ja=ja, jw=jw, jast=jast,
                 inputs=unet_inputs(jcfg, np.random.default_rng(3)))

@@ -184,7 +184,8 @@ def slice_runs(tmp_path_factory):
         for n in tw:
             tw[n]["alpha"] = torch.from_numpy(alpha[n])
         tast = t_fsc(ta, tp, tw, ta_cali, torch.Generator().manual_seed(1),
-                     init_samples=2 * N, act_scaler="minmax")
+                     running_stat=False, init_samples=2 * N,
+                     act_scaler="minmax")
 
         # port CLI, from the JAX checkpoint and the JAX artifact
         aw, _, _ = load_cali_model(art, device="cpu")

@@ -219,7 +219,8 @@ def test_wide_weight_grid_deploys_fake_quantized_weights():
     x = torch.randn(2, 16, 16, 3, generator=g)
     t = torch.tensor([3, 60], dtype=torch.int32)
     astate = fsc_calibrate(adapter, params, wstate, (x[None], t[None]), g,
-                           init_samples=2, act_scaler="minmax")
+                           running_stat=False, init_samples=2,
+                           act_scaler="minmax")
     deployed = deploy_weights(adapter.policy, params, wstate)
     assert {type(v) for v in deployed.values()} == {FPWeight}
     got = make_deployed_model_fn(adapter, params, deployed, astate,
@@ -249,7 +250,9 @@ def test_cli_int4_serving_on_cpu(tmp_path):
     xs, ts = harvest_trajectory(lambda x, t, s: T.apply(params, cfg, x, t),
                                 betas, seq, x_T)
     art = str(tmp_path / "cali.npz")
-    cali_model(adapter, params, (xs, ts), torch.Generator().manual_seed(1),
+    cali_model(adapter, params, None, (xs, ts), hp=None, use_aq=True,
+               running_stat=False,
+               generator=torch.Generator().manual_seed(1),
                path=art, w_scaler="minmax", act_scaler="minmax",
                meta={"wq": 4, "aq": 8,
                      "cali_t": [float(v) for v in seq[::-1]]})

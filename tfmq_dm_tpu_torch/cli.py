@@ -1,6 +1,14 @@
-"""Sampling CLI of the port: the ``cifar10`` and class-conditional LDM
+"""CLI of the port: the ``cifar10`` and class-conditional LDM
 (``cin256_v2``) subset of ``tfmq_dm_tpu/cli.py``, with their CPU
 miniatures ``tiny_ddim`` and ``tiny_cin``.
+
+Calibrate, then exit (the reference's ``--cali``; the ddim family): harvest
+``--cali_n`` samples per sampler step, reconstruct every unit with
+AdaRound (``--cali_iters`` iterations each), run FSC (running-stat unless
+``--no_running_stat``) and write the artifact:
+
+  python -m tfmq_dm_tpu_torch.cli --task cifar10 --ptq --cali --wq 4 \\
+      --aq 8 --use_aq --cali_save_path cali.npz
 
 Quantized sampling with the hand-written kernels, from a calibration
 artifact (either package's):
@@ -33,6 +41,7 @@ CPU. Images in [0, 1], NHWC float32, are written to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -75,7 +84,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="trained weights: a p::<layer>::<field> npz "
                         "(cifar10, default runs/cifar10_ddpm.npz) or the "
                         "reference's Lightning .ckpt (LDM tasks)")
-    p.add_argument("--out", required=True)
+    p.add_argument("--out", default=None,
+                   help="output directory of the samples (sampling)")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--ptq", action="store_true")
     p.add_argument("--wq", type=int, default=4,
@@ -85,6 +95,23 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--w_sym", action="store_true",
                    help="symmetric weight grids (the int8 deployment "
                         "then skips the activation-sum correction)")
+    p.add_argument("--cali", action="store_true",
+                   help="calibrate (harvest, reconstruction, FSC), write "
+                        "the artifact to --cali_save_path and exit")
+    p.add_argument("--cali_save_path", default="cali.npz")
+    p.add_argument("--cali_n", type=int, default=None,
+                   help="calibration samples per sampler step (default: "
+                        "the task's)")
+    p.add_argument("--cali_iters", type=int, default=20000,
+                   help="reconstruction iterations per unit")
+    p.add_argument("--interval_length", type=int, default=None,
+                   help="reconstruct on every n-th step's samples "
+                        "(default: the task's)")
+    p.add_argument("--no_running_stat", action="store_true",
+                   help="FSC init pass only (no running-stat EMA pass)")
+    p.add_argument("--resume_dir", default=None,
+                   help="per-unit reconstruction checkpoints: units "
+                        "found there are skipped on a re-run")
     p.add_argument("--cali_ckpt", default=None)
     p.add_argument("--use_aq", action="store_true")
     p.add_argument("--softmax_a_bit", type=int, default=8,
@@ -253,10 +280,7 @@ def sample(args, latents: list = None) -> np.ndarray:
     """Run the sampler as ``args`` asks -> images (N, H, W, C) in [0, 1].
     ``latents``: a list that receives each batch's sampled latents."""
     log = logging.getLogger("tfmq_torch")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda, but torch.cuda.is_available() is "
-                         "false (ask for --device cpu explicitly)")
+    device = resolve_device(args)
     if args.int4_serving and not (args.ptq and args.int_kernels):
         log.warning("--int4-serving has no effect without --ptq "
                     "--int-kernels")
@@ -291,10 +315,64 @@ def sample(args, latents: list = None) -> np.ndarray:
                       latents=latents)
 
 
+def resolve_device(args) -> torch.device:
+    """``args.device`` as a device; refuses a card that is not there
+    rather than falling back to the CPU."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda, but torch.cuda.is_available() is "
+                         "false (ask for --device cpu explicitly)")
+    return device
+
+
+def calibrate(args) -> None:
+    """The calibrate-then-exit flow (cli.py:244-314) of the ddim family:
+    harvest, reconstruction and FSC, the artifact at
+    ``--cali_save_path``."""
+    log = logging.getLogger("tfmq_torch")
+    device = resolve_device(args)
+    exact_f32()
+    task = get_task(args.task)
+    if task.family != "ddim":
+        raise SystemExit(f"--cali: calibration of {task.name} (the LDM "
+                         "family) needs the LDM reconstruction units, not "
+                         "ported yet (ROADMAP.md queue 1 item 5)")
+    if not args.ckpt and task.name != "cifar10":
+        raise SystemExit(f"--task {task.name} needs --ckpt")
+    if args.interval_length is not None:
+        task = dataclasses.replace(task,
+                                   interval_length=args.interval_length)
+    params, _ = load_params(args.ckpt or str(DEFAULT_CKPT), device=device)
+    qargs = ptq.QuantArgs(
+        wq=args.wq, aq=args.aq, softmax_a_bit=args.softmax_a_bit,
+        use_aq=args.use_aq, w_sym=args.w_sym,
+        running_stat=not args.no_running_stat, iters=args.cali_iters,
+        cali_save_path=args.cali_save_path)
+    adapter = ptq.build_adapter(task, qargs)
+    n_per_t = args.cali_n or task.cali_n
+    generator = torch.Generator().manual_seed(args.seed)
+    log.info("harvesting calibration data (%d per step)", n_per_t)
+    w_cali, a_cali, cali_t = ptq.generate_cali_data(
+        task, lambda x, t, c: ddim_unet.apply(params, task.unet, x, t),
+        generator, n_per_t=n_per_t, steps=args.timesteps, device=device)
+    log.info("calibrating -> %s", args.cali_save_path)
+    ptq.quantize_task(task, adapter, params, qargs, w_cali, a_cali,
+                      cali_t=cali_t, generator=generator,
+                      resume_dir=args.resume_dir)
+    log.info("calibration done")
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
     args = build_argparser().parse_args(argv)
+    if args.cali:
+        if not args.ptq:
+            raise SystemExit("--cali needs --ptq")
+        calibrate(args)
+        return 0
+    if args.out is None:
+        raise SystemExit("sampling needs --out")
     latents = []
     images = sample(args, latents)
     os.makedirs(args.out, exist_ok=True)

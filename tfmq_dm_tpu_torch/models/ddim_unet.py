@@ -6,7 +6,10 @@ Same layouts and names as the JAX package: parameters are a flat dict
 conv weights and (in, out) linear weights; activations are NHWC. Every
 quantizable call site goes through :mod:`..quant.qfunc` with its dotted
 name. Shortcut and downsample convs are not quant call sites
-(quant_model.py:57-58).
+(quant_model.py:57-58). Reconstruction units tap their boundaries through
+``QuantCtx.tap`` (resnet blocks ``(x, temb)`` -> out, attention blocks
+``(x,)`` -> out, the upsample convs ``(x,)`` -> out); a tap returns its
+value unchanged.
 """
 
 from __future__ import annotations
@@ -160,6 +163,30 @@ def layer_infos(cfg: DDIMUNetConfig) -> List[LayerInfo]:
     return infos
 
 
+def recon_units(cfg: DDIMUNetConfig) -> List[Tuple[str, str]]:
+    """(unit_name, unit_kind) in reconstruction DFS order
+    (calibration.py:56-84): the TIB first, standalone quant layers as
+    'layer' units, resnet and attention blocks as 'res' / 'attn'. conv_in
+    and conv_out are listed, but the policy keeps them out of recon."""
+    units: List[Tuple[str, str]] = [("tib", "tib")]
+    seen = set()
+    for kind, name, shape in iter_layers(cfg):
+        if kind in ("norm", "conv_fp", "conv_ds") or \
+                name.startswith("temb."):
+            continue
+        base, _, role = name.rpartition(".")
+        if role in ("conv1", "temb_proj", "conv2"):
+            u = (base, "res")
+        elif role in ("q", "k", "v", "proj_out"):
+            u = (base, "attn")
+        else:
+            u = (name, "layer")
+        if u[0] not in seen:
+            seen.add(u[0])
+            units.append(u)
+    return units
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -168,9 +195,12 @@ def _norm(p, x):
     return fnn.group_norm(x, p["scale"], p["bias"], groups=32, eps=1e-6)
 
 
-def _resnet(params, prefix: str, x, silu_temb, qctx: Optional[QuantCtx]):
+def _resnet(params, prefix: str, x, temb, silu_temb,
+            qctx: Optional[QuantCtx]):
     """ResnetBlock forward (diffusion.py:115-139); ``silu_temb`` is
     nonlinearity(temb), computed once per forward."""
+    if qctx is not None:
+        qctx.tap(prefix, "in", (x, temb))
     h = fnn.swish(_norm(params[f"{prefix}.norm1"], x))
     h = qfunc.qconv2d(qctx, f"{prefix}.conv1", h, params[f"{prefix}.conv1"])
     h = h + qfunc.qlinear(qctx, f"{prefix}.temb_proj", silu_temb,
@@ -180,13 +210,18 @@ def _resnet(params, prefix: str, x, silu_temb, qctx: Optional[QuantCtx]):
     sc = params.get(f"{prefix}.nin_shortcut")
     if sc is not None:
         x = fnn.conv2d(x, sc["w"], sc["b"], stride=1, padding="VALID")
-    return x + h
+    out = x + h
+    if qctx is not None:
+        out = qctx.tap(prefix, "out", out)
+    return out
 
 
 def _attn(params, prefix: str, x, qctx: Optional[QuantCtx]):
     """AttnBlock forward (diffusion.py:169-194) with the QuantAttnBlock
     act-quant sites (quant_block.py:475-500); single head, H*W flattened
     row-major, ``sm_scale = C**-0.5`` on the dequantized scores."""
+    if qctx is not None:
+        qctx.tap(prefix, "in", (x,))
     b, h, w, c = x.shape
     h_ = _norm(params[f"{prefix}.norm"], x)
     q = qfunc.qconv2d(qctx, f"{prefix}.q", h_, params[f"{prefix}.q"],
@@ -206,7 +241,10 @@ def _attn(params, prefix: str, x, qctx: Optional[QuantCtx]):
     h_ = h_.reshape(b, h, w, c)
     h_ = qfunc.qconv2d(qctx, f"{prefix}.proj_out", h_,
                        params[f"{prefix}.proj_out"], padding="VALID")
-    return x + h_
+    out = x + h_
+    if qctx is not None:
+        out = qctx.tap(prefix, "out", out)
+    return out
 
 
 def _downsample(params, prefix, x):
@@ -219,7 +257,12 @@ def _downsample(params, prefix, x):
 def _upsample(params, prefix, x, qctx):
     x = fnn.nearest_upsample_2x(x)
     name = f"{prefix}.conv"
-    return qfunc.qconv2d(qctx, name, x, params[name])
+    if qctx is not None:
+        qctx.tap(name, "in", (x,))
+    x = qfunc.qconv2d(qctx, name, x, params[name])
+    if qctx is not None:
+        x = qctx.tap(name, "out", x)
+    return x
 
 
 def time_embedding(params, cfg: DDIMUNetConfig, t: torch.Tensor,
@@ -229,6 +272,17 @@ def time_embedding(params, cfg: DDIMUNetConfig, t: torch.Tensor,
     temb = qfunc.qlinear(qctx, "temb.dense.0", temb, params["temb.dense.0"])
     temb = fnn.swish(temb)
     return qfunc.qlinear(qctx, "temb.dense.1", temb, params["temb.dense.1"])
+
+
+def tib_forward(params, cfg: DDIMUNetConfig, t: torch.Tensor,
+                qctx: Optional[QuantCtx] = None) -> Tuple[torch.Tensor, ...]:
+    """Temporal Information Block: the time-embedding MLP and every
+    temb_proj, returning the tuple of projections
+    (QuantTemporalInformationBlockDDIM.forward, quant_block.py:52-64)."""
+    silu = fnn.swish(time_embedding(params, cfg, t, qctx))
+    return tuple(qfunc.qlinear(qctx, name, silu, params[name])
+                 for kind, name, shape in iter_layers(cfg)
+                 if name.endswith("temb_proj"))
 
 
 def apply(params: Dict[str, dict], cfg: DDIMUNetConfig, x: torch.Tensor,
@@ -246,8 +300,8 @@ def apply(params: Dict[str, dict], cfg: DDIMUNetConfig, x: torch.Tensor,
     curr_res = cfg.resolution
     for i in range(cfg.num_resolutions):
         for j in range(cfg.num_res_blocks):
-            h = _resnet(params, f"down.{i}.block.{j}", hs[-1], silu_temb,
-                        qctx)
+            h = _resnet(params, f"down.{i}.block.{j}", hs[-1], temb,
+                        silu_temb, qctx)
             if curr_res in cfg.attn_resolutions:
                 h = _attn(params, f"down.{i}.attn.{j}", h, qctx)
             hs.append(h)
@@ -256,14 +310,15 @@ def apply(params: Dict[str, dict], cfg: DDIMUNetConfig, x: torch.Tensor,
             curr_res //= 2
 
     h = hs[-1]
-    h = _resnet(params, "mid.block_1", h, silu_temb, qctx)
+    h = _resnet(params, "mid.block_1", h, temb, silu_temb, qctx)
     h = _attn(params, "mid.attn_1", h, qctx)
-    h = _resnet(params, "mid.block_2", h, silu_temb, qctx)
+    h = _resnet(params, "mid.block_2", h, temb, silu_temb, qctx)
 
     for i in reversed(range(cfg.num_resolutions)):
         for j in range(cfg.num_res_blocks + 1):
             h = _resnet(params, f"up.{i}.block.{j}",
-                        torch.cat([h, hs.pop()], dim=-1), silu_temb, qctx)
+                        torch.cat([h, hs.pop()], dim=-1), temb, silu_temb,
+                        qctx)
             if curr_res in cfg.attn_resolutions:
                 h = _attn(params, f"up.{i}.attn.{j}", h, qctx)
         if i != 0:

@@ -1,19 +1,51 @@
-"""PTQ pipeline pieces (port of ``make_schedule`` and
-``generate_cali_data`` in ``tfmq_dm_tpu/pipelines/ptq.py``): the task's
-sampler with its calibration timesteps, and the calibration-data harvest
-in O(T) rollouts with classifier-free guidance for conditioned tasks."""
+"""PTQ pipeline (port of ``tfmq_dm_tpu/pipelines/ptq.py``): the
+quantization knobs and adapter of a task, the task's sampler with its
+calibration timesteps, the calibration-data harvest in O(T) rollouts
+(classifier-free guidance for conditioned tasks) and ``quantize_task``,
+the task's calibration with its reconstruction hyperparameters."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..configs.tasks import TaskConfig, task_betas
+from ..models import ddim_units, ldm_units
+from ..quant.calibrate import cali_model
+from ..quant.recon import ReconHP
 from ..samplers import ddim as ddim_s
 from ..samplers import ldm as ldm_s
 from ..utils.schedules import skip_seq
+
+
+@dataclasses.dataclass
+class QuantArgs:
+    """The reference CLI's quantization knobs
+    (sample_diffusion_ddim.py:13-107)."""
+
+    wq: int = 4
+    aq: int = 8
+    softmax_a_bit: int = 8
+    use_aq: bool = False
+    w_sym: bool = False
+    running_stat: bool = True
+    iters: int = 20000
+    cali_save_path: Optional[str] = "cali.npz"
+
+
+def build_adapter(task: TaskConfig, qargs: QuantArgs):
+    if task.family == "ddim":
+        return ddim_units.build_adapter(task.unet, w_bits=qargs.wq,
+                                        a_bits=qargs.aq,
+                                        softmax_a_bit=qargs.softmax_a_bit,
+                                        w_sym=qargs.w_sym)
+    return ldm_units.build_adapter(task.unet, w_bits=qargs.wq,
+                                   a_bits=qargs.aq,
+                                   softmax_a_bit=qargs.softmax_a_bit,
+                                   use_aq=qargs.use_aq, w_sym=qargs.w_sym)
 
 
 def make_schedule(task: TaskConfig, steps: Optional[int] = None,
@@ -106,3 +138,37 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
     il = task.interval_length
     w_cali = tuple(x[::il].reshape((-1,) + x.shape[2:]) for x in a_cali)
     return w_cali, a_cali, cali_t
+
+
+# calibration samples a capture forward (the JAX package's quantize_task)
+CAPTURE_BATCH = 64
+
+
+def quantize_task(task: TaskConfig, adapter, params, qargs: QuantArgs,
+                  w_cali, a_cali, *, cali_t=None,
+                  generator: Optional[torch.Generator] = None,
+                  resume_dir=None):
+    """The task's TFMQ calibration (reconstruction, then FSC when
+    ``use_aq``) with its reconstruction hyperparameters; saves the
+    artifact to ``qargs.cali_save_path`` and returns (wstate, astate).
+    ``cali_t`` (each group's timestep) goes into the artifact's meta, so
+    that sampling maps its steps to FSC groups at any step count
+    (ptq.py:209-234). ``generator``: as ``cali_model``'s. The ddim
+    family only: the LDM units wait for their slice."""
+    if task.family != "ddim":
+        raise NotImplementedError(
+            f"{task.name}: reconstruction of the LDM family is not ported "
+            "yet (ROADMAP.md queue 1 item 5)")
+    hp = ReconHP(iters=qargs.iters, batch_size=task.recon_batch, w=0.01,
+                 warmup=0.2)
+    meta = {"task": task.name, "wq": qargs.wq, "aq": qargs.aq,
+            "softmax_a_bit": qargs.softmax_a_bit, "use_aq": qargs.use_aq,
+            "steps": int(a_cali[0].shape[0])}
+    if cali_t is not None:
+        meta["cali_t"] = [float(t) for t in np.asarray(cali_t)]
+    return cali_model(adapter, params, w_cali,
+                      a_cali if qargs.use_aq else None, hp=hp,
+                      use_aq=qargs.use_aq, running_stat=qargs.running_stat,
+                      path=qargs.cali_save_path, generator=generator,
+                      meta=meta, capture_batch_size=CAPTURE_BATCH,
+                      resume_dir=resume_dir)

@@ -21,6 +21,7 @@ from ..ops import int_ops
 from ..ops.int4_kernels import pack_int4, unpack_int4
 from ..ops.nn import exact_f32
 from .adapter import ModelAdapter
+from .adaround import adaround_fq
 from .context import QuantCtx
 from .fsc import pack_fsc, slice_fsc, unpack_fsc
 from .policy import QuantPolicy
@@ -109,16 +110,16 @@ def deploy_weights(policy: QuantPolicy, params, wstate: Dict, *,
         w = params[name]["w"]
         if not int_ops.fits_int8(pol.w_cfg):
             # >8-bit grid: materialize the fake-quantized weights offline
-            d = broadcast_channel(st["delta"], w.shape)
-            zp = broadcast_channel(st["zp"], w.shape)
             if "alpha" in st:
-                w_int = torch.floor(w * (1.0 / d)) + \
-                    (st["alpha"] >= 0).to(w.dtype)
+                w_fq = adaround_fq(w, st["delta"], st["zp"], st["alpha"],
+                                   pol.w_cfg, soft=False)
             else:
-                w_int = torch.round(w * (1.0 / d))
-            nb, pb = pol.w_cfg.qrange
-            w_q = torch.clamp(w_int + zp, nb, pb)
-            deployed[name] = int_ops.FPWeight(w=d * (w_q - zp))
+                d = broadcast_channel(st["delta"], w.shape)
+                zp = broadcast_channel(st["zp"], w.shape)
+                nb, pb = pol.w_cfg.qrange
+                w_q = torch.clamp(torch.round(w * (1.0 / d)) + zp, nb, pb)
+                w_fq = d * (w_q - zp)
+            deployed[name] = int_ops.FPWeight(w=w_fq)
             continue
         iw = int_ops.quantize_weight_int(w, st["delta"], st["zp"],
                                          pol.w_cfg, alpha=st.get("alpha"))

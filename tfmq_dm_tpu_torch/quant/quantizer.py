@@ -8,9 +8,9 @@ quantizer params are plain tensors ``delta`` / ``zero_point``.
 The arithmetic follows the JAX code operation for operation, in float32,
 so that integer codes and (delta, zero_point) come out bit-equal:
 quantize as ``x * (1.0 / delta)`` (never ``x / delta``), round half to
-even (``torch.round``, like ``jnp.round``). Nothing here trains, so there
-are no straight-through gradients; the KL and histogram scalers wait for
-the calibration slice.
+even (``torch.round``, like ``jnp.round``). The reconstruction losses and
+the running-stat (EMA) range update are here too; the straight-through
+rounding and the KL and histogram scalers wait for the act-phase slice.
 """
 
 from __future__ import annotations
@@ -159,3 +159,24 @@ def qparams_from_range(x_min: torch.Tensor, x_max: torch.Tensor,
     clamped to include 0)."""
     return _delta_zp_from_range(torch.clamp(x_min, max=0.0),
                                 torch.clamp(x_max, min=0.0), cfg)
+
+
+def ema_range_update(x: torch.Tensor, x_min: torch.Tensor,
+                     x_max: torch.Tensor, momentum: float = 0.95):
+    """Running-stat EMA of an activation range (quant_layer.py:229-244)."""
+    new_min = x_min * momentum + torch.min(x) * (1.0 - momentum)
+    new_max = x_max * momentum + torch.max(x) * (1.0 - momentum)
+    return new_min, new_max
+
+
+def lp_loss(pred: torch.Tensor, tgt: torch.Tensor, p: float = 2.0,
+            channel_axis: int = -1) -> torch.Tensor:
+    """|pred - tgt|^p summed over the channel axis (the last: tensors are
+    channel-last), averaged over the rest (quant_layer.py:146-156)."""
+    return torch.mean(torch.sum(torch.abs(pred - tgt) ** p,
+                                dim=channel_axis))
+
+
+def lp_loss_all(pred: torch.Tensor, tgt: torch.Tensor,
+                p: float = 2.0) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - tgt) ** p)
