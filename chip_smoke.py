@@ -74,11 +74,23 @@ when one is exceeded):
               reference's Lightning layout (UNet, VQ-f4 decoder, class
               embedding) in a temporary directory, a 20-step calibration
               harvest at batch 2 x CFG (flash fp), the FSC init pass, then
-              ``cli.main`` samples 2 images in 20 DDIM steps with the int4
-              and flash int8 kernels; the same with the plain versions and
-              in FP; one deployed UNet forward, kernels against plain
-              versions; and a 4-step sample with a 16-bit softmax grid
-              (flash pquant). Launch counts are read around each run.
+              ``cli.main --ptq --cali`` calibrates the checkpoint at full
+              width on the card (a CFG harvest of ``LDM_CALI_STEPS`` steps
+              x ``LDM_CALI_N`` samples, flash fp counted around it;
+              TIAR/AdaRound reconstruction of all 74 units with
+              ``LDM_CALI_ITERS`` iterations each; running-stat FSC),
+              printing the calibration's seconds, each unit's first and
+              last loss, the guard's and the residency decisions, and
+              failing unless every trained layer carries an alpha, one
+              unit at least keeps its trained alphas and the running-stat
+              pass ran. ``cli.main`` samples 2 images in 20 DDIM steps
+              with the int4 and flash int8 kernels from the init-only
+              artifact and from the reconstructed one; the same with the
+              plain versions (latents >= 30 dB) and in FP (quantized vs
+              FP latents printed for both artifacts); one deployed UNet
+              forward, kernels against plain versions; and a 4-step
+              sample with a 16-bit softmax grid (flash pquant). Launch
+              counts are read around each run.
 6. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
               ``--int-kernels --deploy_dtype bfloat16`` (20 steps, the ldm
               phase's checkpoint and artifact; fqk, int8_matmul_pre and the
@@ -223,6 +235,13 @@ NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "timing runs, the micro_gn twin's included")
 # cin256 images per batch (the UNet sees twice as many: CFG)
 CIN_N = 2
+# phase ldm's full-width calibration through the CLI, cut to the phase's
+# time: sampler steps of the harvest (the task's 20), samples a step (the
+# task's 512; with CFG twice as many rows, 16: the FSC running-stat
+# pass's batch, so that the pass runs) and reconstruction iterations a
+# unit (the task's 20000); 74 units train (the TIB and 73 blocks and
+# layers; the input conv is kept out by the policy)
+LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS, LDM_UNITS = 2, 8, 30, 74
 
 
 class PhaseTimeout(Exception):
@@ -493,11 +512,12 @@ def profile_sampling(cfg, dev, argv: list, steps: int) -> dict:
                           f"{steps}-step sample")
 
 
-def check_calibration(cfg, art: str, dev) -> dict:
-    """Read the CLI's artifact: per-unit losses and guard decisions, an
-    alpha for every layer that reconstruction trains, at least one unit on
-    its trained alphas, and an FSC state for every step."""
-    from tfmq_dm_tpu_torch.models import ddim_units
+def check_calibration(adapter, art: str, dev, n_units: int) -> dict:
+    """Read the CLI's artifact: per-unit losses and guard decisions, the
+    residency decisions, an alpha for every layer that reconstruction
+    trains, at least one unit on its trained alphas, and an FSC state for
+    every step, with the running-stat pass run where the artifact says
+    it ran."""
     from tfmq_dm_tpu_torch.quant.calibrate import load_cali_model
 
     wstate, astate, meta = load_cali_model(art, device=dev)
@@ -508,14 +528,16 @@ def check_calibration(cfg, art: str, dev) -> dict:
               f"{u['hard_nearest']:.6f}, trained {u['hard_trained']:.6f}: "
               f"keep {u['kept']}", flush=True)
     kept = sum(u["kept"] == "trained" for u in units.values())
+    res = meta["recon"]["residency"]
     print(f"   guard: {kept} of {len(units)} units kept their trained "
-          f"alphas, {len(units) - kept} reverted to nearest rounding",
-          flush=True)
-    adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8)
+          f"alphas, {len(units) - kept} reverted to nearest rounding; "
+          f"residency: FP outputs {res['fp_out_cache']} "
+          f"({res['fp_out_gib']:.3f} GiB float16), units cached on the "
+          f"host {res['host'] or 'none'}; FSC {meta['fsc']}", flush=True)
     trained = [full for u in adapter.units for role, full in u.layers
                if role in adapter.default_train_roles(u)]
     missing = [n for n in trained if "alpha" not in wstate.get(n, {})]
-    if missing or len(units) != 32:
+    if missing or len(units) != n_units:
         raise AssertionError(f"reconstruction: {len(units)} units, no "
                              f"alpha for {missing}")
     if kept == 0:
@@ -525,8 +547,12 @@ def check_calibration(cfg, art: str, dev) -> dict:
     if groups != {len(meta["cali_t"])}:
         raise AssertionError(f"FSC groups {groups}, expected "
                              f"{len(meta['cali_t'])}")
+    if not meta["fsc"]["ema_batches"] > 0:
+        raise AssertionError(f"the running-stat FSC pass did not run: "
+                             f"{meta['fsc']}")
     return {"units": len(units), "kept_trained": kept,
-            "layers_with_alpha": len(trained)}
+            "layers_with_alpha": len(trained), "residency": res,
+            "fsc": meta["fsc"]}
 
 
 def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
@@ -564,7 +590,9 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     print(f"   cli.main --ptq --cali (harvest {steps} steps x {CALI_N}, "
           f"reconstruction of every unit at {CALI_ITERS} iterations, "
           f"running-stat FSC): {cali_s:.2f} s", flush=True)
-    recon = check_calibration(cfg, art, dev)
+    recon = check_calibration(ddim_units.build_adapter(cfg, w_bits=4,
+                                                       a_bits=8),
+                              art, dev, n_units=32)
 
     t0 = time.perf_counter()
     params, _ = load_params(str(ckpt), device=dev)
@@ -1055,6 +1083,46 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int,
     torch.save({"state_dict": sd}, path)
 
 
+def calibrate_ldm(task, ckpt: str, tmp: Path, dev) -> dict:
+    """Calibrate the full-width checkpoint on the card through the port's
+    CLI (``cli.main --ptq --cali``): a CFG harvest (flash fp, the only
+    hand-written kernel of the calibration: reconstruction and FSC run
+    plain PyTorch, as the JAX package's run plain XLA), TIAR/AdaRound
+    reconstruction of every unit, running-stat FSC; launch counts are
+    read around the call. Returns the check's record and the artifact's
+    path."""
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.models import ldm_units
+
+    art = str(tmp / "cali_recon.npz")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["--task", task.name, "--ckpt", ckpt, "--ptq", "--cali",
+                   "--wq", "4", "--aq", "8", "--use_aq", "--classes", "1,2",
+                   "--timesteps", str(LDM_CALI_STEPS), "--cali_n",
+                   str(LDM_CALI_N), "--cali_iters", str(LDM_CALI_ITERS),
+                   "--cali_save_path", art, "--seed", str(SEED),
+                   "--device", dev.type])
+    sync(dev)
+    cali_s = time.perf_counter() - t0
+    counts = all_counts()
+    if rc != 0:
+        raise RuntimeError(f"cli.main --cali ({task.name}) returned {rc}")
+    print(f"   cli.main --ptq --cali {task.name} at full width (cuts: "
+          f"harvest {LDM_CALI_STEPS} steps x {LDM_CALI_N} x CFG, not the "
+          f"task's {task.steps} x {task.cali_n}; {LDM_CALI_ITERS} "
+          f"iterations a unit, not 20000): {cali_s:.2f} s; launches "
+          f"{counts}", flush=True)
+    if counts["flash_fp"] < 5 * LDM_CALI_STEPS:
+        raise AssertionError(f"harvest: flash_fp launched "
+                             f"{counts['flash_fp']} times, expected >= "
+                             f"{5 * LDM_CALI_STEPS}")
+    adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
+                                      use_aq=True)
+    return {"art": art, "seconds": cali_s, "launches": counts,
+            **check_calibration(adapter, art, dev, n_units=LDM_UNITS)}
+
+
 def drive_ldm_path(dev, tmp: Path, steps: int = 20,
                    pq_steps: int = 4) -> dict:
     """The cin256_v2 w4a8 int4-serving path at full width: checkpoint,
@@ -1116,6 +1184,7 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
           f"{time.perf_counter() - t0:.2f} s; harvest launches "
           f"{harvest}", flush=True)
     del params, a_cali
+    recon = calibrate_ldm(task, ckpt, tmp, dev)
 
     common = ["--task", task_name, "--ckpt", ckpt, "--classes", "1,2",
               "-n", str(n), "--batch", str(n), "--seed", str(SEED),
@@ -1155,6 +1224,29 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
                                "--use_aq", "--int-kernels",
                                "--int4-serving", "--softmax_a_bit",
                                "16", "--timesteps", str(pq_steps)])
+    # the reconstructed artifact, sampled as the init-only one above
+    quant_recon = ["--ptq", "--cali_ckpt", recon["art"], "--use_aq",
+                   "--int-kernels", "--int4-serving"]
+    run("recon", common + quant_recon + ["--timesteps", str(steps)])
+    run("recon_plain", common + quant_recon + ["--timesteps", str(steps)],
+        plain=True)
+    for kern in ("int4_conv2d", "int4_linear", "flash_int8"):
+        got, ref = (runs[r]["launches"][kern] for r in ("recon",
+                                                         "deployed"))
+        if got != ref:
+            raise AssertionError(f"recon: {kern} launched {got} times, "
+                                 f"the init-only artifact's run {ref}")
+    p_rec = latent_psnr(runs["recon"]["lat"], runs["recon_plain"]["lat"])
+    p_rec_fp = latent_psnr(runs["recon"]["lat"], runs["fp"]["lat"])
+    print(f"   reconstructed artifact: latents kernels vs plain versions "
+          f"{p_rec:.2f} dB; quantized vs FP latents (information) "
+          f"{p_rec_fp:.2f} dB reconstructed, "
+          f"{latent_psnr(runs['deployed']['lat'], runs['fp']['lat']):.2f}"
+          f" dB minmax grids and the FSC init pass", flush=True)
+    if not p_rec >= MIN_LATENT_PSNR_DB:
+        raise AssertionError(f"reconstructed artifact: latent PSNR "
+                             f"kernels vs plain {p_rec:.2f} dB < "
+                             f"{MIN_LATENT_PSNR_DB}")
     need = [("deployed", "flash_int8", 5 * steps),
             ("deployed", "int4_conv2d", 1),
             ("deployed", "int4_linear", 1),
@@ -1223,6 +1315,9 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
             "psnr_quant_vs_fp": p_qf, "forward_max_rel": f_max,
             "forward_mean_rel": f_mean, "noise_mean_rel": n_mean,
             "profile": prof, "ckpt": ckpt, "art": arts[8], "steps": steps,
+            "calibration": {k: v for k, v in recon.items() if k != "art"},
+            "psnr_latents_recon_kernel_vs_plain": p_rec,
+            "psnr_latents_recon_vs_fp": p_rec_fp,
             "fp_lat": runs["fp"]["lat"], "fp_img": runs["fp"]["img"]}
 
 
@@ -2225,6 +2320,10 @@ def run() -> None:
         "psnr_images_kernel_vs_plain_db":
             ldm["psnr_images_kernel_vs_plain"],
         "psnr_quant_vs_fp_db": ldm["psnr_quant_vs_fp"],
+        "calibration": ldm["calibration"],
+        "psnr_latents_recon_kernel_vs_plain_db":
+            ldm["psnr_latents_recon_kernel_vs_plain"],
+        "psnr_latents_recon_vs_fp_db": ldm["psnr_latents_recon_vs_fp"],
         "forward_max_rel": ldm["forward_max_rel"],
         "forward_mean_rel": ldm["forward_mean_rel"],
         "forward_noise_mean_rel": ldm["noise_mean_rel"],

@@ -12,7 +12,8 @@ calibrate-then-exit CLI, against the JAX package's, on the CPU.
   load, with the keys (and the meta) of the artifact the JAX CLI writes
   at the same flags, plus the port's reconstruction record; the port then
   samples from it with the int4-serving deployment; ``--cali`` on an LDM
-  task exits non-zero.
+  task without a checkpoint exits non-zero (the LDM family's calibration
+  is test_torch_ldm_cali_cli.py's).
 
 The reconstruction comparison runs at the CLI's shapes and settings (20
 samples, minibatches of 4, 32 iterations, captures in one batch), so that
@@ -208,8 +209,8 @@ def test_cli_cali_artifact_has_the_jax_clis_keys(cli_artifacts):
         {k: sorted(v) for k, v in rw.items()}
     assert sorted(jast) == sorted(tast) == sorted(rast)
     assert tmeta == jmeta
-    # the JAX CLI's meta, plus the port's reconstruction record
-    assert set(tmeta) - set(rmeta) == {"recon"}
+    # the JAX CLI's meta, plus the port's reconstruction and FSC records
+    assert set(tmeta) - set(rmeta) == {"recon", "fsc"}
     for k in rmeta:
         assert tmeta[k] == rmeta[k], k
     units = tmeta["recon"]["units"]
@@ -232,10 +233,12 @@ def test_cli_samples_from_its_calibrated_artifact(cli_artifacts):
 
 
 def test_cli_cali_refuses_an_ldm_task(tmp_path):
+    """An LDM task calibrates from its Lightning checkpoint only: without
+    ``--ckpt`` the CLI refuses it."""
     with pytest.raises(SystemExit) as e:
-        cli.main(["--task", "tiny_cin", "--ptq", "--cali", "--ckpt",
-                  str(tmp_path / "none.ckpt"), "--device", "cpu"])
-    assert "ROADMAP.md queue 1 item 5" in str(e.value.code)
+        cli.main(["--task", "tiny_cin", "--ptq", "--cali", "--device",
+                  "cpu"])
+    assert "needs --ckpt" in str(e.value.code)
     with pytest.raises(SystemExit) as e:
         cli.main(["--task", "tiny_ddim", "--cali", "--device", "cpu"])
     assert "--ptq" in str(e.value.code)

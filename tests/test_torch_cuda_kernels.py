@@ -1022,3 +1022,67 @@ def test_cuda_reconstruct_unit_matches_cpu(cuda, name):
             eq += int((a == b).sum())
             tot += a.numel()
     assert tot > 0 and eq / tot >= RECON_HARD_EQUAL
+
+
+@pytest.mark.parametrize("cache", ["device", "host"])
+def test_cuda_reconstruct_ldm_unit_matches_cpu(cuda, cache, monkeypatch):
+    """``reconstruct_unit`` of a transformer block of the tiny SD UNet (32
+    iterations, a fixed minibatch sequence) on the card and on the CPU
+    from the same cached I/O, the cache on the device or in host memory
+    (float16 numpy, chunks of 5 of its 12 rows uploaded in turn, one
+    CUDA graph a chunk on the card): the limits of the test above."""
+    from tfmq_dm_tpu_torch.models import ldm_unet as L
+    from tfmq_dm_tpu_torch.models import ldm_units as LU
+    from tfmq_dm_tpu_torch.quant import recon as R
+
+    cfg = L.tiny_sd_config()
+    g = torch.Generator().manual_seed(1)
+    params = L.init_params(g, cfg)
+    cali = (torch.randn((12, 8, 8, 3), generator=g),
+            torch.randint(0, 100, (12,), generator=g, dtype=torch.int32),
+            torch.randn((12, 5, cfg.context_dim), generator=g))
+    adapter = LU.build_adapter(cfg, w_bits=4, a_bits=8, use_aq=True)
+    wstate = R.init_weight_qparams(adapter.policy, params, scaler="minmax")
+    name = "input_blocks.3.1.transformer_blocks.0"
+    unit = adapter.unit_by_name(name)
+    fp_out = R.precapture_fp_outs(adapter, [name], params, cali,
+                                  batch_size=8)[name]
+    inputs, outputs = R.capture_unit_io(adapter, unit, params, cali, wstate,
+                                        fp_out, batch_size=8,
+                                        to_host=cache == "host")
+    if cache == "host":
+        monkeypatch.setattr(R, "_HOST_CHUNK_BYTES",
+                            5 * R._bytes_per_row(inputs, outputs))
+    hp = R.ReconHP(iters=32, batch_size=4)
+    seq = [torch.stack([torch.randperm(5 if cache == "host" else 12,
+                                       generator=g)[:4] for _ in range(it)])
+           for it in ((10, 10, 12) if cache == "host" else (32,))]
+
+    def on(dev, tree):
+        if isinstance(tree, dict):
+            return {k: on(dev, v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(on(dev, v) for v in tree)
+        return tree if not isinstance(tree, torch.Tensor) else tree.to(dev)
+
+    runs = {}
+    for dev in ("cpu", cuda):
+        calls = iter(seq)
+        stats = {}
+        w2, losses = R.reconstruct_unit(
+            adapter, unit, on(dev, params), on(dev, wstate),
+            on(dev, inputs), on(dev, outputs), hp, stats=stats,
+            indices=lambda u, n, bs, it: next(calls))
+        runs[str(dev)] = (w2, losses, stats[name])
+    (wc, lc, sc), (wg, lg, sg) = runs["cpu"], runs[str(cuda)]
+    assert lg.device.type == "cuda" and lg.shape == (hp.iters,)
+    assert torch.all((lg.cpu() - lc).abs() <= RECON_LOSS_REL * lc.abs())
+    assert sg["kept"] == sc["kept"]
+    eq = tot = 0
+    for _, full in unit.layers:
+        if "alpha" in wc.get(full, {}):
+            assert wg[full]["alpha"].device.type == "cuda"
+            a, b = wc[full]["alpha"] >= 0, wg[full]["alpha"].cpu() >= 0
+            eq += int((a == b).sum())
+            tot += a.numel()
+    assert tot > 0 and eq / tot >= RECON_HARD_EQUAL

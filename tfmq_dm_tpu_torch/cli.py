@@ -2,13 +2,17 @@
 (``cin256_v2``) subset of ``tfmq_dm_tpu/cli.py``, with their CPU
 miniatures ``tiny_ddim`` and ``tiny_cin``.
 
-Calibrate, then exit (the reference's ``--cali``; the ddim family): harvest
-``--cali_n`` samples per sampler step, reconstruct every unit with
-AdaRound (``--cali_iters`` iterations each), run FSC (running-stat unless
-``--no_running_stat``) and write the artifact:
+Calibrate, then exit (the reference's ``--cali``): harvest ``--cali_n``
+samples per sampler step (class-conditional tasks with classifier-free
+guidance, each step's rows unconditional and conditional), reconstruct
+every unit with AdaRound (``--cali_iters`` iterations each), run FSC
+(running-stat unless ``--no_running_stat``) and write the artifact:
 
   python -m tfmq_dm_tpu_torch.cli --task cifar10 --ptq --cali --wq 4 \\
       --aq 8 --use_aq --cali_save_path cali.npz
+
+  python -m tfmq_dm_tpu_torch.cli --task cin256_v2 --ckpt cin256-v2.ckpt \\
+      --ptq --cali --wq 4 --aq 8 --use_aq --cali_save_path cali.npz
 
 Quantized sampling with the hand-written kernels, from a calibration
 artifact (either package's):
@@ -326,35 +330,48 @@ def resolve_device(args) -> torch.device:
 
 
 def calibrate(args) -> None:
-    """The calibrate-then-exit flow (cli.py:244-314) of the ddim family:
-    harvest, reconstruction and FSC, the artifact at
+    """The calibrate-then-exit flow (cli.py:244-314): harvest (with CFG
+    for a class-conditional task: ``--scale`` or the task's, the classes
+    of ``--classes``), reconstruction and FSC, the artifact at
     ``--cali_save_path``."""
     log = logging.getLogger("tfmq_torch")
     device = resolve_device(args)
     exact_f32()
     task = get_task(args.task)
-    if task.family != "ddim":
-        raise SystemExit(f"--cali: calibration of {task.name} (the LDM "
-                         "family) needs the LDM reconstruction units, not "
-                         "ported yet (ROADMAP.md queue 1 item 5)")
     if not args.ckpt and task.name != "cifar10":
         raise SystemExit(f"--task {task.name} needs --ckpt")
     if args.interval_length is not None:
         task = dataclasses.replace(task,
                                    interval_length=args.interval_length)
-    params, _ = load_params(args.ckpt or str(DEFAULT_CKPT), device=device)
+    n_per_t = args.cali_n or task.cali_n
+    ctx = uc = None
+    if task.family == "ddim":
+        params, _ = load_params(args.ckpt or str(DEFAULT_CKPT),
+                                device=device)
+
+        def fp_apply(x, t, c):
+            return ddim_unet.apply(params, task.unet, x, t)
+    else:
+        params, _, cond_params = load_ldm_checkpoint(args.ckpt, task,
+                                                     device=device)
+        if cond_params is None:
+            raise SystemExit(f"{args.ckpt}: no cond_stage_model.embedding")
+        ctx, uc = class_context(cond_params, args.classes, n_per_t, device)
+
+        def fp_apply(x, t, c):
+            return ldm_unet.apply(params, task.unet, x, t, context=c)
     qargs = ptq.QuantArgs(
         wq=args.wq, aq=args.aq, softmax_a_bit=args.softmax_a_bit,
         use_aq=args.use_aq, w_sym=args.w_sym,
         running_stat=not args.no_running_stat, iters=args.cali_iters,
         cali_save_path=args.cali_save_path)
     adapter = ptq.build_adapter(task, qargs)
-    n_per_t = args.cali_n or task.cali_n
     generator = torch.Generator().manual_seed(args.seed)
     log.info("harvesting calibration data (%d per step)", n_per_t)
     w_cali, a_cali, cali_t = ptq.generate_cali_data(
-        task, lambda x, t, c: ddim_unet.apply(params, task.unet, x, t),
-        generator, n_per_t=n_per_t, steps=args.timesteps, device=device)
+        task, fp_apply, generator, n_per_t=n_per_t, context=ctx,
+        uncond=uc, cfg_scale=args.scale, steps=args.timesteps,
+        device=device)
     log.info("calibrating -> %s", args.cali_save_path)
     ptq.quantize_task(task, adapter, params, qargs, w_cali, a_cali,
                       cali_t=cali_t, generator=generator,

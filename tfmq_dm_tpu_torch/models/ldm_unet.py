@@ -11,8 +11,11 @@ inventory all walk it. Every quantizable call site goes through
 follow QuantBasicTransformerBlock / QuantQKMatMul / QuantSMVMatMul.
 
 Conditioning: cross-attention context (cin256-v2 class embeddings, SD
-text) and label embeddings (``num_classes``). The reconstruction capture
-tape of the JAX package waits for the calibration slice.
+text) and label embeddings (``num_classes``). Reconstruction units tap
+their boundaries through ``QuantCtx.tap`` (res blocks ``(x, emb_out)``,
+attention blocks ``(x,)``, transformer blocks ``(x, context)``, the
+``proj_in``/``proj_out`` layers, the upsample convs and the input conv
+``(x,)``, each -> out); a tap returns its value unchanged.
 """
 
 from __future__ import annotations
@@ -301,7 +304,10 @@ def _lnorm(p, x):
 
 
 def _res_forward(params, cfg, s: Sub, x, emb_out, qctx):
-    """ResBlock._forward (openaimodel.py:255-277)."""
+    """ResBlock._forward (openaimodel.py:255-277) with the emb projection
+    computed by the caller (:func:`res_emb_out`; the TIB shares it)."""
+    if qctx is not None:
+        qctx.tap(s.prefix, "in", (x, emb_out))
     h = fnn.swish(_norm(params[f"{s.prefix}.in_layers.0"], x))
     if s.updown == 1:
         h = fnn.nearest_upsample_2x(h)
@@ -324,12 +330,24 @@ def _res_forward(params, cfg, s: Sub, x, emb_out, qctx):
     sc = params.get(f"{s.prefix}.skip_connection")
     if sc is not None:
         x = fnn.conv2d(x, sc["w"], sc.get("b"), padding="VALID")
-    return x + h
+    out = x + h
+    if qctx is not None:
+        out = qctx.tap(s.prefix, "out", out)
+    return out
+
+
+def res_emb_out(params, prefix: str, silu_emb, qctx):
+    """emb_layers projection, Sequential(SiLU, Linear): the quantized
+    linear ``emb_layers.1`` (quant_emb, trained in the TIB)."""
+    return qfunc.qlinear(qctx, f"{prefix}.emb_layers.1", silu_emb,
+                         params[f"{prefix}.emb_layers.1"])
 
 
 def _attn_forward(params, s: Sub, x, qctx):
     """AttentionBlock + QKVAttentionLegacy with the QKMatMul/SMVMatMul
     quant sites (openaimodel.py:280-326, 349-405)."""
+    if qctx is not None:
+        qctx.tap(s.prefix, "in", (x,))
     b, hh, ww, c = x.shape
     t = hh * ww
     xs = x.reshape(b, t, c)
@@ -348,7 +366,10 @@ def _attn_forward(params, s: Sub, x, qctx):
         out_dtype=x.dtype)
     h_ = qfunc.qlinear(qctx, f"{s.prefix}.proj_out", a.reshape(b, t, c),
                        params[f"{s.prefix}.proj_out"])
-    return (xs + h_).reshape(b, hh, ww, c)
+    out = (xs + h_).reshape(b, hh, ww, c)
+    if qctx is not None:
+        out = qctx.tap(s.prefix, "out", out)
+    return out
 
 
 def _cross_attn(params, prefix: str, x, context, heads: int, d_head: int,
@@ -384,6 +405,8 @@ def _cross_attn(params, prefix: str, x, context, heads: int, d_head: int,
 def _transformer_block(params, prefix: str, x, context, heads, d_head,
                        qctx, kv_cache=None):
     """BasicTransformerBlock._forward (attention.py:209-213)."""
+    if qctx is not None:
+        qctx.tap(prefix, "in", (x, context))
     x = _cross_attn(params, f"{prefix}.attn1",
                     _lnorm(params[f"{prefix}.norm1"], x), None, heads,
                     d_head, qctx) + x
@@ -397,15 +420,29 @@ def _transformer_block(params, prefix: str, x, context, heads, d_head,
                       params[f"{prefix}.ff.net.0.proj"])
     h = qfunc.qlinear(qctx, f"{prefix}.ff.net.2", fnn.geglu(h),
                       params[f"{prefix}.ff.net.2"])
-    return h + x
+    x = h + x
+    if qctx is not None:
+        x = qctx.tap(prefix, "out", x)
+    return x
+
+
+def _tapped_conv(params, name: str, x, qctx, padding="SAME"):
+    """A standalone quantized conv reconstructed as a unit of its own:
+    taps ``(x,)`` -> out around it."""
+    if qctx is not None:
+        qctx.tap(name, "in", (x,))
+    x = qfunc.qconv2d(qctx, name, x, params[name], padding=padding)
+    if qctx is not None:
+        x = qctx.tap(name, "out", x)
+    return x
 
 
 def _strans_forward(params, s: Sub, x, context, qctx, kv_cache=None):
     """SpatialTransformer.forward (attention.py:241-260)."""
     b, hh, ww, _ = x.shape
     h = _norm(params[f"{s.prefix}.norm"], x)
-    h = qfunc.qconv2d(qctx, f"{s.prefix}.proj_in", h,
-                      params[f"{s.prefix}.proj_in"], padding="VALID")
+    h = _tapped_conv(params, f"{s.prefix}.proj_in", h, qctx,
+                     padding="VALID")
     inner = s.heads * s.d_head
     h = h.reshape(b, hh * ww, inner)
     for d in range(s.depth):
@@ -413,8 +450,8 @@ def _strans_forward(params, s: Sub, x, context, qctx, kv_cache=None):
                                h, context, s.heads, s.d_head, qctx,
                                kv_cache=kv_cache)
     h = h.reshape(b, hh, ww, inner)
-    h = qfunc.qconv2d(qctx, f"{s.prefix}.proj_out", h,
-                      params[f"{s.prefix}.proj_out"], padding="VALID")
+    h = _tapped_conv(params, f"{s.prefix}.proj_out", h, qctx,
+                     padding="VALID")
     return h + x
 
 
@@ -425,9 +462,8 @@ def _downsample(params, s: Sub, x):
 
 
 def _upsample(params, s: Sub, x, qctx):
-    x = fnn.nearest_upsample_2x(x)
-    name = f"{s.prefix}.conv"
-    return qfunc.qconv2d(qctx, name, x, params[name])
+    return _tapped_conv(params, f"{s.prefix}.conv",
+                        fnn.nearest_upsample_2x(x), qctx)
 
 
 def time_embedding(params, cfg: LDMUNetConfig, t: torch.Tensor,
@@ -446,6 +482,18 @@ def time_embedding(params, cfg: LDMUNetConfig, t: torch.Tensor,
     return emb
 
 
+def tib_forward(params, cfg: LDMUNetConfig, t: torch.Tensor,
+                y: Optional[torch.Tensor] = None,
+                qctx: Optional[QuantCtx] = None) -> Tuple[torch.Tensor, ...]:
+    """Temporal Information Block: time_embed and every emb_layers
+    projection (QuantTemporalInformationBlock.forward,
+    quant_block.py:101-115)."""
+    silu = fnn.swish(time_embedding(params, cfg, t, y, qctx))
+    return tuple(qfunc.qlinear(qctx, name, silu, params[name])
+                 for _, name, _ in iter_layers(cfg)
+                 if name.endswith("emb_layers.1"))
+
+
 def apply(params: Dict[str, dict], cfg: LDMUNetConfig, x: torch.Tensor,
           t: torch.Tensor, context: Optional[torch.Tensor] = None,
           y: Optional[torch.Tensor] = None,
@@ -460,10 +508,9 @@ def apply(params: Dict[str, dict], cfg: LDMUNetConfig, x: torch.Tensor,
 
     def run_sub(s: Sub, h):
         if s.kind == "conv":
-            return qfunc.qconv2d(qctx, s.prefix, h, params[s.prefix])
+            return _tapped_conv(params, s.prefix, h, qctx)
         if s.kind == "res":
-            eo = qfunc.qlinear(qctx, f"{s.prefix}.emb_layers.1", silu_emb,
-                               params[f"{s.prefix}.emb_layers.1"])
+            eo = res_emb_out(params, s.prefix, silu_emb, qctx)
             return _res_forward(params, cfg, s, h, eo, qctx)
         if s.kind == "attn":
             return _attn_forward(params, s, h, qctx)

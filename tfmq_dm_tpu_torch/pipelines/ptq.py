@@ -95,12 +95,14 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
                        cfg_scale: Optional[float] = None,
                        steps: Optional[int] = None,
                        rollout_batch: Optional[int] = None,
+                       noise: Optional[torch.Tensor] = None,
                        device="cuda"):
     """Harvest (x_t, t[, c]) at every sampler step in O(T) rollouts.
 
     ``fp_apply(x, t, c) -> eps`` is the FP UNet. The starting noise (and
     that of stochastic steps) is drawn with ``generator`` (a CPU
-    generator), one rollout batch at a time. With conditioning, each
+    generator), one rollout batch at a time; ``noise`` (n_per_t, H, W,
+    C) replaces the starting noise's draws. With conditioning, each
     rollout uses CFG and every group holds the rows [(x, t, uc);
     (x, t, c)] (data_generate.py:13-49).
 
@@ -113,7 +115,9 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
     done = 0
     while done < n_per_t:
         b = min(rollout_batch, n_per_t - done)
-        x0 = torch.randn((b,) + shape, generator=generator).to(device)
+        x0 = torch.randn((b,) + shape, generator=generator) \
+            if noise is None else noise[done:done + b]
+        x0 = x0.to(device)
         if context is not None:
             scale = task.cfg_scale if cfg_scale is None else cfg_scale
             model_fn = ldm_s.make_cfg_model_fn(
@@ -153,12 +157,10 @@ def quantize_task(task: TaskConfig, adapter, params, qargs: QuantArgs,
     artifact to ``qargs.cali_save_path`` and returns (wstate, astate).
     ``cali_t`` (each group's timestep) goes into the artifact's meta, so
     that sampling maps its steps to FSC groups at any step count
-    (ptq.py:209-234). ``generator``: as ``cali_model``'s. The ddim
-    family only: the LDM units wait for their slice."""
-    if task.family != "ddim":
-        raise NotImplementedError(
-            f"{task.name}: reconstruction of the LDM family is not ported "
-            "yet (ROADMAP.md queue 1 item 5)")
+    (ptq.py:209-234); with the task's name and the bits it holds what the
+    CLI checks before it samples from the artifact. ``generator``: as
+    ``cali_model``'s. For a conditioned task ``w_cali``/``a_cali`` carry
+    the context (``generate_cali_data``)."""
     hp = ReconHP(iters=qargs.iters, batch_size=task.recon_batch, w=0.01,
                  warmup=0.2)
     meta = {"task": task.name, "wq": qargs.wq, "aq": qargs.aq,

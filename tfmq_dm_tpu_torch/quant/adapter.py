@@ -8,8 +8,8 @@ needs to know of a model (port of ``tfmq_dm_tpu/quant/adapter.py``).
 - ``forward``: the full-model forward threading a QuantCtx (capture
   passes, FSC passes and inference).
 
-An adapter without units (the LDM family's, until its reconstruction
-slice) serves the FSC init pass, deployment and sampling only.
+An adapter without units serves the FSC init pass, deployment and
+sampling only (the tests' adapters around a few act sites).
 """
 
 from __future__ import annotations

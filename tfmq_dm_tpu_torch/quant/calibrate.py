@@ -12,6 +12,7 @@ and FSC only, the nearest-rounding artifact.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -19,10 +20,17 @@ import torch
 from ..ops.nn import exact_f32
 from .adapter import ModelAdapter
 from .artifact import load_artifact, save_artifact
-from .fsc import fsc_calibrate
+from .fsc import EMA_BATCH, fsc_calibrate
 from .recon import ReconHP, init_weight_qparams, reconstruct
 
 logger = logging.getLogger(__name__)
+
+
+def _wall() -> float:
+    """Wall seconds after the card's queued work, if CUDA is in use."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return time.perf_counter()
 
 
 def cali_model(adapter: ModelAdapter, params,
@@ -35,20 +43,28 @@ def cali_model(adapter: ModelAdapter, params,
                init_samples: int = 16, meta: Optional[dict] = None,
                capture_batch_size: int = 128,
                resume_dir: Optional[str] = None,
-               recon_stats: Optional[dict] = None
+               recon_stats: Optional[dict] = None,
+               seconds: Optional[dict] = None
                ) -> Tuple[Dict, Optional[Dict]]:
-    """Full PTQ calibration. ``w_cali_data``: sample-major tuple (x, t)
-    for reconstruction; ``a_cali_data``: group-major tuple (G, N, ...)
-    for FSC (needed when ``use_aq``). Returns (wstate, astate).
+    """Full PTQ calibration. ``w_cali_data``: sample-major tuple (x, t[,
+    c]) for reconstruction; ``a_cali_data``: group-major tuple (G, N, ...)
+    for FSC (needed when ``use_aq``); with conditioning each group holds
+    the rows [(x, t, uc); (x, t, c)] (``ptq.generate_cali_data``).
+    Returns (wstate, astate).
 
     ``generator`` (a CPU generator; seed 0 when None) seeds the
     reconstruction with one draw, then draws FSC's subsets.
     ``recon_stats`` collects each unit's record: its first and last
     reconstruction loss and the guard's record (``recon.reconstruct_unit``),
     also for units resumed from ``resume_dir``. With reconstruction the
-    artifact's meta holds the same records under "recon". TF32 is off for
-    the whole calibration (``ops.nn.exact_f32``)."""
+    artifact's meta holds the same records under "recon", with the
+    reconstruction's residency decisions (``recon.reconstruct``).
+    With FSC the meta's "fsc" holds its groups, rows a group and
+    running-stat batches a group. ``seconds`` collects the wall seconds of "reconstruction" and "fsc"
+    (the device synchronized). TF32 is off for the whole calibration
+    (``ops.nn.exact_f32``)."""
     exact_f32()
+    seconds = {} if seconds is None else seconds
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     logger.info("calibrating: weight qparam init (%s)", w_scaler)
@@ -70,12 +86,17 @@ def cali_model(adapter: ModelAdapter, params,
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         logger.info("calibrating: TIAR reconstruction over %d units",
                     len(adapter.units))
+        residency = {}
+        t0 = _wall()
         wstate = reconstruct(adapter, params, w_cali_data, wstate, hp,
                              torch.Generator().manual_seed(seed),
                              capture_batch_size=capture_batch_size,
-                             log=_log, resume_dir=resume_dir, stats=stats)
+                             log=_log, resume_dir=resume_dir, stats=stats,
+                             residency=residency)
+        seconds["reconstruction"] = _wall() - t0
         meta = dict(meta or {})
-        meta["recon"] = {"iters": hp.iters, "units": dict(stats)}
+        meta["recon"] = {"iters": hp.iters, "units": dict(stats),
+                         "residency": residency}
 
     astate = None
     if use_aq:
@@ -83,10 +104,17 @@ def cali_model(adapter: ModelAdapter, params,
             raise ValueError("use_aq needs a_cali_data")
         logger.info("calibrating: FSC over %d timestep groups",
                     a_cali_data[0].shape[0])
+        t0 = _wall()
         astate = fsc_calibrate(adapter, params, wstate, a_cali_data,
                                generator, running_stat=running_stat,
                                init_samples=init_samples,
                                act_scaler=act_scaler)
+        seconds["fsc"] = _wall() - t0
+        groups, rows = a_cali_data[0].shape[:2]
+        meta = dict(meta or {})
+        meta["fsc"] = {"groups": int(groups), "rows": int(rows),
+                       "ema_batches": rows // EMA_BATCH if running_stat
+                       else 0}
     if path:
         save_artifact(path, wstate, astate, meta)
         logger.info("calibration artifact saved to %s", path)

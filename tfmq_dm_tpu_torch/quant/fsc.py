@@ -19,6 +19,9 @@ import torch
 from .adapter import ModelAdapter
 from .context import QuantCtx
 
+# rows of a running-stat (EMA) batch: a group of fewer rows skips the pass
+EMA_BATCH = 16
+
 # (group, n) -> (init-subset rows, EMA permutation of n rows or None)
 FSCIndexSource = Callable[[int, int],
                           Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -54,7 +57,7 @@ def fsc_calibrate(adapter: ModelAdapter, params, wstate,
                   a_cali_data: Tuple[torch.Tensor, ...],
                   generator: Optional[torch.Generator] = None, *,
                   running_stat: bool = True, init_samples: int = 16,
-                  batch_size: int = 16, momentum: float = 0.95,
+                  batch_size: int = EMA_BATCH, momentum: float = 0.95,
                   act_scaler: str = "mse",
                   indices: Optional[FSCIndexSource] = None) -> Dict:
     """a_cali_data: tuple of group-major tensors, leading dims (G, N, ...)

@@ -7,16 +7,23 @@ with AdaRound, unit by unit in module order.
   StopForwardException, data_utill.py:76-169). The capture is always
   asymmetric, the JAX package's default: the inputs come from the
   quantized-prefix forward, the outputs from the FP one
-  (data_utill.py:146-157); the FP outputs of every unit are captured in
-  one pass and kept on the device in float16, widened to float32 per
-  minibatch, as the JAX package keeps them (recon.py:158-179).
+  (data_utill.py:146-157).
+- Residency, JAX's rules with the port's budgets (``FP_OUT_BUDGET``,
+  ``HOST_OFFLOAD_BYTES``, ``_HOST_CHUNK_BYTES``): a one-sample FP probe
+  sizes every pending unit's I/O; the FP outputs of every unit are
+  captured in one pass and kept on the device in float16 when they fit
+  their budget, else each unit captures its FP outputs and its inputs in
+  one fused pass of its own; a unit whose cached I/O exceeds the device
+  budget is cached in host memory in float16 (numpy) and its Adam
+  schedule runs in chunks of the cache uploaded in turn
+  (recon.py:612-700).
 - The Adam loop over the AdaRound alphas: minibatch -> soft forward ->
   Lp reconstruction loss + the temperature-decayed rounding regularizer
   gated by warmup (reconstruction_util.py:13-173) -> Adam, with autograd;
-  one iteration captured as a CUDA graph and replayed on the card, run
-  eagerly on the CPU. The Adam step is optax's ``adam`` written out
-  (``adam_update``), not ``torch.optim.Adam``, whose order of rounding
-  differs.
+  one iteration captured as a CUDA graph and replayed on the card (one
+  graph per chunk of a host cache), run eagerly on the CPU. The Adam step
+  is optax's ``adam`` written out (``adam_update``), not
+  ``torch.optim.Adam``, whose order of rounding differs.
 - A do-no-harm guard keeps the trained alphas only when their
   hard-rounding loss over the cached I/O beats nearest rounding; the
   reverted state is nearest rounding expressed as alphas.
@@ -26,8 +33,9 @@ with AdaRound, unit by unit in module order.
 
 Minibatch indices come from a ``torch.Generator`` (one seed per unit,
 drawn in unit order), or from an ``indices`` callable ``(unit_name, n,
-bs, iters) -> LongTensor (iters, bs)``. Not ported yet: the act phase,
-Fisher losses, host offload of large caches and mid-unit resume.
+bs, iters) -> LongTensor (iters, bs)``, called once per unit, or once per
+chunk (in order) for a host-cached unit. Not ported yet: the act phase,
+Fisher losses and mid-unit resume.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import math
 import os
 from typing import Callable, Dict, Optional, Tuple
 
@@ -86,23 +95,28 @@ def init_weight_qparams(policy, params, scaler: str = "mse") -> Dict:
 
 
 # ---------------------------------------------------------------------------
-# trees of tensors (a unit's I/O is a tensor or a tuple of tensors)
+# trees of tensors (a unit's I/O is a tensor or a tuple of tensors; a
+# host cache holds numpy arrays)
 # ---------------------------------------------------------------------------
 
 def _tmap(fn, tree):
     if isinstance(tree, tuple):
-        return tuple(fn(x) for x in tree)
+        return tuple(None if x is None else fn(x) for x in tree)
     return fn(tree)
 
 
-def _tcat(trees):
-    if isinstance(trees[0], tuple):
-        return tuple(torch.cat(xs) for xs in zip(*trees))
-    return torch.cat(trees)
-
-
 def _leaves(tree):
-    return list(tree) if isinstance(tree, tuple) else [tree]
+    xs = list(tree) if isinstance(tree, tuple) else [tree]
+    return [x for x in xs if x is not None]
+
+
+def _tcat(trees):
+    lead = _leaves(trees[0])[0]
+    cat = np.concatenate if isinstance(lead, np.ndarray) else torch.cat
+    if isinstance(trees[0], tuple):
+        return tuple(None if xs[0] is None else cat(xs)
+                     for xs in zip(*trees))
+    return cat(trees)
 
 
 def _f32(tree):
@@ -114,9 +128,53 @@ def _f16(tree):
                  tree)
 
 
+def _host16(tree):
+    """To host memory in float16, as numpy (the JAX package's host
+    caches)."""
+    return _tmap(lambda x: x.cpu().numpy(), _f16(tree))
+
+
+def _on_host(tree) -> bool:
+    return isinstance(_leaves(tree)[0], np.ndarray)
+
+
+def _to(tree, dev):
+    """A host cache's (numpy) slice onto ``dev``; tensors pass as they
+    are."""
+    return _tmap(lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 if isinstance(x, np.ndarray) else x, tree)
+
+
+def _bytes_per_row(inputs, outputs) -> int:
+    return sum(math.prod(x.shape[1:]) * x.itemsize
+               for x in _leaves(inputs) + _leaves(outputs))
+
+
 # ---------------------------------------------------------------------------
-# I/O capture
+# I/O capture and residency
 # ---------------------------------------------------------------------------
+
+# Residency budgets, sized for an 80 GB H100 (79.1 GiB to PyTorch). The
+# JAX package's (recon.py:153-155, 487-495: 48 GiB of host FP outputs,
+# 3 GiB of device cache a unit, 2 GiB chunks) were sized for a 16 GiB TPU
+# with its caches on the host. Besides these caches the card holds the
+# model (cin256: 400.9 M parameters, 1.6 GB in f32), the trained layers'
+# alphas (as much again at most), a capture forward's live activations
+# (cin256 at 64 rows a capture batch: under 10 GB, a 64 x 4 MB score
+# matrix at 1024 tokens included) and the Adam step's working set (under
+# 2 GB at 32 rows a minibatch). The shared float16 FP-output cache (24
+# GiB) plus one unit's cache on the card (16 GiB, or a host chunk of 8)
+# plus those (15 GiB) come to 55 GiB, which leaves a quarter of the card
+# to the harvest's samples and the allocator.
+FP_OUT_BUDGET = 24 << 30
+HOST_OFFLOAD_BYTES = 16 << 30
+_HOST_CHUNK_BYTES = 8 << 30
+# the guard's evaluations over a host cache take an even stride of rows,
+# the same for both (recon.py:109-117), uploading at most this many bytes
+# and never fewer than 512 rows
+HARD_EVAL_MAX_BYTES = 4 << 30
+HARD_EVAL_MIN_ROWS = 512
+
 
 def _tape(adapter: ModelAdapter, params, ctx: QuantCtx, batch) -> dict:
     try:
@@ -124,6 +182,16 @@ def _tape(adapter: ModelAdapter, params, ctx: QuantCtx, batch) -> dict:
     except CaptureDone:
         pass
     return ctx.tape
+
+
+@torch.no_grad()
+def _capture_many(adapter: ModelAdapter, names: frozenset, tags: frozenset,
+                  params, batch) -> dict:
+    """One FP forward taping ``tags`` of every unit in ``names``, stopped
+    once they are on the tape (recon.py:121-137)."""
+    ctx = QuantCtx(adapter.policy, capture=names, capture_tags=tags,
+                   stop_when_taped=True)
+    return _tape(adapter, params, ctx, batch)
 
 
 @torch.no_grad()
@@ -139,6 +207,18 @@ def _capture_in_batch(adapter: ModelAdapter, unit_name: str, params,
 
 
 @torch.no_grad()
+def _capture_batch(adapter: ModelAdapter, unit_name: str, params, wstate,
+                   batch):
+    """The fused capture of one unit (recon.py:86-100): (its input under
+    the weight-quantized prefix, its FP output), in float32."""
+    out = _capture_many(adapter, frozenset({unit_name}),
+                        frozenset({"out"}), params,
+                        batch)[f"{unit_name}::out"]
+    return _capture_in_batch(adapter, unit_name, params, wstate,
+                             batch), out
+
+
+@torch.no_grad()
 def precapture_fp_outs(adapter: ModelAdapter, unit_names, params,
                        cali_data, *, batch_size: int = 128) -> dict:
     """One FP pass over the calibration set caching every listed unit's
@@ -151,30 +231,26 @@ def precapture_fp_outs(adapter: ModelAdapter, unit_names, params,
     n = cali_data[0].shape[0]
     parts: Dict[str, list] = {}
     for i in range(0, n, batch_size):
-        ctx = QuantCtx(adapter.policy, capture=names,
-                       capture_tags=frozenset({"out"}), stop_when_taped=True)
-        tape = _tape(adapter, params, ctx,
-                     tuple(x[i:i + batch_size] for x in cali_data))
+        tape = _capture_many(adapter, names, frozenset({"out"}), params,
+                             tuple(x[i:i + batch_size] for x in cali_data))
         for k, v in tape.items():
             parts.setdefault(k, []).append(_f16(v))
-    outs = {k.removesuffix("::out"): _tcat(v) for k, v in parts.items()}
-    size = sum(x.numel() * x.element_size()
-               for v in outs.values() for x in _leaves(v))
-    logger.info("FP-output cache: %d units x %d samples, %.1f MB on %s",
-                len(outs), n, size / 1e6, cali_data[0].device)
-    return outs
+    return {k.removesuffix("::out"): _tcat(v) for k, v in parts.items()}
 
 
 @torch.no_grad()
 def capture_unit_io(adapter: ModelAdapter, unit: UnitSpec, params,
                     cali_data: Tuple[torch.Tensor, ...], wstate,
-                    fp_out=None, *, batch_size: int = 128):
+                    fp_out=None, *, batch_size: int = 128,
+                    to_host: bool = False):
     """Cache (inputs, outputs) of one unit over the calibration set
     (save_inout, data_utill.py:13-51): inputs from the weight-quantized
-    prefix's forward, outputs ``fp_out``, this unit's FP outputs from
-    ``precapture_fp_outs``. The TIB's inputs are the timesteps and its
-    outputs its own FP forward (reconstruction.py:287); it takes no
-    ``fp_out``."""
+    prefix's forward; outputs ``fp_out``, this unit's FP outputs from
+    ``precapture_fp_outs``, or, without it, captured with the inputs in
+    one fused pass (float32). ``to_host``: the cache goes to host memory
+    as float16 numpy arrays (calibration.py:62-67). The TIB's inputs are
+    the timesteps and its outputs its own FP forward
+    (reconstruction.py:287); it takes no ``fp_out``."""
     if unit.kind.startswith("tib"):
         uparams = adapter.extract_uparams(params, unit)
         fp_rc = tuple(dataclasses.replace(r, w_cfg=None, aq=False)
@@ -183,14 +259,20 @@ def capture_unit_io(adapter: ModelAdapter, unit: UnitSpec, params,
         outputs = adapter.unit_fwd(unit.kind, fp_rc, unit.extra, uparams,
                                    {}, {}, inputs, False, False)
         return inputs, outputs
-    if fp_out is None:
-        raise ValueError(f"capture_unit_io({unit.name}): pass the unit's "
-                         "FP outputs from precapture_fp_outs")
+    keep = _host16 if to_host else (lambda tree: tree)
     n = cali_data[0].shape[0]
-    ins = [_capture_in_batch(adapter, unit.name, params, wstate,
-                             tuple(x[i:i + batch_size] for x in cali_data))
-           for i in range(0, n, batch_size)]
-    return _tcat(ins), fp_out
+    batches = [tuple(x[i:i + batch_size] for x in cali_data)
+               for i in range(0, n, batch_size)]
+    if fp_out is not None:
+        ins = [keep(_capture_in_batch(adapter, unit.name, params, wstate,
+                                      b)) for b in batches]
+        return _tcat(ins), keep(fp_out)
+    ins, outs = [], []
+    for b in batches:
+        inp, out = _capture_batch(adapter, unit.name, params, wstate, b)
+        ins.append(keep(inp))
+        outs.append(keep(out))
+    return _tcat(ins), _tcat(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +343,14 @@ GRAPH_WARMUP = 2
 
 def _recon_run(unit_fwd, kind: str, role_cfgs: tuple, extra: tuple,
                hp: ReconHP, uparams, wstate_fixed, alphas, inputs, outputs,
-               idx: torch.Tensor):
+               idx: torch.Tensor, moments=None, iter0: int = 0):
     """The weight-phase optimization of one unit over the minibatch rows
     ``idx`` (iters, bs): {minibatch -> soft forward -> loss -> Adam}
-    (reconstruction.py:63-78, 182-198, 290-303), Adam starting from zero
-    moments. Returns (alphas, per-iteration reconstruction losses).
+    (reconstruction.py:63-78, 182-198, 290-303). ``moments`` (Adam's mu
+    and nu) and ``iter0`` continue a schedule (a host cache's chunks): the
+    iterations are iter0 + 1 .. iter0 + iters of ``hp.iters``, Adam
+    starting from ``moments`` (zero when None). Returns (alphas, moments,
+    per-iteration reconstruction losses).
 
     One iteration is one ``step()`` that reads everything that changes
     between iterations from device tensors through a device counter: the
@@ -278,16 +363,19 @@ def _recon_run(unit_fwd, kind: str, role_cfgs: tuple, extra: tuple,
     n_iters = idx.shape[0]
     dev = idx.device
     f32 = torch.float32
-    counts = torch.arange(1, n_iters + 1, dtype=f32)
+    counts = torch.arange(iter0 + 1, iter0 + n_iters + 1, dtype=f32)
     temps = linear_temp_decay(counts, hp.iters, hp.warmup, hp.b_start,
                               hp.b_end).to(dev)
     gates = (counts >= float(np.float32(hp.warmup * hp.iters))).to(
         f32).to(dev)
-    bc1 = adam_corrections(0.9, 1, n_iters, dev)
-    bc2 = adam_corrections(0.999, 1, n_iters, dev)
+    bc1 = adam_corrections(0.9, iter0 + 1, n_iters, dev)
+    bc2 = adam_corrections(0.999, iter0 + 1, n_iters, dev)
     a_buf = {k: alphas[k].detach().clone() for k in keys}
-    mu = {k: torch.zeros_like(a_buf[k]) for k in keys}
-    nu = {k: torch.zeros_like(a_buf[k]) for k in keys}
+    if moments is None:
+        mu = {k: torch.zeros_like(a_buf[k]) for k in keys}
+        nu = {k: torch.zeros_like(a_buf[k]) for k in keys}
+    else:
+        mu, nu = ({k: m[k].clone() for k in keys} for m in moments)
     i_buf = torch.zeros(1, dtype=torch.long, device=dev)
     losses = torch.zeros(n_iters, dtype=f32, device=dev)
 
@@ -345,7 +433,7 @@ def _recon_run(unit_fwd, kind: str, role_cfgs: tuple, extra: tuple,
     else:
         for _ in range(n_iters):
             step()
-    return a_buf, (losses if n_iters else None)
+    return a_buf, (mu, nu), (losses if n_iters else None)
 
 
 @torch.no_grad()
@@ -359,13 +447,26 @@ def _hard_loss_batch(unit_fwd, kind, role_cfgs, extra, hp: ReconHP, uparams,
 
 
 def _hard_eval(unit_fwd, kind, role_cfgs, extra, hp: ReconHP, uparams,
-               wstate_roles, inputs, outputs, batch: int = 256) -> float:
-    """Mean hard-rounding loss over the cached I/O, in batches."""
+               wstate_roles, inputs, outputs, dev,
+               batch: int = 256) -> float:
+    """Mean hard-rounding loss over the cached I/O, in batches on
+    ``dev``. A host cache is subsampled at an even stride to
+    ``HARD_EVAL_MAX_BYTES`` of upload (the calibration rows are
+    timestep-major, so a prefix would favour early timesteps)."""
     n = _leaves(inputs)[0].shape[0]
+    if _on_host(inputs):
+        max_rows = max(HARD_EVAL_MIN_ROWS,
+                       HARD_EVAL_MAX_BYTES
+                       // max(1, _bytes_per_row(inputs, outputs)))
+        if n > max_rows:
+            idx = np.linspace(0, n - 1, max_rows).astype(np.int64)
+            inputs = _tmap(lambda x: x[idx], inputs)
+            outputs = _tmap(lambda x: x[idx], outputs)
+            n = max_rows
     tot, cnt = 0.0, 0
     for i in range(0, n, batch):
-        binp = _tmap(lambda x: x[i:i + batch], inputs)
-        bout = _tmap(lambda x: x[i:i + batch], outputs)
+        binp = _to(_tmap(lambda x: x[i:i + batch], inputs), dev)
+        bout = _to(_tmap(lambda x: x[i:i + batch], outputs), dev)
         loss = _hard_loss_batch(unit_fwd, kind, role_cfgs, extra, hp,
                                 uparams, wstate_roles, binp, bout)
         b = _leaves(binp)[0].shape[0]
@@ -419,6 +520,9 @@ def reconstruct_unit(adapter: ModelAdapter, unit: UnitSpec, params,
     unit's alphas written back under their full layer names, per-iteration
     losses or None).
 
+    A host cache (numpy, from ``capture_unit_io(..., to_host=True)``)
+    runs the chunked schedule, one chunk on the device at a time.
+
     Do-no-harm guard (recon.py:601-609): the hard-rounding loss over the
     cached I/O is evaluated for nearest rounding and for the trained
     alphas, and the better one is kept. ``hp.loss_floor`` > 0 skips the
@@ -438,10 +542,11 @@ def reconstruct_unit(adapter: ModelAdapter, unit: UnitSpec, params,
     base_alphas = {role: init_alpha(params[full]["w"],
                                     wstate[full]["delta"])
                    for role, full in unit.layers if role in alphas}
+    dev = params[unit.layers[0][1]]["w"].device
     hard_nearest = _hard_eval(adapter.unit_fwd, unit.kind, role_cfgs,
                               unit.extra, hp, uparams,
                               _merge_alpha(fixed, base_alphas), inputs,
-                              outputs)
+                              outputs, dev)
     if hp.loss_floor > 0.0 and hard_nearest <= hp.loss_floor:
         logger.info("recon %s: nearest-rounding loss %.6f already below "
                     "floor %g, skipping optimization", unit.name,
@@ -451,22 +556,52 @@ def reconstruct_unit(adapter: ModelAdapter, unit: UnitSpec, params,
                                 "kept": "nearest", "skipped": True}
         return wstate, None
 
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(0)
+
+    def rows(m: int, iters: int) -> torch.Tensor:
+        bs = max(1, min(hp.batch_size, m))
+        idx = indices(unit.name, m, bs, iters) if indices is not None \
+            else draw_indices(gen, m, bs, iters)
+        return idx.to(dev, torch.long)
+
+    def run(cin, cout, idx, moments=None, iter0=0):
+        return _recon_run(adapter.unit_fwd, unit.kind, role_cfgs,
+                          unit.extra, hp, uparams, fixed, alphas, cin, cout,
+                          idx, moments, iter0)
+
     n = _leaves(inputs)[0].shape[0]
-    bs = max(1, min(hp.batch_size, n))
-    if indices is not None:
-        idx = indices(unit.name, n, bs, hp.iters)
+    if _on_host(inputs):
+        # the chunked schedule (recon.py:672-700): equal chunks of a fixed
+        # permutation, the last wrapping to the front; the iterations split
+        # evenly, the remainder on the last chunk; Adam carried across
+        chunk_n = max(hp.batch_size,
+                      min(n, _HOST_CHUNK_BYTES
+                          // max(1, _bytes_per_row(inputs, outputs))))
+        chunk_n = min(chunk_n, max(1, n))
+        n_chunks = -(-n // chunk_n)
+        iters_per = [hp.iters // n_chunks] * n_chunks
+        iters_per[-1] += hp.iters - sum(iters_per)
+        perm = np.random.RandomState(0).permutation(n)
+        moments, it0, parts = None, 0, []
+        for c, n_it in enumerate(iters_per):
+            if n_it == 0:
+                continue
+            sel = perm[(c * chunk_n + np.arange(chunk_n)) % n]
+            alphas, moments, ls = run(
+                _to(_tmap(lambda x: x[sel], inputs), dev),
+                _to(_tmap(lambda x: x[sel], outputs), dev),
+                rows(chunk_n, n_it), moments, it0)
+            it0 += n_it
+            parts.append(ls)
+        losses = torch.cat(parts) if parts else None
     else:
-        idx = draw_indices(generator if generator is not None
-                           else torch.Generator().manual_seed(0),
-                           n, bs, hp.iters)
-    dev = _leaves(inputs)[0].device
-    alphas, losses = _recon_run(
-        adapter.unit_fwd, unit.kind, role_cfgs, unit.extra, hp, uparams,
-        fixed, alphas, inputs, outputs, idx.to(dev, torch.long))
+        alphas, _, losses = run(inputs, outputs, rows(n, hp.iters))
 
     hard_trained = _hard_eval(adapter.unit_fwd, unit.kind, role_cfgs,
                               unit.extra, hp, uparams,
-                              _merge_alpha(fixed, alphas), inputs, outputs)
+                              _merge_alpha(fixed, alphas), inputs, outputs,
+                              dev)
     keep_trained = hard_trained < hard_nearest
     logger.info("recon %s guard: hard loss nearest %.6f vs trained %.6f "
                 "-> keep %s", unit.name, hard_nearest, hard_trained,
@@ -498,7 +633,8 @@ def reconstruct(adapter: ModelAdapter, params, cali_data, wstate,
                 *, capture_batch_size: int = 128, log=None,
                 resume_dir: Optional[str] = None,
                 stats: Optional[dict] = None,
-                indices: Optional[IndexSource] = None):
+                indices: Optional[IndexSource] = None,
+                residency: Optional[dict] = None):
     """Unit-by-unit reconstruction in module order (recon_model DFS,
     calibration.py:56-84). Each unit's inputs are captured under the
     current (partly reconstructed, hard-rounded) prefix, so order
@@ -509,7 +645,10 @@ def reconstruct(adapter: ModelAdapter, params, cali_data, wstate,
     aligned). ``resume_dir``: each finished unit's alphas and its
     ``stats`` record are saved there (``<unit>.npz``), and a re-run loads
     them and skips the unit. ``log(unit_name, losses or None)`` is called
-    after each reconstructed unit, and with None for a resumed one."""
+    after each reconstructed unit, and with None for a resumed one.
+    ``residency`` collects the residency decisions: "fp_out_cache"
+    ("shared" or "fused"), "fp_out_gib" (the shared cache's size, float16)
+    and "host" (the units cached in host memory)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if resume_dir:
@@ -521,12 +660,41 @@ def reconstruct(adapter: ModelAdapter, params, cali_data, wstate,
     def _resumable(unit):
         return bool(resume_dir) and os.path.exists(_unit_path(unit.name))
 
+    # one 1-sample FP probe sizes every pending unit's I/O
     pending = [u for u in adapter.units
                if u.recon and adapter.default_train_roles(u)
                and not u.kind.startswith("tib") and not _resumable(u)]
-    fp_outs = precapture_fp_outs(adapter, [u.name for u in pending],
-                                 params, cali_data,
-                                 batch_size=capture_batch_size)
+    n_samples = cali_data[0].shape[0]
+    row_bytes, out_bytes = {}, {}
+    if pending:
+        ptape = _capture_many(adapter, frozenset(u.name for u in pending),
+                              frozenset({"in", "out"}), params,
+                              tuple(x[:1] for x in cali_data))
+        for u in pending:
+            p_in, p_out = ptape[f"{u.name}::in"], ptape[f"{u.name}::out"]
+            row_bytes[u.name] = _bytes_per_row(p_in, p_out)
+            out_bytes[u.name] = _bytes_per_row((), p_out)
+        del ptape
+
+    # the shared FP-output cache, when it fits its budget: one pass serves
+    # every unit's targets (they do not depend on the quantized prefix)
+    fp_outs = {}
+    if pending:
+        total = sum(out_bytes.values()) * n_samples // 2   # float16
+        shared = total <= FP_OUT_BUDGET
+        if residency is not None:
+            residency.update(fp_out_cache="shared" if shared else "fused",
+                             fp_out_gib=total / (1 << 30), host=[])
+        if shared:
+            logger.info("recon: precapturing FP outputs of %d units in "
+                        "one pass (~%.1f GiB on %s, f16)", len(pending),
+                        total / (1 << 30), cali_data[0].device)
+            fp_outs = precapture_fp_outs(
+                adapter, [u.name for u in pending], params, cali_data,
+                batch_size=capture_batch_size)
+        else:
+            logger.info("recon: FP-output cache ~%.1f GiB exceeds budget"
+                        " -- per-unit fused capture", total / (1 << 30))
 
     dev = cali_data[0].device
     for unit in adapter.units:
@@ -546,9 +714,20 @@ def reconstruct(adapter: ModelAdapter, params, cali_data, wstate,
             if log is not None:
                 log(unit.name, None)
             continue
+        to_host = False
+        if not unit.kind.startswith("tib"):
+            est = row_bytes[unit.name] * n_samples
+            to_host = est > HOST_OFFLOAD_BYTES
+            if to_host:
+                logger.info("recon %s: cached I/O ~%.1f GiB -> host "
+                            "offload, chunked schedule", unit.name,
+                            est / (1 << 30))
+                if residency is not None:
+                    residency["host"].append(unit.name)
         inputs, outputs = capture_unit_io(
             adapter, unit, params, cali_data, wstate,
-            fp_outs.pop(unit.name, None), batch_size=capture_batch_size)
+            fp_outs.pop(unit.name, None), batch_size=capture_batch_size,
+            to_host=to_host)
         record = {}
         wstate, losses = reconstruct_unit(adapter, unit, params, wstate,
                                           inputs, outputs, hp, unit_gen,

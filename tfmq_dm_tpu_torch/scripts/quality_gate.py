@@ -1,26 +1,40 @@
 """FP-vs-quantized quality gate of the port (the twin of
-``scripts/quality_gate.py``, the ddim family): the numeric agreement of the
-calibrated, deployed quantized model with its FP counterpart under the
-real pipeline, on identical noise:
+``scripts/quality_gate.py``): the numeric agreement of the calibrated,
+deployed quantized model with its FP counterpart under the real
+pipeline, on identical noise:
 
   harvest -> ``cali_model`` (TIAR/AdaRound reconstruction, running-stat
-  FSC) -> int4-serving deployment (the packed-int4 kernels on the card)
-  -> a DDIM rollout beside the FP rollout.
+  FSC) -> int4-serving deployment (the packed-int4 kernels on the card;
+  for an LDM task also the flash kernels) -> a DDIM rollout beside the FP
+  rollout.
+
+The ddim family samples trained weights (``--ckpt``, default
+runs/cifar10_ddpm.npz for cifar10). An LDM task (cin256_v2, tiny_cin)
+takes seeded random-init weights and a random class-embedding table, as
+the JAX script does (scripts/quality_gate.py:48-60, 153), and samples
+with classifier-free guidance at the task's scale: the harvest and both
+rollouts are double-batched [unconditional; conditional], classes
+0, 1, ... a row. ``--noise-npz`` gives the harvest's starting noise
+("harvest", n-cali rows) and the rollouts' ("rollout", batch rows) in
+place of the script's own draws, e.g. the JAX script's
+(``tfmq_dm_tpu_torch/scripts/jax_noise_cifar10.npz``).
 
 ``--deployment fake-quant`` samples from the fake-quant simulation
 instead (float32, as the JAX script samples), to tell the deployment's
 rounding (bf16 activations into the int4 kernels) from the
 calibration's. It reports the per-step UNet-output SQNR along the FP
 trajectory (the quantized model's eps against the FP model's at the same
-inputs), the
-final-sample PSNR, the trajectory SQNR, the do-no-harm guard's record and
-the calibration's wall seconds, as one JSON object (the JAX script's keys
-except its proxy FD, which is not ported). Weight grids are symmetric, as
-in the JAX script (scripts/quality_gate.py:164-166).
+inputs), the final-sample PSNR, the trajectory SQNR, the do-no-harm
+guard's record, the calibration's wall seconds (harvest, reconstruction
+and FSC apart) and the peak device memory, as one JSON object (the JAX
+script's keys except its proxy FD, which is not ported). Weight grids
+are symmetric, as in the JAX script (scripts/quality_gate.py:164-166).
 
     python -m tfmq_dm_tpu_torch.scripts.quality_gate cifar10 \\
         --ckpt runs/cifar10_ddpm.npz --wq 4 --iters 5000 --n-cali 64 \\
         --json out.json
+    python -m tfmq_dm_tpu_torch.scripts.quality_gate cin256_v2 --wq 4 \\
+        --iters 5000 --n-cali 8 --json out.json
 
 Runs on the card unless ``--device cpu``; the CPU takes the kernels'
 plain versions.
@@ -43,8 +57,8 @@ import torch
 from ..configs.tasks import get_task
 from ..cli import DEFAULT_CKPT, resolve_device
 from ..convert import load_params
-from ..models import ddim_unet
-from ..ops import int4_kernels
+from ..models import clip_text, ddim_unet, ldm_unet
+from ..ops import flash_attention, int4_kernels
 from ..ops.nn import exact_f32
 from ..pipelines import ptq
 from ..quant.calibrate import cali_model, load_cali_model
@@ -52,6 +66,7 @@ from ..quant.deploy import (deploy_weights, make_deployed_model_fn,
                             specialize_maps)
 from ..quant.inference import make_model_fn
 from ..quant.recon import ReconHP
+from ..samplers.ldm import make_cfg_model_fn
 from ..utils.metrics import psnr, sqnr_db
 
 log = logging.getLogger("quality_gate")
@@ -60,11 +75,12 @@ log = logging.getLogger("quality_gate")
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("quality_gate")
     ap.add_argument("task", nargs="?", default="cifar10",
-                    help="a ddim-family task (cifar10, tiny_ddim)")
+                    help="cifar10, tiny_ddim, cin256_v2 or tiny_cin")
     ap.add_argument("--ckpt", default=None,
                     help="trained ddim_unet weights, a p::<layer>::<field> "
                          "npz (default for cifar10: runs/cifar10_ddpm.npz);"
-                         " its meta's architecture and schedule are used")
+                         " its meta's architecture and schedule are used."
+                         " LDM tasks take seeded random-init weights")
     ap.add_argument("--wq", type=int, default=4)
     ap.add_argument("--aq", type=int, default=8)
     ap.add_argument("--iters", type=int, default=1000,
@@ -81,6 +97,11 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the harvest and, separately, the "
                          "rollouts' noise")
+    ap.add_argument("--noise-npz", default=None,
+                    help="npz with the harvest's starting noise "
+                         "('harvest', n-cali rows) and the rollouts' "
+                         "('rollout', batch rows), used in place of the "
+                         "seeded draws")
     ap.add_argument("--deployment", default="int4-serving",
                     choices=("int4-serving", "fake-quant"),
                     help="the quantized model the rollout samples from")
@@ -92,10 +113,21 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
+# the JAX script's seed of the random-init LDM weights
+# (scripts/quality_gate.py:153); the port draws them with its own generator
+LDM_WEIGHTS_SEED = 7
+
+
 def _task_and_params(args, device):
     task = get_task(args.task)
     if task.family != "ddim":
-        raise SystemExit(f"{task.name}: the ddim family only")
+        if args.ckpt is not None:
+            raise SystemExit(f"{task.name}: seeded random-init weights "
+                             "only (--ckpt is for the ddim family)")
+        params = ldm_unet.init_params(
+            torch.Generator().manual_seed(LDM_WEIGHTS_SEED), task.unet)
+        return task, {k: {f: v.to(device) for f, v in p.items()}
+                      for k, p in params.items()}
     if args.ckpt is None and task.name != "cifar10":
         raise SystemExit(f"--task {task.name} needs --ckpt")
     ckpt = args.ckpt or str(DEFAULT_CKPT)
@@ -126,33 +158,73 @@ def card() -> str:
         return "not measured"
 
 
+def class_cond(task, generator: torch.Generator, n: int, device):
+    """(context, uncond) of ``n`` rows from a random class-embedding
+    table (1001 x context_dim, N(0, 0.02^2)), classes 0, 1, ... and the
+    table's last row unconditional (scripts/quality_gate.py:48-60)."""
+    table = 0.02 * torch.randn((1001, task.unet.context_dim),
+                               generator=generator)
+    y = torch.arange(n) % 1000
+    return (clip_text.class_embed(table, y).to(device),
+            clip_text.class_embed(table, torch.full((n,), 1000)).to(device))
+
+
+def _wall(device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
 def run(args) -> dict:
     device = resolve_device(args)
     exact_f32()
     task, params = _task_and_params(args, device)
+    ldm = task.family != "ddim"
     use_aq = not args.no_aq
     qargs = ptq.QuantArgs(wq=args.wq, aq=args.aq, use_aq=use_aq, w_sym=True,
                           iters=args.iters, cali_save_path=None)
     adapter = ptq.build_adapter(task, qargs)
     cfg = task.unet
     gen = torch.Generator().manual_seed(args.seed)
+    noise_in = None
+    if args.noise_npz:
+        with np.load(args.noise_npz) as z:
+            noise_in = {k: torch.from_numpy(z[k]) for k in
+                        ("harvest", "rollout")}
+        if noise_in["harvest"].shape[0] != args.n_cali or \
+                noise_in["rollout"].shape[0] != args.batch:
+            raise SystemExit(f"{args.noise_npz}: harvest rows "
+                             f"{noise_in['harvest'].shape[0]}, rollout "
+                             f"rows {noise_in['rollout'].shape[0]}; asked "
+                             f"for --n-cali {args.n_cali} --batch "
+                             f"{args.batch}")
 
     def fp_apply(x, t, c=None):
+        if ldm:
+            return ldm_unet.apply(params, cfg, x, t, context=c)
         return ddim_unet.apply(params, cfg, x, t)
 
-    recon_stats = {}
+    recon_stats, seconds = {}, {}
     cali_art = os.path.join(args.resume_dir, "cali_artifact.npz") \
         if args.resume_dir else None
-    t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = _wall(device)
     if cali_art and os.path.exists(cali_art):
         log.info("loading the finished calibration %s", cali_art)
         wstate, astate, meta = load_cali_model(cali_art, device=device)
         recon_stats = meta.get("recon", {}).get("units", {})
     else:
         log.info("harvesting calibration data (%d a step)", args.n_cali)
+        cali_ctx = cali_uc = None
+        if ldm:
+            cali_ctx, cali_uc = class_cond(task, gen, args.n_cali, device)
         w_cali, a_cali, _ = ptq.generate_cali_data(
             task, fp_apply, gen, n_per_t=args.n_cali, steps=args.steps,
+            context=cali_ctx, uncond=cali_uc,
+            noise=None if noise_in is None else noise_in["harvest"],
             device=device)
+        seconds["harvest"] = _wall(device) - t0
         hp = ReconHP(iters=args.iters,
                      batch_size=min(task.recon_batch, args.n_cali))
         log.info("calibrating w%da%d (%d iterations a unit)", args.wq,
@@ -160,38 +232,54 @@ def run(args) -> dict:
         wstate, astate = cali_model(
             adapter, params, w_cali, a_cali if use_aq else None, hp=hp,
             use_aq=use_aq, generator=gen, resume_dir=args.resume_dir,
-            path=cali_art, recon_stats=recon_stats)
+            path=cali_art, recon_stats=recon_stats, seconds=seconds)
         del w_cali, a_cali
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    cali_s = time.perf_counter() - t0
+    cali_s = _wall(device) - t0
+    peak = torch.cuda.max_memory_allocated() / (1 << 30) \
+        if device.type == "cuda" else None
 
     # the FP and the quantized rollouts from the same noise
     sampler_fn, _ = ptq.make_schedule(task, steps=args.steps)
-    res, chans = cfg.resolution, cfg.in_channels
+    res = cfg.image_size if ldm else cfg.resolution
+    chans = cfg.in_channels
     noise = torch.Generator().manual_seed(args.seed)
-    x0 = torch.randn((args.batch, res, res, chans),
-                     generator=noise).to(device)
+    roll_ctx = roll_uc = None
+    if ldm:
+        roll_ctx, roll_uc = class_cond(task, noise, args.batch, device)
+    x0 = (torch.randn((args.batch, res, res, chans), generator=noise)
+          if noise_in is None else noise_in["rollout"]).to(device)
     if args.deployment == "int4-serving":
         deployed = deploy_weights(adapter.policy, params, wstate,
                                   int4_serving=True)
         ex = (torch.zeros((1, res, res, chans), device=device),
               torch.zeros((1,), dtype=torch.int32, device=device))
+        if ldm:
+            ex += (roll_ctx[:1],)
         deployed = specialize_maps(adapter, params, deployed,
                                    example_args=ex, use_aq=use_aq)
-        q_fn = make_deployed_model_fn(adapter, params, deployed, astate,
-                                      use_aq=use_aq)
+        q_once = make_deployed_model_fn(adapter, params, deployed, astate,
+                                        use_aq=use_aq)
     else:
-        q_fn = make_model_fn(adapter, params, wstate, astate,
-                             use_aq=use_aq)
-
-    def fp_fn(x, t, step):
-        return fp_apply(x, t)
+        q_once = make_model_fn(adapter, params, wstate, astate,
+                               use_aq=use_aq)
+    if ldm:
+        # double-batched CFG at the task's scale (quality_gate.py:240-260)
+        fp_fn = make_cfg_model_fn(lambda x, t, c, s: fp_apply(x, t, c),
+                                  roll_ctx, roll_uc, task.cfg_scale)
+        q_fn = make_cfg_model_fn(lambda x, t, c, s: q_once(x, t, s, c),
+                                 roll_ctx, roll_uc, task.cfg_scale)
+    else:
+        def fp_fn(x, t, step):
+            return fp_apply(x, t)
+        q_fn = q_once
 
     fp_last, (fp_xs, fp_ts) = sampler_fn(fp_fn, x0, noise, collect="traj")
     int4_kernels.reset_launch_counts()
+    flash_attention.reset_launch_counts()
     q_last, (q_xs, _) = sampler_fn(q_fn, x0, noise, collect="traj")
     launches = dict(int4_kernels.LAUNCHES)
+    if ldm:
+        launches.update(flash_attention.LAUNCHES)
 
     # per-step UNet-output SQNR at the FP trajectory's points
     sqnrs = []
@@ -203,6 +291,10 @@ def run(args) -> dict:
                                  e_q.float().cpu().numpy()))
     fp_img = np.clip(fp_last.float().cpu().numpy() * 0.5 + 0.5, 0, 1)
     q_img = np.clip(q_last.float().cpu().numpy() * 0.5 + 0.5, 0, 1)
+    if ldm:
+        weights = f"random-init (torch seed {LDM_WEIGHTS_SEED})"
+    else:
+        weights = "trained:" + (args.ckpt or "runs/cifar10_ddpm.npz")
     out = {
         "task": task.name,
         "setting": f"w{args.wq}a{32 if args.no_aq else args.aq}",
@@ -213,10 +305,13 @@ def run(args) -> dict:
         "sample_psnr_db": round(psnr(fp_img, q_img), 2),
         "traj_sqnr_db": round(sqnr_db(fp_xs.float().cpu().numpy(),
                                       q_xs.float().cpu().numpy()), 2),
-        "weights": "trained:" + (args.ckpt or "runs/cifar10_ddpm.npz"),
+        "weights": weights,
         "calibration_s": round(cali_s, 2),
+        "calibration_split_s": {k: round(v, 2) for k, v in seconds.items()},
+        "peak_device_gib": None if peak is None else round(peak, 2),
         "deployment": args.deployment + ", symmetric weight grids",
         "seed": args.seed,
+        "noise": args.noise_npz or f"torch seed {args.seed}",
         "kernel_launches": launches,
         "device": card() if device.type == "cuda" else "cpu",
     }
