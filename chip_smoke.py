@@ -11,14 +11,15 @@ when one is exceeded):
               nvcc processes at once; prints each kernel's registers and
               shared memory.
 3. kernels  - every distinct conv and linear geometry of the CIFAR-10
-              (batch 8) and cin256 (batch 2 x CFG) int4-serving paths plus
-              odd shapes, the same geometries on the int8 GEMM
-              (``int8_matmul_pre``, and the int8 conv on its im2col, sym
-              and asym grids), and the four flash-attention kernels at the
-              cin256 and SD shapes (fqk with and without the softmax
-              quantizer, with int8_pv, over two key blocks), the fused
-              int8 GEMM (``int8_matmul_fused``) on the linear geometries
-              and the fused GroupNorm + SiLU + int8 quantization
+              (batch 8), cin256 (batch 2 x CFG) and SD v1.4 (batch 1 x
+              CFG) int4-serving paths plus odd shapes, the same
+              geometries on the int8 GEMM (``int8_matmul_pre``, and the
+              int8 conv on its im2col, sym and asym grids), and the four
+              flash-attention kernels at the cin256 and SD shapes (fqk
+              with and without the softmax quantizer, with int8_pv, over
+              two key blocks), the fused int8 GEMM
+              (``int8_matmul_fused``) on the linear geometries and the
+              fused GroupNorm + SiLU + int8 quantization
               (``gn_swish_quant_int8``) at the cin256 and CIFAR-10
               GroupNorms and SD's resblock shapes: each CUDA kernel
               against its plain PyTorch version on the same inputs (and
@@ -41,8 +42,10 @@ when one is exceeded):
               CIFAR-10's, ``flash_fqk`` in its three modes, ``flash_fp``,
               ``flash_pquant`` (8- and 16-bit softmax grids) and
               ``flash_int8`` (with and without the softmax quantizer) at
-              cin256 and SD's 64x64 (the f32 kernels also beside SDPA on
-              their f32 operands), each printed beside its earlier
+              cin256 and SD's 64x64 and 32x32 (the f32 kernels also beside
+              SDPA on their f32 operands), with the sums per SD forward of
+              ``int4_linear`` (every SD linear geometry, by launches),
+              ``flash_int8`` and ``flash_fp``, each printed beside its earlier
               design's device time where one was taken (``EARLIER_MS``;
               not in the
               ``kernels`` line, which holds this run's numbers only).
@@ -72,8 +75,9 @@ when one is exceeded):
 5. ldm      - the full-width class-conditional LDM (cin256_v2) w4a8
               int4-serving path: a seeded random-init checkpoint in the
               reference's Lightning layout (UNet, VQ-f4 decoder, class
-              embedding) in a temporary directory, a 20-step calibration
-              harvest at batch 2 x CFG (flash fp), the FSC init pass, then
+              embedding) in a temporary directory, a ``LDM_STEPS``-step
+              calibration harvest at batch 2 x CFG (flash fp), the FSC
+              init pass, then
               ``cli.main --ptq --cali`` calibrates the checkpoint at full
               width on the card (a CFG harvest of ``LDM_CALI_STEPS`` steps
               x ``LDM_CALI_N`` samples, flash fp counted around it;
@@ -83,16 +87,35 @@ when one is exceeded):
               last loss, the guard's and the residency decisions, and
               failing unless every trained layer carries an alpha, one
               unit at least keeps its trained alphas and the running-stat
-              pass ran. ``cli.main`` samples 2 images in 20 DDIM steps
-              with the int4 and flash int8 kernels from the init-only
-              artifact and from the reconstructed one; the same with the
-              plain versions (latents >= 30 dB) and in FP (quantized vs
-              FP latents printed for both artifacts); one deployed UNet
-              forward, kernels against plain versions; and a 4-step
-              sample with a 16-bit softmax grid (flash pquant). Launch
+              pass ran. ``cli.main`` samples 2 images in ``LDM_STEPS``
+              DDIM steps with the int4 and flash int8 kernels from the
+              init-only artifact and from the reconstructed one; the
+              same with the plain versions (latents >= 30 dB) and in FP
+              (quantized vs FP latents printed for both artifacts); one
+              deployed UNet forward, kernels against plain versions; and
+              a 4-step sample with a 16-bit softmax grid (flash pquant). Launch
               counts are read around each run.
-6. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
-              ``--int-kernels --deploy_dtype bfloat16`` (20 steps, the ldm
+6. sd       - the full-width Stable Diffusion v1.4 w4a8 int4-serving path
+              (512 x 512, 1 image x CFG at 7.5, PLMS cut to ``SD_STEPS``
+              steps, one more UNet evaluation than steps): a seeded
+              random-init checkpoint in the reference's Lightning layout
+              (UNet, KL-f8 decoder, CLIP ViT-L/14 text tower) and a
+              token-id file (the stub tokenizer's ids of a prompt at CLIP's
+              vocabulary, whose BPE files are not in the repository) in a
+              temporary directory; an init-only artifact (PLMS harvest,
+              flash fp counted; minmax grids, FSC init pass); ``cli.main
+              --token_ids`` with the int4 and flash int8 kernels, with the
+              plain versions (latents >= 30 dB) and in FP, launch counts
+              held against a walk of the layers (``flash_int8`` 10 a UNet
+              evaluation: 5 at T 4096 / D 40, 5 at T 1024 / D 80); one
+              deployed forward kernels vs plain; the device profile of a
+              deployed sample; then ``cli.main --ptq --cali`` at full width
+              (a harvest of ``SD_CALI_STEPS`` steps x ``SD_CALI_N`` x CFG,
+              ``SD_CALI_ITERS`` iterations a unit, each cut printed) with
+              the checks of phase ldm and the peak device memory, and that
+              artifact sampled with the kernels and the plain versions.
+7. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
+              ``--int-kernels --deploy_dtype bfloat16`` (``LDM_STEPS``, the ldm
               phase's checkpoint and artifact; fqk, int8_matmul_pre and the
               int8 conv), the CIFAR-10 bench configuration (w4a8
               ``--w_sym``, int8 deploy, bf16) and CIFAR-10 exact w8a8
@@ -129,7 +152,7 @@ sys.path.insert(0, str(ROOT))
 from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
-                  "ldm": 420, "deploy": 360}
+                  "ldm": 420, "sd": 300, "deploy": 360}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -233,8 +256,10 @@ CALI_N, CALI_ITERS = 16, 300
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "scripts/micro_gn.py); launches of the kernels phase's "
                  "timing runs, the micro_gn twin's included")
-# cin256 images per batch (the UNet sees twice as many: CFG)
-CIN_N = 2
+# cin256 images per batch (the UNet sees twice as many: CFG), and the
+# DDIM steps of its samples in phases ldm and deploy (the task's 20, cut
+# to 10 for the script's time when phase sd came)
+CIN_N, LDM_STEPS = 2, 10
 # phase ldm's full-width calibration through the CLI, cut to the phase's
 # time: sampler steps of the harvest (the task's 20), samples a step (the
 # task's 512; with CFG twice as many rows, 16: the FSC running-stat
@@ -242,6 +267,15 @@ CIN_N = 2
 # unit (the task's 20000); 74 units train (the TIB and 73 blocks and
 # layers; the input conv is kept out by the policy)
 LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS, LDM_UNITS = 2, 8, 30, 74
+# phase sd: SD v1.4 at full width (512 x 512, 64 x 64 latents), 1 image
+# x CFG, PLMS cut from the task's 50 steps to SD_STEPS (SD_STEPS + 1 UNet
+# evaluations: step 0 evaluates twice); its calibration cut as phase
+# ldm's (a harvest of SD_CALI_STEPS steps x SD_CALI_N prompts, 16 rows
+# with CFG, and SD_CALI_ITERS iterations a unit); as cin256_v2, 74 of
+# its 75 units train
+SD_N, SD_STEPS = 1, 10
+SD_CALI_STEPS, SD_CALI_N, SD_CALI_ITERS = 1, 8, 10
+SD_PROMPT = "a photograph of an astronaut riding a horse"
 
 
 class PhaseTimeout(Exception):
@@ -726,27 +760,45 @@ def cin_conv_counts(cfg) -> dict:
     from tfmq_dm_tpu_torch.quant.policy import build_policy
     pol = build_policy(ldm_unet.layer_infos(cfg))
     quantized = {n for n in pol.weight_layers() if pol.get(n).wq}
-    res, counts = cfg.image_size, {}
-    for kind, name, shape in ldm_unet.iter_layers(cfg):
-        if kind == "conv_ds":
-            res //= 2
-            continue
-        if kind == "conv" and name.endswith(".conv"):    # an Upsample's
-            res *= 2
+    counts = {}
+    for kind, name, shape, res in ldm_unet.iter_layers_with_res(cfg):
         if kind == "conv" and name in quantized:
             key = (res, shape[0], shape[2], shape[3])
             counts[key] = counts.get(key, 0) + 1
     return counts
 
 
-def conv_geometry_cases(cifar_counts, cin_counts) -> list:
+def conv_geometry_cases(cifar_counts, cin_counts, sd_counts) -> list:
     """(path, batch, res, k, cin, cout, launches per forward) of every
-    distinct packed conv of the two int4-serving paths: CIFAR-10 at batch
-    8, cin256 at batch 2 x CFG."""
+    distinct packed conv of the three int4-serving paths: CIFAR-10 at
+    batch 8, cin256 at batch 2 x CFG, SD v1.4 at batch 1 x CFG."""
     return [("cifar10", BATCH, *key, c) for key, c in
             sorted(cifar_counts.items())] + \
         [("cin256", 2 * CIN_N, *key, c) for key, c in
-         sorted(cin_counts.items())]
+         sorted(cin_counts.items())] + \
+        [("sd", 2 * SD_N, *key, c) for key, c in sorted(sd_counts.items())]
+
+
+def linear_counts(cfg) -> dict:
+    """{(m, k, n): launches per forward} of the packed linears of an LDM
+    UNet, ``m`` the rows a batch row feeds (tokens, or 1 for the
+    embedding projections), a walk of ``iter_layers``; the cross-attention
+    K/V projections of the constant context are left out (they run once
+    a rollout, the K/V cache)."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    from tfmq_dm_tpu_torch.quant.policy import build_policy
+    pol = build_policy(ldm_unet.layer_infos(cfg))
+    quantized = {n for n in pol.weight_layers() if pol.get(n).wq}
+    counts = {}
+    for kind, name, shape, res in ldm_unet.iter_layers_with_res(cfg):
+        if not kind.startswith("linear") or name not in quantized or \
+                ".attn2.to_k" in name or ".attn2.to_v" in name:
+            continue
+        m = 1 if name.startswith("time_embed") or "emb_layers" in name \
+            else res * res
+        key = (m, shape[0], shape[1])
+        counts[key] = counts.get(key, 0) + 1
+    return counts
 
 
 def time_conv_geometries(g, dev, peaks, cases) -> list:
@@ -788,7 +840,7 @@ def time_conv_geometries(g, dev, peaks, cases) -> list:
                                   f"({e / row['ms']:.2f}x this)"),
               flush=True)
         del case, x, wp, wd, xn
-    for path in ("cifar10", "cin256"):
+    for path in ("cifar10", "cin256", "sd"):
         sel = [x for x in rows if x["path"] == path]
 
         def wsum(key, sel=sel):
@@ -964,7 +1016,8 @@ def sdpa_backend(q, k, v) -> str:
 
 def time_flash(g, dev, peaks) -> dict:
     """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384) and at
-    SD's 64x64 (B*H 16, T 4096, D 40): the kernel, its plain version and
+    SD's 64x64 (B*H 16, T 4096, D 40) and 32x32 (B*H 16, T 1024, D 80,
+    the head dim padded to 96): the kernel, its plain version and
     ``scaled_dot_product_attention`` on bf16 q/k/v of the same shape
     (dequantized for int8), timed only; for the f32 kernels also SDPA on
     the f32 operands (``library_f32_ms``: the same function at the
@@ -980,7 +1033,8 @@ def time_flash(g, dev, peaks) -> dict:
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     rows = {}
-    for label, bh, t, _, d in (FLASH_SHAPES[0], FLASH_SHAPES[1]):
+    for label, bh, t, _, d in (FLASH_SHAPES[0], FLASH_SHAPES[1],
+                               FLASH_SHAPES[3]):
         q, k, v = flash_case(g, bh, t, t, d, dev)
         sm = d ** -0.5
         qb, kb, vb = (x.to(torch.bfloat16)[:, None] for x in (q, k, v))
@@ -1059,14 +1113,15 @@ def latent_psnr(a, ref) -> float:
     return math.inf if mse == 0 else 10 * math.log10(peak ** 2 / mse)
 
 
-def make_ldm_checkpoint(path: str, task, dev, n_classes: int,
+def make_ldm_checkpoint(path: str, task, dev, n_classes: int = 0,
                         seed: int = 0) -> None:
-    """A seeded random-init checkpoint of a class-conditional LDM task in
-    the reference's Lightning layout: UNet, VQ decoder with codebook, and
-    the class embedding (cin256_v2: 1001 x 512), through the port's
-    export."""
+    """A seeded random-init checkpoint of a conditioned LDM task in the
+    reference's Lightning layout, through the port's export: UNet, first
+    stage (VQ decoder with codebook, or KL decoder), and the class
+    embedding (cin256_v2: 1001 x 512) or the CLIP text tower (SD v1.4:
+    ViT-L/14, under ``cond_stage_model.transformer.``)."""
     import torch
-    from tfmq_dm_tpu_torch.models import ldm_unet, vae
+    from tfmq_dm_tpu_torch.models import clip_text, ldm_unet, vae
     from tfmq_dm_tpu_torch.utils.torch_convert import export_state_dict
     g = torch.Generator(device=dev).manual_seed(seed)
     sd = {}
@@ -1078,52 +1133,131 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int,
     vp = vae.init_params(g, task.vae)
     sd.update({f"first_stage_model.{k}": v for k, v in
                export_state_dict(vp, vae.iter_layers(task.vae)).items()})
-    sd["cond_stage_model.embedding.weight"] = torch.randn(
-        (n_classes, task.unet.context_dim), generator=g, device=dev).cpu()
+    if task.cond == "text":
+        cp = clip_text.init_params(g, task.clip)
+        sd.update({f"cond_stage_model.transformer.{k}": v for k, v in
+                   export_state_dict(cp, clip_text.iter_layers(task.clip))
+                   .items()})
+    else:
+        sd["cond_stage_model.embedding.weight"] = torch.randn(
+            (n_classes, task.unet.context_dim), generator=g,
+            device=dev).cpu()
     torch.save({"state_dict": sd}, path)
 
 
-def calibrate_ldm(task, ckpt: str, tmp: Path, dev) -> dict:
+def calibrate_ldm(task, ckpt: str, tmp: Path, dev, cond_argv: list,
+                  steps: int, cali_n: int, iters: int,
+                  flash_fp_least: int) -> dict:
     """Calibrate the full-width checkpoint on the card through the port's
-    CLI (``cli.main --ptq --cali``): a CFG harvest (flash fp, the only
-    hand-written kernel of the calibration: reconstruction and FSC run
-    plain PyTorch, as the JAX package's run plain XLA), TIAR/AdaRound
-    reconstruction of every unit, running-stat FSC; launch counts are
-    read around the call. Returns the check's record and the artifact's
-    path."""
+    CLI (``cli.main --ptq --cali`` with ``cond_argv``, the classes or the
+    token ids): a CFG harvest of ``steps`` sampler steps x ``cali_n``
+    (flash fp, the only hand-written kernel of the calibration:
+    reconstruction and FSC run plain PyTorch, as the JAX package's run
+    plain XLA; at least ``flash_fp_least`` launches), TIAR/AdaRound
+    reconstruction of every unit with ``iters`` iterations, running-stat
+    FSC; launch counts and the peak device memory are read around the
+    call. Returns the check's record and the artifact's path."""
+    import torch
     from tfmq_dm_tpu_torch import cli
     from tfmq_dm_tpu_torch.models import ldm_units
 
     art = str(tmp / "cali_recon.npz")
     reset_all_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rc = cli.main(["--task", task.name, "--ckpt", ckpt, "--ptq", "--cali",
-                   "--wq", "4", "--aq", "8", "--use_aq", "--classes", "1,2",
-                   "--timesteps", str(LDM_CALI_STEPS), "--cali_n",
-                   str(LDM_CALI_N), "--cali_iters", str(LDM_CALI_ITERS),
-                   "--cali_save_path", art, "--seed", str(SEED),
-                   "--device", dev.type])
+                   "--wq", "4", "--aq", "8", "--use_aq", *cond_argv,
+                   "--timesteps", str(steps), "--cali_n", str(cali_n),
+                   "--cali_iters", str(iters), "--cali_save_path", art,
+                   "--seed", str(SEED), "--device", dev.type])
     sync(dev)
     cali_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts = all_counts()
     if rc != 0:
         raise RuntimeError(f"cli.main --cali ({task.name}) returned {rc}")
     print(f"   cli.main --ptq --cali {task.name} at full width (cuts: "
-          f"harvest {LDM_CALI_STEPS} steps x {LDM_CALI_N} x CFG, not the "
-          f"task's {task.steps} x {task.cali_n}; {LDM_CALI_ITERS} "
-          f"iterations a unit, not 20000): {cali_s:.2f} s; launches "
-          f"{counts}", flush=True)
-    if counts["flash_fp"] < 5 * LDM_CALI_STEPS:
+          f"harvest {steps} steps x {cali_n} x CFG, not the task's "
+          f"{task.steps} x {task.cali_n}; {iters} iterations a unit, not "
+          f"20000): {cali_s:.2f} s, peak device memory {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    if counts["flash_fp"] < flash_fp_least:
         raise AssertionError(f"harvest: flash_fp launched "
                              f"{counts['flash_fp']} times, expected >= "
-                             f"{5 * LDM_CALI_STEPS}")
+                             f"{flash_fp_least}")
     adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
                                       use_aq=True)
     return {"art": art, "seconds": cali_s, "launches": counts,
+            "peak_gib": peak,
             **check_calibration(adapter, art, dev, n_units=LDM_UNITS)}
 
 
-def drive_ldm_path(dev, tmp: Path, steps: int = 20,
+def cli_sample(tmp: Path, name: str, argv: list, img_shape: tuple, dev,
+               plain: bool = False) -> dict:
+    """``cli.main`` sampling (load + deploy + sample + decode) into
+    ``tmp / name``, with the kernels or their plain versions; launch
+    counts read around the call; the images checked for shape, finite
+    values and range. -> {"s", "launches", "img", "lat"}."""
+    import numpy as np
+    from tfmq_dm_tpu_torch import cli
+    reset_all_counts()
+    t0 = time.perf_counter()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        rc = cli.main(argv + ["--out", str(tmp / name)])
+    sync(dev)
+    sec = time.perf_counter() - t0
+    counts = all_counts()
+    if rc != 0:
+        raise RuntimeError(f"cli.main ({name}) returned {rc}")
+    img = np.load(tmp / name / "samples.npy")
+    lat = np.load(tmp / name / "latents.npy")
+    if img.shape != img_shape or not np.all(np.isfinite(img)):
+        raise AssertionError(f"{name}: bad images {img.shape}")
+    if img.min() < 0 or img.max() > 1:
+        raise AssertionError(f"{name}: images outside [0, 1]")
+    print(f"   cli.main {name} ({img_shape[0]} images x CFG; load + deploy "
+          f"+ sample + decode): {sec:.2f} s; launches {counts}", flush=True)
+    return {"s": sec, "launches": counts, "img": img, "lat": lat}
+
+
+def forward_check(fn, x, t_value: int, dev) -> tuple:
+    """One deployed UNet forward (CFG-doubled) at step 0, kernels against
+    plain versions, within ``FORWARD_NOISE_FACTOR`` times the plain
+    forward's own change on inputs moved by ``FORWARD_NOISE`` (never below
+    the floors). -> (max rel, mean rel, the noise's mean rel)."""
+    import torch
+    n = x.shape[0]
+    t = torch.full((n,), t_value, dtype=torch.int32, device=dev)
+    noise = torch.randn(x.shape, generator=torch.Generator()
+                        .manual_seed(6)).to(dev)
+    got = fn(x, t, 0)
+    with plain_kernels():
+        ref = fn(x, t, 0)
+        ref_noisy = fn(x * (1.0 + FORWARD_NOISE * noise), t, 0)
+    sync(dev)
+
+    def rel(a, b):
+        d = (a - b).abs()
+        return (float(d.max() / b.abs().max()),
+                float(d.mean() / b.abs().mean()))
+
+    f_max, f_mean = rel(got, ref)
+    n_max, n_mean = rel(ref_noisy, ref)
+    lim_max = max(FORWARD_MAX_REL, FORWARD_NOISE_FACTOR * n_max)
+    lim_mean = max(FORWARD_MEAN_REL, FORWARD_NOISE_FACTOR * n_mean)
+    print(f"   one deployed forward, kernels vs plain: max rel "
+          f"{f_max:.3e} (limit {lim_max:.3e}), mean rel {f_mean:.3e} "
+          f"(limit {lim_mean:.3e}); plain vs plain on inputs moved by "
+          f"{FORWARD_NOISE:g}: max rel {n_max:.3e}, mean rel "
+          f"{n_mean:.3e}", flush=True)
+    if not (f_max <= lim_max and f_mean <= lim_mean):
+        raise AssertionError("deployed forward: kernels disagree with "
+                             "the plain versions")
+    return f_max, f_mean, n_mean
+
+
+def drive_ldm_path(dev, tmp: Path, steps: int = LDM_STEPS,
                    pq_steps: int = 4) -> dict:
     """The cin256_v2 w4a8 int4-serving path at full width: checkpoint,
     calibration on the card, then the port's CLI with the kernels, with
@@ -1184,7 +1318,9 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
           f"{time.perf_counter() - t0:.2f} s; harvest launches "
           f"{harvest}", flush=True)
     del params, a_cali
-    recon = calibrate_ldm(task, ckpt, tmp, dev)
+    recon = calibrate_ldm(task, ckpt, tmp, dev, ["--classes", "1,2"],
+                          LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS,
+                          5 * LDM_CALI_STEPS)
 
     common = ["--task", task_name, "--ckpt", ckpt, "--classes", "1,2",
               "-n", str(n), "--batch", str(n), "--seed", str(SEED),
@@ -1194,27 +1330,8 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
     runs = {}
 
     def run(name, argv, plain=False):
-        reset_all_counts()
-        t0 = time.perf_counter()
-        with plain_kernels() if plain else contextlib.nullcontext():
-            rc = cli.main(argv + ["--out", str(tmp / name)])
-        sync(dev)
-        sec = time.perf_counter() - t0
-        counts = all_counts()
-        if rc != 0:
-            raise RuntimeError(f"cli.main ({name}) returned {rc}")
-        img = np.load(tmp / name / "samples.npy")
-        lat = np.load(tmp / name / "latents.npy")
-        if img.shape != (n, img_res, img_res, 3) or \
-                not np.all(np.isfinite(img)):
-            raise AssertionError(f"{name}: bad images {img.shape}")
-        if img.min() < 0 or img.max() > 1:
-            raise AssertionError(f"{name}: images outside [0, 1]")
-        print(f"   cli.main {name} ({n} images x CFG; load + deploy + "
-              f"sample + decode): {sec:.2f} s; launches {counts}",
-              flush=True)
-        runs[name] = {"s": sec, "launches": counts, "img": img,
-                      "lat": lat}
+        runs[name] = cli_sample(tmp, name, argv, (n, img_res, img_res, 3),
+                                dev, plain)
 
     run("deployed", common + quant + ["--timesteps", str(steps)])
     run("plain", common + quant + ["--timesteps", str(steps)],
@@ -1278,33 +1395,7 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
     fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
     x = torch.randn((n, res, res, task.unet.in_channels),
                     generator=torch.Generator().manual_seed(5)).to(dev)
-    t = torch.full((n,), int(sample_t[0]), dtype=torch.int32,
-                   device=dev)
-    noise = torch.randn(x.shape, generator=torch.Generator()
-                        .manual_seed(6)).to(dev)
-    got = fn(x, t, 0)
-    with plain_kernels():
-        ref = fn(x, t, 0)
-        ref_noisy = fn(x * (1.0 + FORWARD_NOISE * noise), t, 0)
-    sync(dev)
-
-    def rel(a, b):
-        d = (a - b).abs()
-        return (float(d.max() / b.abs().max()),
-                float(d.mean() / b.abs().mean()))
-
-    f_max, f_mean = rel(got, ref)
-    n_max, n_mean = rel(ref_noisy, ref)
-    lim_max = max(FORWARD_MAX_REL, FORWARD_NOISE_FACTOR * n_max)
-    lim_mean = max(FORWARD_MEAN_REL, FORWARD_NOISE_FACTOR * n_mean)
-    print(f"   one deployed forward, kernels vs plain: max rel "
-          f"{f_max:.3e} (limit {lim_max:.3e}), mean rel {f_mean:.3e} "
-          f"(limit {lim_mean:.3e}); plain vs plain on inputs moved by "
-          f"{FORWARD_NOISE:g}: max rel {n_max:.3e}, mean rel "
-          f"{n_mean:.3e}", flush=True)
-    if not (f_max <= lim_max and f_mean <= lim_mean):
-        raise AssertionError("deployed forward: kernels disagree with "
-                             "the plain versions")
+    f_max, f_mean, n_mean = forward_check(fn, x, int(sample_t[0]), dev)
     prof = profile_device(lambda: sampler_fn(fn, x),
                           f"{task_name} {steps}-step deployed sample "
                           f"(batch {n} x CFG, no decode)", top=12)
@@ -1319,6 +1410,186 @@ def drive_ldm_path(dev, tmp: Path, steps: int = 20,
             "psnr_latents_recon_kernel_vs_plain": p_rec,
             "psnr_latents_recon_vs_fp": p_rec_fp,
             "fp_lat": runs["fp"]["lat"], "fp_img": runs["fp"]["img"]}
+
+
+def flash_sites(cfg) -> dict:
+    """{key length: self-attentions per UNet forward} of the attentions
+    whose key length reaches the flash gate
+    (``ops.attention.MIN_FLASH_KV``): a walk of the layers (a
+    transformer block's attn1, an AttentionBlock's qkv)."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    from tfmq_dm_tpu_torch.ops.attention import MIN_FLASH_KV
+    sites = {}
+    for _, name, _, res in ldm_unet.iter_layers_with_res(cfg):
+        if (name.endswith(".attn1.to_q") or name.endswith(".qkv")) and \
+                res * res >= MIN_FLASH_KV:
+            sites[res * res] = sites.get(res * res, 0) + 1
+    return sites
+
+
+def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
+    """The SD v1.4 w4a8 int4-serving path at full width: a seeded
+    random-init checkpoint (UNet, KL-f8 decoder, CLIP ViT-L/14 text tower),
+    a token-id file, an init-only artifact (PLMS harvest with CFG, minmax
+    grids, FSC init pass), then ``cli.main --token_ids`` with the kernels,
+    with the plain versions and in FP; launch counts held against a walk
+    of the layers; one deployed forward kernels vs plain; the device
+    profile of a deployed sample; then ``cli.main --ptq --cali`` at full
+    width and that artifact sampled with the kernels and the plain
+    versions."""
+    import numpy as np
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.models import clip_text, ldm_unet, ldm_units
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.pipelines.loading import load_ldm_checkpoint
+    from tfmq_dm_tpu_torch.quant.calibrate import cali_model
+
+    task = get_task("sd_v1_4")
+    n, res = SD_N, task.unet.image_size
+    img_res = res * 2 ** (len(task.vae.ch_mult) - 1)
+    forwards = steps + 1
+    tmp = tmp / "sd"
+    tmp.mkdir()
+    t0 = time.perf_counter()
+    ckpt = str(tmp / "sd_v1_4_random.ckpt")
+    make_ldm_checkpoint(ckpt, task, dev)
+    print(f"   random-init sd_v1_4 checkpoint (UNet, KL-f8 decoder, CLIP "
+          f"ViT-L/14) {os.path.getsize(ckpt) / 2 ** 30:.2f} GiB: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ids = str(tmp / "token_ids.npy")
+    np.save(ids, clip_text.stub_tokenize([SD_PROMPT], task.clip).numpy())
+    cond_argv = ["--token_ids", ids]
+
+    t0 = time.perf_counter()
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    ctx, uc = cli.conditioning(cli.build_argparser().parse_args(
+        ["--task", task.name] + cond_argv), task, cond, n, dev)
+    reset_all_counts()
+    _, a_cali, cali_t = ptq.generate_cali_data(
+        task, lambda x, t, c: ldm_unet.apply(params, task.unet, x, t,
+                                             context=c),
+        torch.Generator().manual_seed(1), n_per_t=n, context=ctx,
+        uncond=uc, steps=steps, device=dev)
+    sync(dev)
+    harvest = all_counts()
+    sites = sum(flash_sites(task.unet).values())
+    if harvest["flash_fp"] != sites * forwards:
+        raise AssertionError(f"harvest: flash_fp launched "
+                             f"{harvest['flash_fp']} times, expected "
+                             f"{sites} x {forwards}")
+    adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
+                                      use_aq=True)
+    art = str(tmp / "cali_init.npz")
+    cali_model(adapter, params, None, a_cali, hp=None, use_aq=True,
+               running_stat=False, generator=torch.Generator().manual_seed(2),
+               path=art, w_scaler="minmax", act_scaler="minmax",
+               init_samples=2 * n,
+               meta={"task": task.name, "wq": 4, "aq": 8,
+                     "softmax_a_bit": 8, "use_aq": True,
+                     "cali_t": [float(v) for v in cali_t]})
+    sync(dev)
+    print(f"   init-only artifact (PLMS harvest {steps} steps x {n} x CFG, "
+          f"{forwards} UNet evaluations; minmax grids, FSC init pass): "
+          f"{time.perf_counter() - t0:.2f} s; harvest launches {harvest}",
+          flush=True)
+    del params, cond, a_cali, ctx, uc
+    torch.cuda.empty_cache()
+
+    common = ["--task", task.name, "--ckpt", ckpt, *cond_argv, "-n", str(n),
+              "--batch", str(n), "--seed", str(SEED), "--device", dev.type,
+              "--timesteps", str(steps)]
+    quant = ["--use_aq", "--int-kernels", "--int4-serving"]
+    img_shape = (n, img_res, img_res, 3)
+    runs = {}
+    for name, argv, plain in (
+            ("deployed", ["--ptq", "--cali_ckpt", art] + quant, False),
+            ("plain", ["--ptq", "--cali_ckpt", art] + quant, True),
+            ("fp", [], False)):
+        runs[name] = cli_sample(tmp, name, common + argv, img_shape, dev,
+                                plain)
+    walk = {"flash_int8": sites * forwards,
+            "int4_linear": sum(linear_counts(task.unet).values()) * forwards
+            + 2 * len(ldm_unet.cross_attn_prefixes(task.unet)),
+            "int4_conv2d": sum(cin_conv_counts(task.unet).values())
+            * forwards}
+    got = {k: runs["deployed"]["launches"][k] for k in walk}
+    print(f"   launches against the layer walk ({forwards} UNet "
+          f"evaluations; {sites} self-attentions a forward at T >= 1024): "
+          f"{got}, walk {walk}", flush=True)
+    if got != walk:
+        raise AssertionError(f"sd deployed: launches {got}, the walk of "
+                             f"the layers {walk}")
+    if runs["fp"]["launches"]["flash_fp"] != sites * forwards:
+        raise AssertionError(f"sd fp: flash_fp launched "
+                             f"{runs['fp']['launches']['flash_fp']} times")
+    p_lat = latent_psnr(runs["deployed"]["lat"], runs["plain"]["lat"])
+    p_img = psnr(runs["deployed"]["img"], runs["plain"]["img"])
+    p_qf_lat = latent_psnr(runs["deployed"]["lat"], runs["fp"]["lat"])
+    p_qf = psnr(runs["deployed"]["img"], runs["fp"]["img"])
+    print(f"   PSNR kernels vs plain versions: latents {p_lat:.2f} dB, "
+          f"decoded images {p_img:.2f} dB (information); quantized vs FP "
+          f"(information): latents {p_qf_lat:.2f} dB, images {p_qf:.2f} dB",
+          flush=True)
+    if not p_lat >= MIN_LATENT_PSNR_DB:
+        raise AssertionError(f"sd: latent PSNR kernels vs plain "
+                             f"{p_lat:.2f} dB < {MIN_LATENT_PSNR_DB}")
+
+    t0 = time.perf_counter()
+    args = cli.build_argparser().parse_args(
+        common + ["--ptq", "--cali_ckpt", art] + quant + ["--out", "-"])
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=steps)
+    fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
+    x = torch.randn((n, res, res, task.unet.in_channels),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    f_max, f_mean, n_mean = forward_check(fn, x, int(sample_t[0]), dev)
+    prof = profile_device(lambda: sampler_fn(fn, x),
+                          f"sd_v1_4 {steps}-step deployed sample (batch {n}"
+                          f" x CFG, {forwards} evaluations, no decode)",
+                          top=12)
+    print(f"   one forward and the profile: {time.perf_counter() - t0:.2f} "
+          "s", flush=True)
+    del params, cond, fn
+    torch.cuda.empty_cache()
+
+    recon = calibrate_ldm(task, ckpt, tmp, dev, cond_argv, SD_CALI_STEPS,
+                          SD_CALI_N, SD_CALI_ITERS,
+                          sites * (SD_CALI_STEPS + 1))
+    print(f"   units: {recon['units']} reconstructed (the JAX package's "
+          f"ldm_units.build_units at sd_v1_config: 74 of 75 train, "
+          f"tests/test_torch_sd_modules.py)", flush=True)
+    quant_recon = ["--ptq", "--cali_ckpt", recon["art"]] + quant
+    for name, plain in (("recon", False), ("recon_plain", True)):
+        runs[name] = cli_sample(tmp, name, common + quant_recon, img_shape,
+                                dev, plain)
+    for kern in walk:
+        if runs["recon"]["launches"][kern] != walk[kern]:
+            raise AssertionError(f"sd recon: {kern} launched "
+                                 f"{runs['recon']['launches'][kern]} times,"
+                                 f" the walk {walk[kern]}")
+    p_rec = latent_psnr(runs["recon"]["lat"], runs["recon_plain"]["lat"])
+    p_rec_fp = latent_psnr(runs["recon"]["lat"], runs["fp"]["lat"])
+    print(f"   reconstructed artifact: latents kernels vs plain versions "
+          f"{p_rec:.2f} dB; quantized vs FP latents (information) "
+          f"{p_rec_fp:.2f} dB reconstructed, {p_qf_lat:.2f} dB minmax "
+          "grids and the FSC init pass", flush=True)
+    if not p_rec >= MIN_LATENT_PSNR_DB:
+        raise AssertionError(f"sd reconstructed artifact: latent PSNR "
+                             f"kernels vs plain {p_rec:.2f} dB < "
+                             f"{MIN_LATENT_PSNR_DB}")
+    return {"runs": {k: {"s": v["s"], "launches": v["launches"]}
+                     for k, v in runs.items()},
+            "steps": steps, "forwards": forwards, "walk": walk,
+            "psnr_latents_kernel_vs_plain": p_lat,
+            "psnr_images_kernel_vs_plain": p_img,
+            "psnr_latents_quant_vs_fp": p_qf_lat, "psnr_quant_vs_fp": p_qf,
+            "forward_max_rel": f_max, "forward_mean_rel": f_mean,
+            "noise_mean_rel": n_mean, "profile": prof,
+            "calibration": {k: v for k, v in recon.items() if k != "art"},
+            "psnr_latents_recon_kernel_vs_plain": p_rec,
+            "psnr_latents_recon_vs_fp": p_rec_fp}
 
 
 # ---------------------------------------------------------------------------
@@ -1940,7 +2211,7 @@ def forward_counts(fn, args):
 
 
 def drive_deploy_path(dev, main_path: dict, ldm: dict, peaks: dict,
-                      cin_steps: int = 20) -> dict:
+                      cin_steps: int = LDM_STEPS) -> dict:
     """The int8 and bf16 deployments through ``cli.main``: cin256_v2
     ``--int-kernels --deploy_dtype bfloat16``, the CIFAR-10 bench
     configuration (w4a8 ``--w_sym``, int8 deploy, bf16) and CIFAR-10 w8a8
@@ -2134,6 +2405,11 @@ def run() -> None:
         cin_convs, cin_linears = cin_geometries(get_task("cin256_v2").unet)
         conv_shapes += [(2 * CIN_N, r, k, ci, co)
                         for (r, k, ci, co) in cin_convs]
+        sd_unet = get_task("sd_v1_4").unet
+        sd_convs = cin_conv_counts(sd_unet)
+        sd_linears = linear_counts(sd_unet)
+        conv_shapes += [(2 * SD_N, r, k, ci, co)
+                        for (r, k, ci, co) in sorted(sd_convs)]
         for (b, r, k, ci, co) in conv_shapes:
             case = conv_case(g, b, r, k, ci, co, dev)
             got = K.int4_conv2d(*case)
@@ -2147,6 +2423,8 @@ def run() -> None:
         lin_shapes = [(BATCH, k, n) for (k, n) in linears]
         lin_shapes += [(1, 512, 256), (3, 100, 37), (64, 512, 256)]
         lin_shapes += [(2 * CIN_N * m, k, n) for (m, k, n) in cin_linears]
+        lin_shapes += [(2 * SD_N * m, k, n)
+                       for (m, k, n) in sorted(sd_linears)]
         for (m, k, n) in lin_shapes:
             case = linear_case(g, m, k, n, dev)
             got = K.int4_linear(*case)
@@ -2167,7 +2445,8 @@ def run() -> None:
               "kernel wall per eager call; bound):", flush=True)
         measured = {"conv_geometries": time_conv_geometries(
             g, dev, peaks, conv_geometry_cases(
-                convs, cin_conv_counts(get_task("cin256_v2").unet)))}
+                convs, cin_conv_counts(get_task("cin256_v2").unet),
+                sd_convs))}
         for b, r, ci in ((64, 16, 256), (64, 32, 128), (BATCH, 32, 128),
                          (2 * CIN_N, 64, 192), (2 * CIN_N, 32, 384)):
             measured[("conv", b, r, ci)] = t = time_conv(
@@ -2181,7 +2460,36 @@ def run() -> None:
                 linear_case(g, m, k, n, dev), peaks)
             print(f"   int4_linear M{m} {k}->{n}: " + timing_line(t)
                   + earlier_note(t, ("int4_linear", m, k, n)), flush=True)
+        sd_lin = []
+        for (m, k, n), per_fwd in sorted(sd_linears.items()):
+            t = time_linear(linear_case(g, 2 * SD_N * m, k, n, dev), peaks)
+            sd_lin.append({"shape": [2 * SD_N * m, k, n],
+                           "launches_per_forward": per_fwd, **t})
+            print(f"   int4_linear sd M{2 * SD_N * m} {k}->{n} x{per_fwd}: "
+                  + timing_line(t), flush=True)
+        measured["sd_linears"] = sd_lin
+        per = {key: sum(x[key] * x["launches_per_forward"]
+                        for x in sd_lin)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        measured["sd_linear_per_forward"] = per
+        print("   int4_linear sd per forward ("
+              f"{sum(x['launches_per_forward'] for x in sd_lin)} launches, "
+              "the K/V cache's once a rollout left out): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()),
+              flush=True)
         measured.update(time_flash(g, dev, peaks))
+        sd_sites = flash_sites(sd_unet)
+        for name, head in (("flash_int8", "8-bit p"), ("flash_fp", "f32")):
+            grids = measured[name]["grids"]
+            per = {key: sum(c * grids[f"sd {int(t ** 0.5)}x{int(t ** 0.5)} "
+                                      f"{head}"][key]
+                            for t, c in sd_sites.items())
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            measured[name]["sd_per_forward"] = per
+            print(f"   {name} sd per forward ({sd_sites} launches by key "
+                  "length): " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in per.items()),
+                  flush=True)
         measured["int8"] = time_int8(g, dev, peaks)
         measured["flash_fqk"] = time_fqk(g, dev, peaks)
         # no model path reaches these two: their launches are those of
@@ -2201,6 +2509,8 @@ def run() -> None:
             main_path = drive_main_path(cfg, dev, tmp)
         with phase("ldm"):
             ldm = drive_ldm_path(dev, tmp)
+        with phase("sd"):
+            sd = drive_sd_path(dev, tmp)
         with phase("deploy"):
             dep = drive_deploy_path(dev, main_path, ldm, peaks)
     finally:
@@ -2210,7 +2520,10 @@ def run() -> None:
     check_conv_counts(measured["conv_geometries"], {
         "cifar10": (launches["int4_conv2d"], STEPS),
         "cin256": (runs["deployed"]["launches"]["int4_conv2d"],
-                   ldm["steps"])})
+                   ldm["steps"]),
+        "sd": (sd["runs"]["deployed"]["launches"]["int4_conv2d"],
+               sd["forwards"])})
+    sd_runs = sd["runs"]
     tc = measured[("conv", BATCH, 32, 128)]
     tl = measured[("linear", BATCH, 512, 256)]
     fqk = measured["flash_fqk"]
@@ -2231,6 +2544,7 @@ def run() -> None:
          "shape": f"x ({BATCH},32,32,128) bf16, 3x3 128->128",
          "launches": launches["int4_conv2d"],
          "launches_cin256": runs["deployed"]["launches"]["int4_conv2d"],
+         "launches_sd": sd_runs["deployed"]["launches"]["int4_conv2d"],
          "max_abs_err": max(errs["int4_conv2d"]), **tc,
          "cin256": measured[("conv", 2 * CIN_N, 64, 192)],
          "geometries": measured["conv_geometries"]},
@@ -2241,6 +2555,9 @@ def run() -> None:
          "shape": f"x ({BATCH},512) f32, 512->256",
          "launches": launches["int4_linear"],
          "launches_cin256": runs["deployed"]["launches"]["int4_linear"],
+         "launches_sd": sd_runs["deployed"]["launches"]["int4_linear"],
+         "sd_per_forward": measured["sd_linear_per_forward"],
+         "sd_shapes": measured["sd_linears"],
          "max_abs_err": max(errs["int4_linear"]), **tl,
          "cin256": measured[("linear", 2 * CIN_N * 1024, 384, 3072)],
          "shapes": [{"shape": list(key[1:]), **v}
@@ -2252,6 +2569,8 @@ def run() -> None:
          "shape": f"(B*H {bh}, T {t_cin}, D {d_cin}), {what}",
          "launches": runs[run_name]["launches"][name],
          "launches_path": f"cin256 cli.main {run_name}",
+         "launches_sd": sd_runs[run_name]["launches"][name]
+         if run_name in sd_runs else None,
          "max_abs_err": max(errs[name]), **measured[name]}
         for name, where, mode, run_name, what in flash_rows] + [
         {"name": "int8_matmul_pre", "route": "cuda",
@@ -2328,6 +2647,23 @@ def run() -> None:
         "forward_mean_rel": ldm["forward_mean_rel"],
         "forward_noise_mean_rel": ldm["noise_mean_rel"],
         "profile": ldm["profile"]}}), flush=True)
+    print(json.dumps({"sd": {
+        "task": "sd_v1_4", "images": SD_N, "steps": sd["steps"],
+        "e2e_s": {k: v["s"] for k, v in sd["runs"].items()},
+        "launches_walk": sd["walk"],
+        "psnr_latents_kernel_vs_plain_db":
+            sd["psnr_latents_kernel_vs_plain"],
+        "psnr_images_kernel_vs_plain_db": sd["psnr_images_kernel_vs_plain"],
+        "psnr_latents_quant_vs_fp_db": sd["psnr_latents_quant_vs_fp"],
+        "psnr_quant_vs_fp_db": sd["psnr_quant_vs_fp"],
+        "calibration": sd["calibration"],
+        "psnr_latents_recon_kernel_vs_plain_db":
+            sd["psnr_latents_recon_kernel_vs_plain"],
+        "psnr_latents_recon_vs_fp_db": sd["psnr_latents_recon_vs_fp"],
+        "forward_max_rel": sd["forward_max_rel"],
+        "forward_mean_rel": sd["forward_mean_rel"],
+        "forward_noise_mean_rel": sd["noise_mean_rel"],
+        "profile": sd["profile"]}}), flush=True)
     print(json.dumps({"deploy": {
         k: {f: x for f, x in v.items() if f != "gemm_shapes"}
         for k, v in dep.items()}}), flush=True)

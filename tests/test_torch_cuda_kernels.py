@@ -18,6 +18,7 @@ codes.
 """
 
 import contextlib
+import dataclasses
 from unittest import mock
 
 import pytest
@@ -152,6 +153,32 @@ def test_cuda_int4_conv2d_routes_match_plain(cuda, b, h, cin, n, kk,
     _conv_close(got, K.int4_conv2d_plain(*args), kk * kk * cin)
 
 
+def _sd_conv_geometries():
+    """(res, k, cin, cout) of every packed conv of SD v1.4's UNet at its
+    64 x 64 latents (a walk of its layers): Cout 320 / 640 / 1280, none a
+    multiple of the wgmma route's 192-wide tile; K up to 9 x 2560."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    cfg = dataclasses.replace(ldm_unet.sd_v1_config(), image_size=64)
+    out = set()
+    for kind, name, shape, res in ldm_unet.iter_layers_with_res(cfg):
+        # the policy leaves the first and the last conv unquantized
+        if kind == "conv" and name not in ("input_blocks.0.0", "out.2"):
+            out.add((res, shape[0], shape[2], shape[3]))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("res,kk,cin,n", _sd_conv_geometries())
+def test_cuda_int4_conv2d_sd_geometries_match_plain(cuda, res, kk, cin, n):
+    """Every conv geometry of the SD v1.4 int4-serving path at batch 1 x
+    CFG, with the plan the cost model picks."""
+    args = _conv_args(2, res, cin, n, kk, "SAME" if kk == 3 else "VALID",
+                      cuda)
+    before = K.LAUNCHES["int4_conv2d"]
+    got = K.int4_conv2d(*args)
+    assert K.LAUNCHES["int4_conv2d"] == before + 1
+    _conv_close(got, K.int4_conv2d_plain(*args), kk * kk * cin)
+
+
 @pytest.mark.parametrize("b,h,cin,n,kk,padding", [
     (8, 4, 512, 256, 3, "SAME"), (4, 8, 960, 960, 3, "SAME"),
     (8, 8, 256, 256, 3, "SAME")])
@@ -261,6 +288,33 @@ def test_cuda_flash_int8_matches_plain(cuda, bh, tq, tk, d, pw):
         _assert_close(got, ref)
     else:
         _assert_one_level(got, ref, pw[0])
+
+
+@pytest.mark.parametrize("t,d,dp", [(4096, 40, 64), (1024, 80, 96)])
+def test_cuda_flash_int8_sd_self_attention_matches_plain(cuda, t, d, dp):
+    """SD v1.4's deployed self-attention at batch 1 x CFG, 8 heads: T 4096
+    / D 40 and T 1024 / D 80, the head dim padded to ``dp``, through the
+    dispatch's ``flash_attention`` (mode int8 with the softmax quantizer):
+    one ``flash_int8`` launch, against the same call on the plain
+    version."""
+    from tfmq_dm_tpu_torch.ops import flash_attention as FA
+    assert FA.int8_scratch(16, t, d, cuda)[0] == dp
+    g = torch.Generator().manual_seed(t + d)
+    q, k, v = (torch.randn(2, 8, t, d, generator=g).to(cuda)
+               for _ in range(3))
+    def grid(*vals):
+        return tuple(torch.tensor(a, device=cuda) for a in vals)
+
+    kw = dict(sm_scale=d ** -0.5, p_quant=grid(1 / 255.0, 0.0),
+              qkv_quant=(grid(0.031, 130.0), grid(0.029, 120.0),
+                         grid(0.033, 125.0)))
+    before = FA.LAUNCHES["flash_int8"]
+    got = FA.flash_attention(q, k, v, **kw)
+    assert FA.LAUNCHES["flash_int8"] == before + 1
+    with mock.patch.object(FA, "flash_int8", FA.flash_int8_plain):
+        ref = FA.flash_attention(q, k, v, **kw)
+    assert got.shape == ref.shape == (2, 8, t, d)
+    _assert_one_level(got, ref, 1 / 255.0)
 
 
 def test_cuda_flash_rejects_wide_head_dim(cuda):

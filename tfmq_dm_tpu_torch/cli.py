@@ -1,6 +1,6 @@
-"""CLI of the port: the ``cifar10`` and class-conditional LDM
-(``cin256_v2``) subset of ``tfmq_dm_tpu/cli.py``, with their CPU
-miniatures ``tiny_ddim`` and ``tiny_cin``.
+"""CLI of the port: the ``cifar10``, class-conditional LDM (``cin256_v2``)
+and Stable Diffusion v1.4 (``sd_v1_4``) subset of ``tfmq_dm_tpu/cli.py``,
+with their CPU miniatures ``tiny_ddim``, ``tiny_cin`` and ``tiny_sd``.
 
 Calibrate, then exit (the reference's ``--cali``): harvest ``--cali_n``
 samples per sampler step (class-conditional tasks with classifier-free
@@ -14,6 +14,10 @@ every unit with AdaRound (``--cali_iters`` iterations each), run FSC
   python -m tfmq_dm_tpu_torch.cli --task cin256_v2 --ckpt cin256-v2.ckpt \\
       --ptq --cali --wq 4 --aq 8 --use_aq --cali_save_path cali.npz
 
+  python -m tfmq_dm_tpu_torch.cli --task sd_v1_4 --ckpt sd-v1-4.ckpt \\
+      --ptq --cali --wq 4 --aq 8 --use_aq --token_ids prompts.npy \\
+      --cali_save_path cali.npz
+
 Quantized sampling with the hand-written kernels, from a calibration
 artifact (either package's):
 
@@ -24,6 +28,10 @@ artifact (either package's):
       --ptq --cali_ckpt cali.npz --use_aq --int-kernels \\
       --deploy_dtype bfloat16 --classes 1,2 -n 2 --batch 2 --out /tmp/cin
 
+  python -m tfmq_dm_tpu_torch.cli --task sd_v1_4 --ckpt sd-v1-4.ckpt \\
+      --ptq --cali_ckpt cali.npz --use_aq --int-kernels --int4-serving \\
+      --token_ids prompts.npy -n 1 --batch 1 --out /tmp/sd
+
 ``--int-kernels`` deploys integer weights: int8 codes run the exact int8
 conv and GEMM, and ``--int4-serving`` packs 4-bit weights for the
 packed-int4 kernels instead. ``--deploy_dtype bfloat16`` (the fast deploy)
@@ -32,10 +40,16 @@ and takes the ``fqk`` flash kernel; float32 keeps the deployed model exact
 against its fake-quant simulation. ``--wq/--aq/--w_sym`` give the
 artifact's grids. Without ``--int-kernels`` the quantized model runs as a
 fake-quant simulation; without ``--ptq`` it runs in full precision.
-Class-conditional tasks sample with classifier-free guidance (``--scale``,
+Conditioned tasks sample with classifier-free guidance (``--scale``,
 default the task's) and cache the cross-attention K/V of the constant
-class context (``--no-kv-cache`` recomputes them every step, as the
-reference does).
+context (``--no-kv-cache`` recomputes them every step, as the reference
+does). Class-conditional tasks take ``--classes``; text-conditioned ones
+take ``--prompt`` or ``--from-file`` (one prompt a line), tokenized by
+the stub tokenizer at a miniature's vocabulary, or ``--token_ids``: an
+``.npy`` of token ids, (rows, 77) at CLIP's vocabulary, whose BPE files
+are not in this repository, so that prompt text is refused there. The
+rows, prompts or classes repeat to fill a batch; the unconditional row is
+the empty prompt's tokens, or the class table's last row.
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Images in [0, 1], NHWC float32, are written to
 ``<out>/samples.npy``; LDM tasks also write the sampled latents to
@@ -56,6 +70,7 @@ import torch
 
 from .configs.tasks import get_task, task_betas
 from .convert import load_params
+from .data.prompts import prompts_from_file
 from .models import clip_text, ddim_unet, ddim_units, ldm_unet, ldm_units
 from .ops.nn import exact_f32
 from .pipelines import ptq
@@ -82,8 +97,8 @@ def cifar10_schedule(steps: int = 100):
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("tfmq-torch")
     p.add_argument("--task", required=True,
-                   choices=("cifar10", "cin256_v2", "tiny_cin",
-                            "tiny_ddim"))
+                   choices=("cifar10", "cin256_v2", "sd_v1_4", "tiny_cin",
+                            "tiny_ddim", "tiny_sd"))
     p.add_argument("--ckpt", default=None,
                    help="trained weights: a p::<layer>::<field> npz "
                         "(cifar10, default runs/cifar10_ddpm.npz) or the "
@@ -147,6 +162,14 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="classifier-free guidance scale")
     p.add_argument("--classes", default=None,
                    help="comma-separated ImageNet class ids")
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--from-file", dest="from_file", default=None,
+                   help="file with one prompt per line")
+    p.add_argument("--token_ids", default=None,
+                   help="an .npy of token ids (rows, max_len) for a "
+                        "text-conditioned task, in place of prompts (at "
+                        "CLIP's vocabulary, whose BPE files are not in "
+                        "this repository)")
     p.add_argument("-n", "--num_images", type=int, default=64)
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--device", default="cuda")
@@ -211,18 +234,93 @@ def build_model_fn(args, params, cfg, sample_t, device):
                          use_aq=args.use_aq, group_of_step=gos)
 
 
+def _repeat_to(rows: list, n: int) -> list:
+    """``rows`` repeated to fill n rows (cli.py:163-164)."""
+    return (rows * ((n + len(rows) - 1) // len(rows)))[:n]
+
+
 def class_context(cond_params, classes, n: int, device):
     """(context, uncond) (n, 1, embed_dim) from the class embedding
     table; the unconditional class is the table's last row
     (cli.py:186-198)."""
     cls = [int(c) for c in classes.split(",")] if classes \
         else list(range(8))
-    cls = (cls * ((n + len(cls) - 1) // len(cls)))[:n]
     table = cond_params["embedding"]
-    y = torch.tensor(cls, dtype=torch.long, device=device)
+    y = torch.tensor(_repeat_to(cls, n), dtype=torch.long, device=device)
     uy = torch.full((n,), table.shape[0] - 1, dtype=torch.long,
                     device=device)
     return clip_text.class_embed(table, y), clip_text.class_embed(table, uy)
+
+
+def load_token_ids(path: str, ccfg) -> np.ndarray:
+    """``--token_ids``: an .npy of integer token ids, (rows, max_len),
+    each in the text encoder's vocabulary."""
+    ids = np.load(path)
+    if ids.ndim != 2 or ids.shape[1] != ccfg.max_len or \
+            not np.issubdtype(ids.dtype, np.integer) or ids.shape[0] < 1:
+        raise SystemExit(f"--token_ids {path}: expected integer ids of "
+                         f"shape (rows, {ccfg.max_len}), got {ids.dtype} "
+                         f"{ids.shape}")
+    if ids.min() < 0 or ids.max() >= ccfg.vocab_size:
+        raise SystemExit(f"--token_ids {path}: ids outside the "
+                         f"vocabulary [0, {ccfg.vocab_size})")
+    return ids
+
+
+def text_token_ids(args, ccfg, n: int) -> torch.Tensor:
+    """(n, max_len) token ids of the prompts (cli.py:148-186): from
+    ``--token_ids``, or ``--prompt`` / ``--from-file`` through the stub
+    tokenizer at a miniature's vocabulary; prompt text at CLIP's
+    vocabulary is refused (its BPE files are not in this repository)."""
+    if args.token_ids:
+        if args.prompt or args.from_file:
+            raise SystemExit("give --token_ids or --prompt/--from-file, "
+                             "not both")
+        return torch.from_numpy(np.stack(_repeat_to(
+            list(load_token_ids(args.token_ids, ccfg)), n)).astype(np.int64))
+    if args.from_file:
+        prompts = prompts_from_file(args.from_file)
+    elif args.prompt:
+        prompts = [args.prompt]
+    else:
+        raise SystemExit("a text-conditioned task needs --prompt, "
+                         "--from-file or --token_ids")
+    if ccfg.vocab_size == clip_text.vit_l_14_config().vocab_size:
+        raise SystemExit(clip_text.BPE_FILES_MISSING)
+    return clip_text.stub_tokenize(_repeat_to(prompts, n), ccfg)
+
+
+def text_context(args, task, cond_params, n: int, device):
+    """(context, uncond) (n, max_len, width): the CLIP text encoder's
+    last hidden state of the prompts' token ids and of the empty
+    prompt's."""
+    ccfg = task.clip
+    ids = text_token_ids(args, ccfg, n).to(device)
+    uids = clip_text.empty_prompt_ids(n, ccfg).to(device)
+    return (clip_text.apply(cond_params, ccfg, ids),
+            clip_text.apply(cond_params, ccfg, uids))
+
+
+def conditioning(args, task, cond_params, n: int, device):
+    """(context, uncond) of n rows for the task's conditioning."""
+    if task.cond == "text":
+        return text_context(args, task, cond_params, n, device)
+    return class_context(cond_params, args.classes, n, device)
+
+
+def load_ldm(args, task, device):
+    """(unet, vae, cond params) of ``--ckpt``, a Lightning checkpoint
+    that must hold the encoder of the task's conditioning."""
+    if not args.ckpt:
+        raise SystemExit(f"--task {task.name} needs --ckpt")
+    params, vae_params, cond_params = load_ldm_checkpoint(
+        args.ckpt, task, device=device)
+    if cond_params is None:
+        key = "cond_stage_model.transformer.*" if task.cond == "text" \
+            else "cond_stage_model.embedding"
+        raise SystemExit(f"{args.ckpt}: no {key} (the task's "
+                         f"{task.cond} conditioning)")
+    return params, vae_params, cond_params
 
 
 def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
@@ -230,7 +328,7 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
     deployed), flash attention in the quantized contexts, the cached
     cross-attention K/V and double-batched CFG (cli.py:339-432)."""
     cfg = task.unet
-    ctx, uc = class_context(cond_params, args.classes, args.batch, device)
+    ctx, uc = conditioning(args, task, cond_params, args.batch, device)
     c_in = torch.cat([uc, ctx])
     scale = task.cfg_scale if args.scale is None else args.scale
 
@@ -258,7 +356,7 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
         deployed, params, act_dtype = deploy(args, adapter, params, wstate,
                                              ex)
 
-    # the class context is constant over the rollout: its to_k/to_v
+    # the context is constant over the rollout: its to_k/to_v
     # projections run once, in the model function's group-0 context (the
     # context-fed sites see the same input in every FSC group)
     def kv_cache_fn(qctx):
@@ -304,12 +402,7 @@ def sample(args, latents: list = None) -> np.ndarray:
                                 device=device)
         model_fn = build_model_fn(args, params, task.unet, sample_t, device)
     else:
-        if not args.ckpt:
-            raise SystemExit(f"--task {task.name} needs --ckpt")
-        params, vae_params, cond_params = load_ldm_checkpoint(
-            args.ckpt, task, device=device)
-        if cond_params is None:
-            raise SystemExit(f"{args.ckpt}: no cond_stage_model.embedding")
+        params, vae_params, cond_params = load_ldm(args, task, device)
         model_fn = build_ldm_model_fn(args, task, params, cond_params,
                                       sample_t, device)
     return sample_fid(task, sampler_fn, model_fn,
@@ -331,9 +424,9 @@ def resolve_device(args) -> torch.device:
 
 def calibrate(args) -> None:
     """The calibrate-then-exit flow (cli.py:244-314): harvest (with CFG
-    for a class-conditional task: ``--scale`` or the task's, the classes
-    of ``--classes``), reconstruction and FSC, the artifact at
-    ``--cali_save_path``."""
+    for a conditioned task: ``--scale`` or the task's, the classes of
+    ``--classes`` or the prompts' token ids), reconstruction and FSC, the
+    artifact at ``--cali_save_path``."""
     log = logging.getLogger("tfmq_torch")
     device = resolve_device(args)
     exact_f32()
@@ -352,11 +445,8 @@ def calibrate(args) -> None:
         def fp_apply(x, t, c):
             return ddim_unet.apply(params, task.unet, x, t)
     else:
-        params, _, cond_params = load_ldm_checkpoint(args.ckpt, task,
-                                                     device=device)
-        if cond_params is None:
-            raise SystemExit(f"{args.ckpt}: no cond_stage_model.embedding")
-        ctx, uc = class_context(cond_params, args.classes, n_per_t, device)
+        params, _, cond_params = load_ldm(args, task, device)
+        ctx, uc = conditioning(args, task, cond_params, n_per_t, device)
 
         def fp_apply(x, t, c):
             return ldm_unet.apply(params, task.unet, x, t, context=c)

@@ -1,7 +1,8 @@
 """Task registry (the port's copy of the tasks it serves from
 ``tfmq_dm_tpu/configs/tasks.py``): one typed config per model/dataset,
-values transcribed from ddim/configs/cifar10.yml and
-configs/latent-diffusion/cin256-v2.yaml with the reference's sampler
+values transcribed from ddim/configs/cifar10.yml,
+configs/latent-diffusion/cin256-v2.yaml and
+configs/stable-diffusion/v1-inference.yaml with the reference's sampler
 settings (README.md:86-125)."""
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from ..models import ddim_unet, ldm_unet, vae as vae_mod
+from ..models import clip_text, ddim_unet, ldm_unet, vae as vae_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +26,7 @@ class TaskConfig:
     beta_end: float = 2e-2
     num_timesteps: int = 1000
     # default sampler settings
-    sampler: str = "ddim"          # ddim (ldm); generalized (ddim family)
+    sampler: str = "ddim"          # ddim|plms (ldm); generalized (ddim)
     steps: int = 100
     eta: float = 0.0
     skip_type: str = "uniform"     # uniform | quad
@@ -35,6 +36,8 @@ class TaskConfig:
     interval_length: int = 1       # weight-phase timestep subsampling
     recon_batch: int = 32
     use_ema: bool = True
+    # CLIP text-encoder config of a cond == "text" task
+    clip: object = None
 
 
 def cifar10() -> TaskConfig:
@@ -68,6 +71,35 @@ def cin256_v2() -> TaskConfig:
         cali_n=512, interval_length=1, recon_batch=8, use_ema=False)
 
 
+def sd_v1_4() -> TaskConfig:
+    """Stable Diffusion v1.4 (tasks.py:196-203). Sampled at 512 x 512, the
+    reference's txt2img.py default (--H 512 --W 512, f 8): 64 x 64
+    latents. The yaml's ``image_size: 32``, which the JAX package's
+    ``sd_v1_config`` carries and its CLI samples at, is a training crop
+    the reference's SD sampler never reads."""
+    return TaskConfig(
+        name="sd_v1_4", family="ldm",
+        unet=dataclasses.replace(ldm_unet.sd_v1_config(), image_size=64),
+        vae=vae_mod.sd_vae_config(), cond="text",
+        beta_schedule="linear", beta_start=0.00085,
+        beta_end=0.012, sampler="plms", steps=50, eta=0.0,
+        cfg_scale=7.5, cali_n=256, interval_length=1, recon_batch=8,
+        use_ema=False, clip=clip_text.vit_l_14_config())
+
+
+def tiny_sd() -> TaskConfig:
+    """A CPU-runnable text-conditioned miniature of the SD pipeline
+    (tasks.py:224-235): tiny CLIP text encoder (stub tokenizer), PLMS with
+    CFG, FSC."""
+    return TaskConfig(
+        name="tiny_sd", family="ldm",
+        unet=ldm_unet.tiny_sd_config(context_dim=32),
+        vae=vae_mod.tiny_vae_config(), cond="text", beta_start=0.0015,
+        beta_end=0.0195, sampler="plms", steps=4, cfg_scale=7.5,
+        num_timesteps=100, cali_n=2, interval_length=1, recon_batch=4,
+        use_ema=False, clip=clip_text.tiny_clip_config())
+
+
 def tiny_cin() -> TaskConfig:
     return TaskConfig(
         name="tiny_cin", family="ldm",
@@ -78,8 +110,9 @@ def tiny_cin() -> TaskConfig:
         use_ema=False)
 
 
-TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "tiny_cin": tiny_cin,
-         "tiny_ddim": tiny_ddim}
+TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "sd_v1_4": sd_v1_4,
+         "tiny_cin": tiny_cin, "tiny_ddim": tiny_ddim, "tiny_sd": tiny_sd}
+
 
 def get_task(name: str) -> TaskConfig:
     return TASKS[name]()

@@ -69,6 +69,16 @@ def cin256_config() -> LDMUNetConfig:
                          context_dim=512)
 
 
+def sd_v1_config() -> LDMUNetConfig:
+    """Stable Diffusion v1.x (configs/stable-diffusion/v1-inference.yaml):
+    8 heads of 40 / 80 / 160 channels, CLIP context of 768."""
+    return LDMUNetConfig(image_size=32, in_channels=4, model_channels=320,
+                         out_channels=4, attention_resolutions=(4, 2, 1),
+                         channel_mult=(1, 2, 4, 4), num_heads=8,
+                         use_spatial_transformer=True, transformer_depth=1,
+                         context_dim=768, legacy=False)
+
+
 def tiny_ldm_config(**kw) -> LDMUNetConfig:
     """CPU-testable miniature of the LDM topology (AttentionBlocks)."""
     d = dict(image_size=8, in_channels=3, model_channels=32,
@@ -258,6 +268,19 @@ def iter_layers(cfg: LDMUNetConfig):
             yield ("conv", f"{s.prefix}.conv", (3, 3, s.c_in, s.c_out))
     yield ("norm", "out.0", mc)
     yield ("conv", "out.2", (3, 3, mc, cfg.out_channels))
+
+
+def iter_layers_with_res(cfg: LDMUNetConfig):
+    """(kind, name, shape, res) of :func:`iter_layers`, ``res`` the side of
+    the latent the layer writes: a Downsample op halves it, an Upsample's
+    conv doubles it."""
+    res = cfg.image_size
+    for kind, name, shape in iter_layers(cfg):
+        if kind == "conv_ds":
+            res //= 2
+        elif kind == "conv" and name.endswith(".conv"):
+            res *= 2
+        yield kind, name, shape, res
 
 
 def init_params(generator: torch.Generator, cfg: LDMUNetConfig,

@@ -36,6 +36,14 @@ class VAEConfig:
     scale_factor: float = 1.0     # LatentDiffusion scale_factor
 
 
+def sd_vae_config() -> VAEConfig:
+    """SD v1.x's AutoencoderKL (KL-f8, v1-inference.yaml first_stage)."""
+    return VAEConfig(ch=128, out_ch=3, in_channels=3, z_channels=4,
+                     ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                     attn_resolutions=(), resolution=256, double_z=True,
+                     embed_dim=4, vq=False, scale_factor=0.18215)
+
+
 def tiny_vae_config(**kw) -> VAEConfig:
     d = dict(ch=32, out_ch=3, in_channels=3, z_channels=3,
              ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),

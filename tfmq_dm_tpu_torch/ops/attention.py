@@ -229,8 +229,12 @@ def qsm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k = qctx.qact(sites["k"], k)
         if sites.get("v") is not None:
             v = qctx.qact(sites["v"], v)
-    sim = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * sm_scale
+    # one (B, H, Tq, Tk) map alive at a time: SD's 64x64 self-attention
+    # at 32 rows is 17 GB a map (scaled in place, freed once softmaxed)
+    sim = torch.einsum("bihd,bjhd->bhij", q.float(), k.float())
+    sim.mul_(sm_scale)
     attn = torch.softmax(sim, dim=-1).to(out_dtype)
+    del sim
     if qctx is not None and sites.get("w") is not None:
         attn = qctx.qact(sites["w"], attn)
     out = torch.einsum("bhij,bjhd->bihd", attn.float(), v.float())

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.tasks import TaskConfig
-from ..models import ldm_unet, vae as vae_mod
+from ..models import clip_text, ldm_unet, vae as vae_mod
 from ..utils.torch_convert import convert_state_dict
 
 logger = logging.getLogger(__name__)
@@ -90,7 +90,11 @@ def _apply_ema(unet_sd: Dict, full_sd: Dict) -> Dict:
 def load_ldm_checkpoint(path: str, task: TaskConfig,
                         use_ema: Optional[bool] = None, device="cuda"):
     """-> (unet_params, vae_params, cond_params or None), tensors on
-    ``device``. The first stage's decoder side only (the port decodes)."""
+    ``device``. The first stage's decoder side only (the port decodes).
+    ``cond_params``: the class embedding table ``{"embedding": tensor}``
+    of a class-conditional task, or the CLIP text tower's parameters
+    (``cond_stage_model.transformer.*``, loading.py:99-111) of a
+    text-conditioned one; None when the checkpoint has neither."""
     full = load_checkpoint(path)
     sd = full.get("state_dict", full)
     unet_sd = _strip_prefix(sd, "model.diffusion_model.")
@@ -108,6 +112,8 @@ def load_ldm_checkpoint(path: str, task: TaskConfig,
             cond_params = {"embedding": w.detach().to(device,
                                                       torch.float32)}
     elif task.cond == "text":
-        raise NotImplementedError("text conditioning waits for the SD "
-                                  "slice")
+        cond_sd = _strip_prefix(sd, "cond_stage_model.transformer.")
+        if cond_sd:
+            cond_params = convert_state_dict(
+                cond_sd, clip_text.iter_layers(task.clip), device)
     return unet_params, vae_params, cond_params

@@ -53,7 +53,7 @@ def make_schedule(task: TaskConfig, steps: Optional[int] = None,
     """(sampler_fn, cali_t): ``sampler_fn(model_fn, x, generator,
     collect)`` runs the task's sampler; ``cali_t`` holds the timestep of
     each sampler step (the FSC groups). The ddim family's generalized
-    sampler and the LDM family's DDIM sampler."""
+    sampler and the LDM family's DDIM and PLMS samplers."""
     betas = task_betas(task)
     steps = steps or task.steps
     eta = task.eta if eta is None else eta
@@ -68,16 +68,19 @@ def make_schedule(task: TaskConfig, steps: Optional[int] = None,
                                            collect=collect)
         return fn, seq[::-1].copy()
 
-    if task.sampler != "ddim":
-        raise NotImplementedError(f"{task.sampler} sampler (PLMS and "
-                                  "DPM-Solver++ wait for their slices)")
+    if task.sampler not in ("ddim", "plms"):
+        raise NotImplementedError(f"{task.sampler} sampler (DPM-Solver++ "
+                                  "waits for its slice)")
     ac = np.cumprod(1.0 - betas)
     sched = ldm_s.DDIMScheduleLDM(
         ac, ldm_s.make_ddim_timesteps(steps, task.num_timesteps), eta=eta)
-
-    def fn(model_fn, x, generator=None, collect="none"):
-        return ldm_s.ddim_scan_ldm(model_fn, sched, x, generator,
-                                   collect=collect)
+    if task.sampler == "plms":
+        def fn(model_fn, x, generator=None, collect="none"):
+            return ldm_s.plms_scan(model_fn, sched, x, collect=collect)
+    else:
+        def fn(model_fn, x, generator=None, collect="none"):
+            return ldm_s.ddim_scan_ldm(model_fn, sched, x, generator,
+                                       collect=collect)
     return fn, sched.t.copy()
 
 
@@ -104,7 +107,8 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
     generator), one rollout batch at a time; ``noise`` (n_per_t, H, W,
     C) replaces the starting noise's draws. With conditioning, each
     rollout uses CFG and every group holds the rows [(x, t, uc);
-    (x, t, c)] (data_generate.py:13-49).
+    (x, t, c)] (data_generate.py:13-49); ``context``/``uncond`` are (n,
+    1, embed_dim) class embeddings or (n, 77, 768) CLIP text contexts.
 
     Returns (w_cali sample-major tuple, a_cali group-major tuple (G, N,
     ...), cali_t)."""

@@ -1,11 +1,12 @@
-"""LDM-family DDIM sampler, classifier-free guidance and FSC step mapping
-(port of the DDIM part of ``tfmq_dm_tpu/samplers/ldm.py``; the
-reference's ldm/models/diffusion/ddim.py).
+"""LDM-family DDIM and PLMS samplers, classifier-free guidance and FSC
+step mapping (port of the DDIM and PLMS parts of
+``tfmq_dm_tpu/samplers/ldm.py``; the reference's
+ldm/models/diffusion/{ddim,plms}.py).
 
 Schedule quantities are computed on the host per step, in float32 like
 the JAX tables; the rollout is a Python loop over the steps. The model
 callback receives the step index, so FSC selects its per-timestep state
-by step. PLMS and DPM-Solver++ wait for their slices.
+by step. DPM-Solver++ waits for its slice.
 """
 
 from __future__ import annotations
@@ -95,10 +96,7 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
     for i in range(sched.num_steps):
         t_b = torch.full((n,), int(sched.t[i]), dtype=torch.int32,
                          device=x.device)
-        # a bf16 eps (the fast deploy) meets the f32 step scalars in f32,
-        # as JAX promotes it
-        e_t = model_fn(xt, t_b, i)
-        e_t = e_t.to(torch.promote_types(e_t.dtype, xt.dtype))
+        e_t = _promoted(model_fn(xt, t_b, i), xt)
         pred_x0 = (xt - float(s1ma[i]) * e_t) / float(np.sqrt(a_t[i]))
         dir_xt = float(np.sqrt(np.maximum(
             f32(1.0) - a_prev[i] - sigma[i] ** 2, f32(0.0)))) * e_t
@@ -107,6 +105,72 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
             noise = torch.randn(xt.shape, generator=generator,
                                 device=generator.device, dtype=xt.dtype)
             x_prev = x_prev + float(sigma[i]) * noise.to(xt.device)
+        if collect == "traj":
+            xs.append(xt)
+            ts.append(t_b)
+        xt = x_prev
+    if collect == "none":
+        return xt
+    return xt, (torch.stack(xs), torch.stack(ts))
+
+
+def _promoted(e: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A bf16 eps (the fast deploy) meets the f32 step scalars in f32, as
+    JAX promotes it."""
+    return e.to(torch.promote_types(e.dtype, x.dtype))
+
+
+@torch.no_grad()
+def plms_scan(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
+              collect: str = "none"):
+    """PLMS sampling loop (plms.py:120-240; ldm.py:115-172):
+    Adams-Bashforth multistep on eps over a newest-first buffer of the
+    three previous eps, the order (1-4) chosen by the step index. Step 0
+    is a pseudo improved Euler step: it evaluates the model a second time
+    at (x_prev, t_next), and that evaluation carries the step index
+    min(i + 1, n - 1), so under FSC it takes the next step's group; a
+    rollout of n steps is n + 1 model evaluations. ``collect="traj"``
+    also returns each step's main model input (x_t, t), stacked."""
+    if collect not in ("none", "traj"):
+        raise ValueError(f"collect must be 'none' or 'traj', got {collect!r}")
+    if sched.num_steps < 1:
+        raise ValueError("PLMS needs at least one step")
+    f32 = np.float32
+    a_t = sched.a_t.astype(f32)
+    a_prev = sched.a_prev.astype(f32)
+    s1ma = sched.sqrt_1m_a.astype(f32)
+    t_next = np.concatenate([sched.t[1:], sched.t[-1:]])
+    last = sched.num_steps - 1
+    n = x.shape[0]
+
+    def t_batch(t):
+        return torch.full((n,), int(t), dtype=torch.int32, device=x.device)
+
+    def x_prev_from(e, xt, i):
+        pred_x0 = (xt - float(s1ma[i]) * e) / float(np.sqrt(a_t[i]))
+        dir_xt = float(np.sqrt(f32(1.0) - a_prev[i])) * e
+        return float(np.sqrt(a_prev[i])) * pred_x0 + dir_xt
+
+    eps = []                       # newest first, at most three
+    xs, ts = [], []
+    xt = x
+    for i in range(sched.num_steps):
+        t_b = t_batch(sched.t[i])
+        e_t = _promoted(model_fn(xt, t_b, i), xt)
+        if i == 0:
+            e_next = _promoted(model_fn(x_prev_from(e_t, xt, i),
+                                        t_batch(t_next[i]),
+                                        min(i + 1, last)), xt)
+            e_prime = (e_t + e_next) / 2.0
+        elif i == 1:
+            e_prime = (3.0 * e_t - eps[0]) / 2.0
+        elif i == 2:
+            e_prime = (23.0 * e_t - 16.0 * eps[0] + 5.0 * eps[1]) / 12.0
+        else:
+            e_prime = (55.0 * e_t - 59.0 * eps[0] + 37.0 * eps[1]
+                       - 9.0 * eps[2]) / 24.0
+        x_prev = x_prev_from(e_prime, xt, i)
+        eps = [e_t] + eps[:2]
         if collect == "traj":
             xs.append(xt)
             ts.append(t_b)
