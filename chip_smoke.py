@@ -11,9 +11,10 @@ when one is exceeded):
               nvcc processes at once; prints each kernel's registers and
               shared memory.
 3. kernels  - every distinct conv and linear geometry of the CIFAR-10
-              (batch 8), cin256 (batch 2 x CFG) and SD v1.4 (batch 1 x
-              CFG) int4-serving paths plus odd shapes, the same
-              geometries on the int8 GEMM (``int8_matmul_pre``, and the
+              (batch 8), cin256 (batch 2 x CFG), SD v1.4 (batch 1 x
+              CFG) and phase uncond's (batch 2: lsun_churches256,
+              lsun_beds256, ddim_celeba64) int4-serving paths plus odd
+              shapes, the first three paths' geometries on the int8 GEMM (``int8_matmul_pre``, and the
               int8 conv on its im2col, sym and asym grids), and the four
               flash-attention kernels at the cin256 and SD shapes (fqk
               with and without the softmax quantizer, with int8_pv, over
@@ -33,8 +34,8 @@ when one is exceeded):
               kernel's wall time per eager call, beside the card's bound:
               ``int4_conv2d`` and cuDNN's bf16 conv at every conv geometry
               of both int4-serving paths with its launches per forward (a
-              walk of the model's layers, held after phase 5 against the
-              launches the int4-serving runs counted) and the
+              walk of the model's layers, held after the last phase
+              against the launches the int4-serving runs counted) and the
               launch-weighted sums per forward (``int4_conv2d`` is
               also checked for two bit-identical calls: split K adds its
               partial sums in a fixed order),
@@ -42,10 +43,13 @@ when one is exceeded):
               CIFAR-10's, ``flash_fqk`` in its three modes, ``flash_fp``,
               ``flash_pquant`` (8- and 16-bit softmax grids) and
               ``flash_int8`` (with and without the softmax quantizer) at
-              cin256 and SD's 64x64 and 32x32 (the f32 kernels also beside
-              SDPA on their f32 operands), with the sums per SD forward of
-              ``int4_linear`` (every SD linear geometry, by launches),
-              ``flash_int8`` and ``flash_fp``, each printed beside its earlier
+              cin256, SD's 64x64 and 32x32 and the 32x32 AttentionBlocks
+              of phase uncond (T 1024, D 24 and 32; the f32 kernels also
+              beside SDPA on their f32 operands), with the sums per
+              forward of ``int4_linear`` (every linear geometry of SD and
+              of phase uncond's paths, by launches), ``flash_int8`` and
+              ``flash_fp`` (SD, lsun_churches256, lsun_beds256), each
+              printed beside its earlier
               design's device time where one was taken (``EARLIER_MS``;
               not in the
               ``kernels`` line, which holds this run's numbers only).
@@ -55,9 +59,10 @@ when one is exceeded):
               include the port's twin of ``scripts/micro_gn.py``.
 4. main     - the full-width CIFAR-10 w4a8 int4-serving path: the port's
               CLI calibrates the trained weights of runs/cifar10_ddpm.npz
-              on the card (``cli.main --ptq --cali``: a 10-step harvest of
-              16 samples a step, TIAR/AdaRound reconstruction of all 32
-              units with ``CALI_ITERS`` iterations each, running-stat FSC,
+              on the card (``cli.main --ptq --cali``: a ``CALI_STEPS``-step
+              harvest of 16 samples a step, TIAR/AdaRound reconstruction
+              of all 32 units with ``CALI_ITERS`` iterations each,
+              running-stat FSC,
               the artifact in a temporary directory); the phase prints the
               calibration's seconds, each unit's first and last loss and
               the guard's decisions, and fails unless every layer that
@@ -125,6 +130,33 @@ when one is exceeded):
               the run and around one UNet forward, PSNR against the FP
               sample (information) and the device-busy share of a
               profiled sample.
+8. uncond   - the unconditional tasks at full width, each from a seeded
+              random-init checkpoint in the reference's layout written in
+              a temporary directory: lsun_churches256 (LDM-8: scale-shift
+              norm, res blocks that resample, KL-f8 at scale_factor 1.0;
+              Lightning), lsun_beds256 (LDM-4, VQ-f4, LitEma weights
+              swapped in; DDIM at eta 1) and ddim_celeba64 (the DDIM
+              trainer's list with ``module.`` names and its EMA shadow).
+              Each gets an init-only artifact (a ``UNCOND_STEPS``-step
+              harvest of ``UNCOND_N``, minmax grids, FSC init pass) and
+              ``cli.main`` int4-serving samples of ``UNCOND_N`` images in
+              ``UNCOND_STEPS`` DDIM steps with the kernels and with the
+              plain versions from one seed (so eta 1 draws the same step
+              noise): latents (images for ddim_celeba64) >= 30 dB, the
+              launches equal to a walk of the layers (``flash_int8`` 5 a
+              forward at T 1024 on both LDMs, D 24 and D 32), the EMA
+              swap's count printed and held; lsun_churches256 also in FP,
+              one deployed forward kernels vs plain, and ``cli.main
+              --ptq --cali`` cut to ``UNCOND_CALI_STEPS`` x
+              ``UNCOND_CALI_N`` and ``UNCOND_CALI_ITERS`` iterations a
+              unit, held as phase ldm's, then that artifact sampled with
+              the kernels and the plain versions. The device profile of
+              each deployed sample, and each kernel's time per forward
+              beside cuDNN / SDPA and the bound.
+
+The profiled samples of every phase and the one-forward checks of phases
+ldm, sd and deploy run ``PROFILE_STEPS`` steps, cut from their samples'
+10 (phase uncond's 4).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -152,7 +184,7 @@ sys.path.insert(0, str(ROOT))
 from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
-                  "ldm": 420, "sd": 300, "deploy": 360}
+                  "ldm": 420, "sd": 300, "deploy": 360, "uncond": 150}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -249,10 +281,11 @@ EARLIER_MS = {("int4_linear", 8, 512, 256): 0.0123,
               ("int4_conv2d", 4, 64, 3, 576, 192): 0.4127}
 
 STEPS, BATCH, SEED = 10, 8, 1234
-# phase main's calibration through the CLI: samples a step (at least the
-# FSC running-stat pass's batch of 16, so that the pass runs) and
-# reconstruction iterations a unit
-CALI_N, CALI_ITERS = 16, 300
+# phase main's calibration through the CLI: sampler steps of its harvest
+# (10 until phase uncond came; the task's 100), samples a step (at least
+# the FSC running-stat pass's batch of 16, so that the pass runs) and
+# reconstruction iterations a unit (300 until phase uncond came)
+CALI_STEPS, CALI_N, CALI_ITERS = 4, 16, 100
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "scripts/micro_gn.py); launches of the kernels phase's "
                  "timing runs, the micro_gn twin's included")
@@ -264,9 +297,11 @@ CIN_N, LDM_STEPS = 2, 10
 # time: sampler steps of the harvest (the task's 20), samples a step (the
 # task's 512; with CFG twice as many rows, 16: the FSC running-stat
 # pass's batch, so that the pass runs) and reconstruction iterations a
-# unit (the task's 20000); 74 units train (the TIB and 73 blocks and
-# layers; the input conv is kept out by the policy)
-LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS, LDM_UNITS = 2, 8, 30, 74
+# unit (the task's 20000; 30 until phase uncond came); 74 units train
+# (the TIB and 73 blocks and layers; the input conv is kept out by the
+# policy)
+LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS = 2, 8, 10
+LDM_UNITS = 74
 # phase sd: SD v1.4 at full width (512 x 512, 64 x 64 latents), 1 image
 # x CFG, PLMS cut from the task's 50 steps to SD_STEPS (SD_STEPS + 1 UNet
 # evaluations: step 0 evaluates twice); its calibration cut as phase
@@ -275,7 +310,24 @@ LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS, LDM_UNITS = 2, 8, 30, 74
 # its 75 units train
 SD_N, SD_STEPS = 1, 10
 SD_CALI_STEPS, SD_CALI_N, SD_CALI_ITERS = 1, 8, 10
+SD_UNITS = 74
 SD_PROMPT = "a photograph of an astronaut riding a horse"
+# phase uncond: the unconditional tasks at full width, UNCOND_N images
+# each, DDIM cut to UNCOND_STEPS steps (the tasks' 400 -> 500 by the
+# reference's uniform spacing, 200, 100); lsun_churches256's calibration
+# cut to a harvest of UNCOND_CALI_STEPS steps x UNCOND_CALI_N samples (the
+# task's 500 x 256; 16 rows, the FSC running-stat pass's batch) and
+# UNCOND_CALI_ITERS iterations a unit (the task's 20000; 57 units train)
+UNCOND_TASKS = ("lsun_churches256", "lsun_beds256", "ddim_celeba64")
+UNCOND_N, UNCOND_STEPS = 2, 4
+# the profiled samples (device-busy share, top kernels) of every phase and
+# the one-forward checks of phases ldm, sd and deploy: steps cut from
+# their sampling runs' 10 (phase uncond's 4) when phase uncond came (a
+# profile took 20-60 s at 10 steps, 8-28 s at 4); 2 divides the LDM
+# family's 1000 timesteps
+PROFILE_STEPS = 2
+UNCOND_CALI_STEPS, UNCOND_CALI_N, UNCOND_CALI_ITERS = 2, 16, 10
+UNCOND_UNITS = 57
 
 
 class PhaseTimeout(Exception):
@@ -501,22 +553,25 @@ def profile_device(run_once, label: str, top: int = 8) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_start = time.perf_counter()
     run_once()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run_once()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity only: the host-side op events would repeat
+    # their kernels' time, and processing them took most of a profile's
+    # 10-30 s
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_once()
         torch.cuda.synchronize()
-    # device-side events only: the CPU-side op entries repeat their
-    # kernels' time
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        raise AssertionError(f"profile {label}: no device time recorded")
     busy_ms = sum(r[0] for r in rows)
     print(f"   profile: {label} {wall:.2f} ms wall (unprofiled), device "
           f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall:.1f}%); kernels "
@@ -524,6 +579,8 @@ def profile_device(run_once, label: str, top: int = 8) -> dict:
     for ms, count, key in rows[:top]:
         print(f"     {ms:9.3f} ms  {100 * ms / busy_ms:5.1f}%  x{count:<5d} "
               f"{key[:70]}", flush=True)
+    print(f"   profile: {label}: {time.perf_counter() - t_start:.2f} s in "
+          "all (three runs and the trace's processing)", flush=True)
     return {"wall_ms": wall, "busy_ms": busy_ms}
 
 
@@ -613,7 +670,7 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     t0 = time.perf_counter()
     rc = cli.main(["--task", "cifar10", "--ckpt", str(ckpt), "--ptq",
                    "--cali", "--wq", "4", "--aq", "8", "--use_aq",
-                   "--timesteps", str(steps), "--cali_n", str(CALI_N),
+                   "--timesteps", str(CALI_STEPS), "--cali_n", str(CALI_N),
                    "--interval_length", "1", "--cali_iters",
                    str(CALI_ITERS), "--cali_save_path", art, "--seed",
                    str(SEED), "--device", dev.type])
@@ -621,7 +678,7 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
     cali_s = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"cli.main --cali returned {rc}")
-    print(f"   cli.main --ptq --cali (harvest {steps} steps x {CALI_N}, "
+    print(f"   cli.main --ptq --cali (harvest {CALI_STEPS} steps x {CALI_N}, "
           f"reconstruction of every unit at {CALI_ITERS} iterations, "
           f"running-stat FSC): {cali_s:.2f} s", flush=True)
     recon = check_calibration(ddim_units.build_adapter(cfg, w_bits=4,
@@ -714,7 +771,7 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
                              f"{MIN_PSNR_KERNEL_VS_PLAIN_DB}")
     if dev.type == "cuda":
         profile_sampling(cfg, dev, common + quant + ["--out", "-"],
-                         steps)
+                         PROFILE_STEPS)
     return {"launches": launches, "e2e_s": e2e_s, "plain_s": plain_s,
             "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
             "psnr_quant_vs_fp": p_qf, "psnr_init_only_vs_fp": p_init,
@@ -768,30 +825,31 @@ def cin_conv_counts(cfg) -> dict:
     return counts
 
 
-def conv_geometry_cases(cifar_counts, cin_counts, sd_counts) -> list:
+def conv_geometry_cases(paths) -> list:
     """(path, batch, res, k, cin, cout, launches per forward) of every
-    distinct packed conv of the three int4-serving paths: CIFAR-10 at
-    batch 8, cin256 at batch 2 x CFG, SD v1.4 at batch 1 x CFG."""
-    return [("cifar10", BATCH, *key, c) for key, c in
-            sorted(cifar_counts.items())] + \
-        [("cin256", 2 * CIN_N, *key, c) for key, c in
-         sorted(cin_counts.items())] + \
-        [("sd", 2 * SD_N, *key, c) for key, c in sorted(sd_counts.items())]
+    distinct packed conv of the int4-serving paths, ``paths`` a list of
+    (path, batch, {(res, k, cin, cout): launches per forward}): CIFAR-10
+    at batch 8, cin256 at batch 2 x CFG, SD v1.4 at batch 1 x CFG, and
+    the unconditional paths of phase uncond at batch 2."""
+    return [(path, b, *key, c) for path, b, counts in paths
+            for key, c in sorted(counts.items())]
 
 
 def linear_counts(cfg) -> dict:
     """{(m, k, n): launches per forward} of the packed linears of an LDM
-    UNet, ``m`` the rows a batch row feeds (tokens, or 1 for the
-    embedding projections), a walk of ``iter_layers``; the cross-attention
-    K/V projections of the constant context are left out (they run once
-    a rollout, the K/V cache)."""
+    UNet (AttentionBlocks' qkv and proj_out included), ``m`` the rows a
+    batch row feeds (tokens, or 1 for the embedding projections), a walk
+    of ``iter_layers``; the cross-attention K/V projections of the
+    constant context are left out (they run once a rollout, the K/V
+    cache)."""
     from tfmq_dm_tpu_torch.models import ldm_unet
     from tfmq_dm_tpu_torch.quant.policy import build_policy
     pol = build_policy(ldm_unet.layer_infos(cfg))
     quantized = {n for n in pol.weight_layers() if pol.get(n).wq}
     counts = {}
     for kind, name, shape, res in ldm_unet.iter_layers_with_res(cfg):
-        if not kind.startswith("linear") or name not in quantized or \
+        if not (kind.startswith("linear") or kind == "conv1d") or \
+                name not in quantized or \
                 ".attn2.to_k" in name or ".attn2.to_v" in name:
             continue
         m = 1 if name.startswith("time_embed") or "emb_layers" in name \
@@ -799,6 +857,28 @@ def linear_counts(cfg) -> dict:
         key = (m, shape[0], shape[1])
         counts[key] = counts.get(key, 0) + 1
     return counts
+
+
+def time_linear_geometries(g, dev, peaks, path: str, batch: int,
+                           counts: dict) -> tuple:
+    """``int4_linear`` at every geometry of a path (``counts``: {(m, k, n):
+    launches per forward}, ``m`` the rows a batch row feeds) -> (rows,
+    the launch-weighted sums per forward)."""
+    rows = []
+    for (m, k, n), per_fwd in sorted(counts.items()):
+        t = time_linear(linear_case(g, batch * m, k, n, dev), peaks)
+        rows.append({"shape": [batch * m, k, n],
+                     "launches_per_forward": per_fwd, **t})
+        print(f"   int4_linear {path} M{batch * m} {k}->{n} x{per_fwd}: "
+              + timing_line(t), flush=True)
+    per = {key: sum(x[key] * x["launches_per_forward"] for x in rows)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"   int4_linear {path} per forward "
+          f"({sum(x['launches_per_forward'] for x in rows)} launches"
+          + (", the K/V cache's once a rollout left out" if path == "sd"
+             else "") + "): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
+    return rows, per
 
 
 def time_conv_geometries(g, dev, peaks, cases) -> list:
@@ -840,7 +920,7 @@ def time_conv_geometries(g, dev, peaks, cases) -> list:
                                   f"({e / row['ms']:.2f}x this)"),
               flush=True)
         del case, x, wp, wd, xn
-    for path in ("cifar10", "cin256", "sd"):
+    for path in dict.fromkeys(x["path"] for x in rows):
         sel = [x for x in rows if x["path"] == path]
 
         def wsum(key, sel=sel):
@@ -892,14 +972,21 @@ def check_one_level(label, got, ref, level, errors):
 
 
 # (label, B*H, Tq, Tk, D): cin256 at batch 2 x CFG; SD v1.4 (8 heads) at
-# its 64x64, 32x32 and 16x16 latents; ragged T; Tk != Tq
+# its 64x64, 32x32 and 16x16 latents; ragged T; Tk != Tq; the 32x32
+# AttentionBlocks of phase uncond at batch 2: LSUN-Churches (8 heads of
+# 24) and the LDM-4 UNet (14 heads of 32)
 FLASH_SHAPES = [("cin256", 4, 1024, 1024, 384),
                 ("sd 64x64", 16, 4096, 4096, 40),
                 ("sd 32x32 d40", 16, 1024, 1024, 40),
                 ("sd 32x32", 16, 1024, 1024, 80),
                 ("sd 16x16", 16, 256, 256, 160),
                 ("ragged", 4, 100, 100, 40), ("ragged", 4, 130, 130, 40),
-                ("tk != tq", 2, 130, 77, 64)]
+                ("tk != tq", 2, 130, 77, 64),
+                ("churches 32x32", 2 * 8, 1024, 1024, 24),
+                ("ldm4 32x32", 2 * 14, 1024, 1024, 32)]
+# the flash_int8 / flash_fp shapes of phase uncond's paths, by key length
+UNCOND_FLASH = {"lsun_churches256": "churches 32x32",
+                "lsun_beds256": "ldm4 32x32"}
 INT8_GRIDS = ((0.031, 130.0), (0.029, 120.0), (0.033, 125.0))
 P_GRIDS = ((1 / 255.0, 0.0), (0.004, 3.0))
 # the 16-bit softmax grid (--softmax_a_bit 16, always zero): levels up to
@@ -1015,9 +1102,11 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def time_flash(g, dev, peaks) -> dict:
-    """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384) and at
+    """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384), at
     SD's 64x64 (B*H 16, T 4096, D 40) and 32x32 (B*H 16, T 1024, D 80,
-    the head dim padded to 96): the kernel, its plain version and
+    the head dim padded to 96), and at the 32x32 AttentionBlocks of
+    LSUN-Churches (B*H 16, T 1024, D 24) and the LDM-4 UNet (B*H 28, T
+    1024, D 32): the kernel, its plain version and
     ``scaled_dot_product_attention`` on bf16 q/k/v of the same shape
     (dequantized for int8), timed only; for the f32 kernels also SDPA on
     the f32 operands (``library_f32_ms``: the same function at the
@@ -1034,7 +1123,8 @@ def time_flash(g, dev, peaks) -> dict:
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     rows = {}
     for label, bh, t, _, d in (FLASH_SHAPES[0], FLASH_SHAPES[1],
-                               FLASH_SHAPES[3]):
+                               FLASH_SHAPES[3], FLASH_SHAPES[8],
+                               FLASH_SHAPES[9]):
         q, k, v = flash_case(g, bh, t, t, d, dev)
         sm = d ** -0.5
         qb, kb, vb = (x.to(torch.bfloat16)[:, None] for x in (q, k, v))
@@ -1114,12 +1204,15 @@ def latent_psnr(a, ref) -> float:
 
 
 def make_ldm_checkpoint(path: str, task, dev, n_classes: int = 0,
-                        seed: int = 0) -> None:
-    """A seeded random-init checkpoint of a conditioned LDM task in the
-    reference's Lightning layout, through the port's export: UNet, first
-    stage (VQ decoder with codebook, or KL decoder), and the class
-    embedding (cin256_v2: 1001 x 512) or the CLIP text tower (SD v1.4:
-    ViT-L/14, under ``cond_stage_model.transformer.``)."""
+                        seed: int = 0, ema: bool = False) -> None:
+    """A seeded random-init checkpoint of an LDM task in the reference's
+    Lightning layout, through the port's export: UNet, first stage (VQ
+    decoder with codebook, or KL decoder), and the class embedding
+    (cin256_v2: 1001 x 512) or the CLIP text tower (SD v1.4: ViT-L/14,
+    under ``cond_stage_model.transformer.``) where the task is
+    conditioned. ``ema``: LitEma weights under ``model_ema.`` (names
+    without their dots, ldm/modules/ema.py), a second random init, so
+    that the loader's swap changes the weights it returns."""
     import torch
     from tfmq_dm_tpu_torch.models import clip_text, ldm_unet, vae
     from tfmq_dm_tpu_torch.utils.torch_convert import export_state_dict
@@ -1133,30 +1226,59 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int = 0,
     vp = vae.init_params(g, task.vae)
     sd.update({f"first_stage_model.{k}": v for k, v in
                export_state_dict(vp, vae.iter_layers(task.vae)).items()})
+    if ema:
+        ep = ldm_unet.init_params(g, task.unet)
+        sd.update({"model_ema." + f"diffusion_model.{k}".replace(".", ""): v
+                   for k, v in export_state_dict(
+                       ep, ldm_unet.iter_layers(task.unet)).items()})
+        sd["model_ema.decay"] = torch.tensor(0.9999)
+        sd["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
+        del ep
     if task.cond == "text":
         cp = clip_text.init_params(g, task.clip)
         sd.update({f"cond_stage_model.transformer.{k}": v for k, v in
                    export_state_dict(cp, clip_text.iter_layers(task.clip))
                    .items()})
-    else:
+    elif task.cond == "class":
         sd["cond_stage_model.embedding.weight"] = torch.randn(
             (n_classes, task.unet.context_dim), generator=g,
             device=dev).cpu()
     torch.save({"state_dict": sd}, path)
 
 
+def make_ddim_checkpoint(path: str, task, dev, seed: int = 0) -> None:
+    """A seeded random-init checkpoint of a ddim-family task in the layout
+    of the reference's DDIM trainer (ddim/runners/diffusion.py:205-243):
+    ``[state_dict, optimizer state, epoch, step, ema shadow]``, every name
+    under DataParallel's ``module.``; the EMA shadow is a second random
+    init, so that the loader's swap changes the weights it returns."""
+    import torch
+    from tfmq_dm_tpu_torch.models import ddim_unet
+    from tfmq_dm_tpu_torch.utils.torch_convert import export_state_dict
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw, shadow = ({f"module.{k}": v for k, v in export_state_dict(
+        ddim_unet.init_params(g, task.unet),
+        ddim_unet.iter_layers(task.unet)).items()} for _ in range(2))
+    opt = {"state": {}, "param_groups": [{"lr": 2e-4, "params": list(
+        range(len(raw)))}]}
+    torch.save([raw, opt, 1, 1000, shadow], path)
+
+
 def calibrate_ldm(task, ckpt: str, tmp: Path, dev, cond_argv: list,
                   steps: int, cali_n: int, iters: int,
-                  flash_fp_least: int) -> dict:
+                  flash_fp_least: int, n_units: int) -> dict:
     """Calibrate the full-width checkpoint on the card through the port's
     CLI (``cli.main --ptq --cali`` with ``cond_argv``, the classes or the
-    token ids): a CFG harvest of ``steps`` sampler steps x ``cali_n``
+    token ids; none for an unconditional task, whose harvest has no CFG):
+    a CFG harvest of ``steps`` sampler steps x ``cali_n``
     (flash fp, the only hand-written kernel of the calibration:
     reconstruction and FSC run plain PyTorch, as the JAX package's run
     plain XLA; at least ``flash_fp_least`` launches), TIAR/AdaRound
     reconstruction of every unit with ``iters`` iterations, running-stat
     FSC; launch counts and the peak device memory are read around the
-    call. Returns the check's record and the artifact's path."""
+    call. The artifact holds ``n_units`` reconstructed units, the count
+    the JAX package's adapter gives the task, and the port's adapter
+    agrees. Returns the check's record and the artifact's path."""
     import torch
     from tfmq_dm_tpu_torch import cli
     from tfmq_dm_tpu_torch.models import ldm_units
@@ -1177,8 +1299,9 @@ def calibrate_ldm(task, ckpt: str, tmp: Path, dev, cond_argv: list,
     counts = all_counts()
     if rc != 0:
         raise RuntimeError(f"cli.main --cali ({task.name}) returned {rc}")
+    cfg_note = "" if task.cond == "none" else " x CFG"
     print(f"   cli.main --ptq --cali {task.name} at full width (cuts: "
-          f"harvest {steps} steps x {cali_n} x CFG, not the task's "
+          f"harvest {steps} steps x {cali_n}{cfg_note}, not the task's "
           f"{task.steps} x {task.cali_n}; {iters} iterations a unit, not "
           f"20000): {cali_s:.2f} s, peak device memory {peak:.2f} GiB; "
           f"launches {counts}", flush=True)
@@ -1188,9 +1311,14 @@ def calibrate_ldm(task, ckpt: str, tmp: Path, dev, cond_argv: list,
                              f"{flash_fp_least}")
     adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
                                       use_aq=True)
+    trained = sum(1 for u in adapter.units
+                  if u.recon and adapter.default_train_roles(u))
+    if trained != n_units:
+        raise AssertionError(f"adapter: {trained} units train at "
+                             f"{task.name}, expected {n_units}")
     return {"art": art, "seconds": cali_s, "launches": counts,
             "peak_gib": peak,
-            **check_calibration(adapter, art, dev, n_units=LDM_UNITS)}
+            **check_calibration(adapter, art, dev, n_units=n_units)}
 
 
 def cli_sample(tmp: Path, name: str, argv: list, img_shape: tuple, dev,
@@ -1198,7 +1326,8 @@ def cli_sample(tmp: Path, name: str, argv: list, img_shape: tuple, dev,
     """``cli.main`` sampling (load + deploy + sample + decode) into
     ``tmp / name``, with the kernels or their plain versions; launch
     counts read around the call; the images checked for shape, finite
-    values and range. -> {"s", "launches", "img", "lat"}."""
+    values and range. -> {"s", "launches", "img", "lat"} ("lat" None for
+    the ddim family, which samples images)."""
     import numpy as np
     from tfmq_dm_tpu_torch import cli
     reset_all_counts()
@@ -1211,13 +1340,17 @@ def cli_sample(tmp: Path, name: str, argv: list, img_shape: tuple, dev,
     if rc != 0:
         raise RuntimeError(f"cli.main ({name}) returned {rc}")
     img = np.load(tmp / name / "samples.npy")
-    lat = np.load(tmp / name / "latents.npy")
+    lat = np.load(tmp / name / "latents.npy") \
+        if (tmp / name / "latents.npy").exists() else None
     if img.shape != img_shape or not np.all(np.isfinite(img)):
         raise AssertionError(f"{name}: bad images {img.shape}")
     if img.min() < 0 or img.max() > 1:
         raise AssertionError(f"{name}: images outside [0, 1]")
-    print(f"   cli.main {name} ({img_shape[0]} images x CFG; load + deploy "
-          f"+ sample + decode): {sec:.2f} s; launches {counts}", flush=True)
+    cfg_note = "" if "--classes" not in argv and "--token_ids" not in argv \
+        else " x CFG"
+    print(f"   cli.main {name} ({img_shape[0]} images{cfg_note}; load + "
+          f"deploy + sample + decode): {sec:.2f} s; launches {counts}",
+          flush=True)
     return {"s": sec, "launches": counts, "img": img, "lat": lat}
 
 
@@ -1320,7 +1453,7 @@ def drive_ldm_path(dev, tmp: Path, steps: int = LDM_STEPS,
     del params, a_cali
     recon = calibrate_ldm(task, ckpt, tmp, dev, ["--classes", "1,2"],
                           LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS,
-                          5 * LDM_CALI_STEPS)
+                          5 * LDM_CALI_STEPS, LDM_UNITS)
 
     common = ["--task", task_name, "--ckpt", ckpt, "--classes", "1,2",
               "-n", str(n), "--batch", str(n), "--seed", str(SEED),
@@ -1389,16 +1522,16 @@ def drive_ldm_path(dev, tmp: Path, steps: int = LDM_STEPS,
     # one deployed UNet forward (CFG-doubled), kernels vs plain, and
     # the device profile of a deployed sample
     args = cli.build_argparser().parse_args(
-        common + quant + ["--timesteps", str(steps), "--out", "-"])
+        common + quant + ["--timesteps", str(PROFILE_STEPS), "--out", "-"])
     params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
-    sampler_fn, sample_t = ptq.make_schedule(task, steps=steps)
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=PROFILE_STEPS)
     fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
     x = torch.randn((n, res, res, task.unet.in_channels),
                     generator=torch.Generator().manual_seed(5)).to(dev)
     f_max, f_mean, n_mean = forward_check(fn, x, int(sample_t[0]), dev)
     prof = profile_device(lambda: sampler_fn(fn, x),
-                          f"{task_name} {steps}-step deployed sample "
-                          f"(batch {n} x CFG, no decode)", top=12)
+                          f"{task_name} {PROFILE_STEPS}-step deployed sample"
+                          f" (batch {n} x CFG, no decode)", top=12)
     return {"runs": {k: {"s": v["s"], "launches": v["launches"]}
                      for k, v in runs.items()},
             "psnr_latents_kernel_vs_plain": p_lat,
@@ -1540,15 +1673,15 @@ def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
     args = cli.build_argparser().parse_args(
         common + ["--ptq", "--cali_ckpt", art] + quant + ["--out", "-"])
     params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
-    sampler_fn, sample_t = ptq.make_schedule(task, steps=steps)
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=PROFILE_STEPS)
     fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
     x = torch.randn((n, res, res, task.unet.in_channels),
                     generator=torch.Generator().manual_seed(5)).to(dev)
     f_max, f_mean, n_mean = forward_check(fn, x, int(sample_t[0]), dev)
     prof = profile_device(lambda: sampler_fn(fn, x),
-                          f"sd_v1_4 {steps}-step deployed sample (batch {n}"
-                          f" x CFG, {forwards} evaluations, no decode)",
-                          top=12)
+                          f"sd_v1_4 {PROFILE_STEPS}-step deployed sample "
+                          f"(batch {n} x CFG, {PROFILE_STEPS + 1} "
+                          "evaluations, no decode)", top=12)
     print(f"   one forward and the profile: {time.perf_counter() - t0:.2f} "
           "s", flush=True)
     del params, cond, fn
@@ -1556,7 +1689,7 @@ def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
 
     recon = calibrate_ldm(task, ckpt, tmp, dev, cond_argv, SD_CALI_STEPS,
                           SD_CALI_N, SD_CALI_ITERS,
-                          sites * (SD_CALI_STEPS + 1))
+                          sites * (SD_CALI_STEPS + 1), SD_UNITS)
     print(f"   units: {recon['units']} reconstructed (the JAX package's "
           f"ldm_units.build_units at sd_v1_config: 74 of 75 train, "
           f"tests/test_torch_sd_modules.py)", flush=True)
@@ -1590,6 +1723,263 @@ def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
             "calibration": {k: v for k, v in recon.items() if k != "art"},
             "psnr_latents_recon_kernel_vs_plain": p_rec,
             "psnr_latents_recon_vs_fp": p_rec_fp}
+
+
+# ---------------------------------------------------------------------------
+# phase uncond: the unconditional LDMs and ddim_celeba64
+# ---------------------------------------------------------------------------
+
+def uncond_walk(task) -> dict:
+    """Launches per UNet forward of an unconditional task's int4-serving
+    path, a walk of its layers: ``int4_conv2d`` at every packed conv,
+    ``int4_linear`` at every packed linear (the time embedding, each res
+    block's ``emb_layers``, the AttentionBlocks' qkv and proj_out),
+    ``flash_int8`` at each self-attention whose key length reaches the
+    flash gate (the ddim family's 16x16 attention stays materialized)."""
+    convs, linears = uncond_geometries(task)
+    return {"int4_conv2d": sum(convs.values()),
+            "int4_linear": sum(linears.values()),
+            "flash_int8": 0 if task.family == "ddim"
+            else sum(flash_sites(task.unet).values())}
+
+
+def uncond_geometries(task):
+    """({(res, k, cin, cout): launches}, {(m, k, n): launches}) per forward
+    of an unconditional task's packed convs and linears, ``m`` the rows a
+    batch row feeds."""
+    if task.family == "ddim":
+        convs, linears = cifar_geometries(task.unet)
+        return convs, {(1, k, n): c for (k, n), c in linears.items()}
+    return cin_conv_counts(task.unet), linear_counts(task.unet)
+
+
+@contextlib.contextmanager
+def ema_swaps():
+    """The checkpoint loaders' ``EMA swap: n/m tensors`` records, collected
+    while the block runs."""
+    import logging
+    records = []
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    log = logging.getLogger("tfmq_dm_tpu_torch.pipelines.loading")
+    handler, level = Collect(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def per_forward_line(measured, name: str) -> str:
+    """Device ms per UNet forward of each kernel of an unconditional path
+    beside its library call and its bound, from the kernels phase's
+    timings at the path's shapes, weighted by launches per forward."""
+    rows = [x for x in measured["conv_geometries"] if x["path"] == name]
+    conv = {k: sum(x[k] * x["launches_per_forward"] for x in rows)
+            for k in ("ms", "library_ms", "bound_ms")}
+    lin = measured[f"{name} linear_per_forward"]
+    line = (f"int4_conv2d {conv['ms']:.4f} ms / cuDNN "
+            f"{conv['library_ms']:.4f} / bound {conv['bound_ms']:.4f}; "
+            f"int4_linear {lin['ms']:.4f} / torch.matmul "
+            f"{lin['library_ms']:.4f} / bound {lin['bound_ms']:.4f}")
+    for kern in ("flash_int8", "flash_fp"):
+        per = measured[kern]["uncond_per_forward"].get(name)
+        if per:
+            line += (f"; {kern} {per['ms']:.4f} / SDPA "
+                     f"{per['library_ms']:.4f} / bound "
+                     f"{per['bound_ms']:.4f}")
+    return line
+
+
+def drive_uncond_path(dev, tmp: Path, measured: dict,
+                      steps: int = UNCOND_STEPS) -> dict:
+    """The unconditional tasks at full width, each from a seeded
+    random-init checkpoint in the reference's layout through the port's
+    export: lsun_churches256 (Lightning: UNet and KL-f8; FP, init-only and
+    calibrated int4-serving samples), lsun_beds256 (Lightning: UNet,
+    VQ-f4 and LitEma weights; int4-serving at eta 1) and ddim_celeba64
+    (the DDIM trainer's list with ``module.`` names and its EMA shadow;
+    int4-serving). Each init-only artifact comes from a harvest of
+    ``steps`` steps, minmax grids and the FSC init pass. Every sample runs
+    through ``cli.main`` with the kernels and with their plain versions
+    from one seed (so eta 1 draws the same step noise); launches are held
+    equal to the walk of the layers; one deployed forward of
+    lsun_churches256 kernels vs plain; the device profile of each
+    deployed sample; the per-forward kernel times of the kernels phase
+    printed beside cuDNN / SDPA."""
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.models import ddim_unet, ldm_unet
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.pipelines.loading import (load_ddim_checkpoint,
+                                                     load_ldm_checkpoint)
+    from tfmq_dm_tpu_torch.quant.calibrate import cali_model
+
+    n = UNCOND_N
+    out = {}
+    for name in UNCOND_TASKS:
+        task = get_task(name)
+        ddim = task.family == "ddim"
+        ttmp = tmp / "uncond" / name
+        ttmp.mkdir(parents=True)
+        t0 = time.perf_counter()
+        ckpt = str(ttmp / f"{name}_random.{'pth' if ddim else 'ckpt'}")
+        if ddim:
+            make_ddim_checkpoint(ckpt, task, dev)
+        else:
+            make_ldm_checkpoint(ckpt, task, dev, ema=name == "lsun_beds256")
+        ck_s = time.perf_counter() - t0
+        with ema_swaps() as swaps:
+            if ddim:
+                params = load_ddim_checkpoint(ckpt, task.unet, device=dev)
+            else:
+                params = load_ldm_checkpoint(ckpt, task, device=dev)[0]
+        # the EMA weights (lsun_beds256, ddim_celeba64) replace every UNet
+        # tensor; lsun_churches256's checkpoint has none
+        n_t = sum(len(fields) for fields in params.values())
+        want = [f"EMA swap: {n_t}/{n_t} tensors"] \
+            if ddim or name == "lsun_beds256" else []
+        if swaps != want:
+            raise AssertionError(f"{name}: EMA swap {swaps}, expected "
+                                 f"{want}")
+        res = task.unet.resolution if ddim else task.unet.image_size
+        img_res = res if ddim else \
+            res * 2 ** (len(task.vae.ch_mult) - 1)
+
+        def fp_apply(x, t, c, params=params, task=task):
+            if task.family == "ddim":
+                return ddim_unet.apply(params, task.unet, x, t)
+            return ldm_unet.apply(params, task.unet, x, t)
+
+        t0 = time.perf_counter()
+        reset_all_counts()
+        _, a_cali, cali_t = ptq.generate_cali_data(
+            task, fp_apply, torch.Generator().manual_seed(1), n_per_t=n,
+            steps=steps, device=dev)
+        sync(dev)
+        harvest = all_counts()
+        art = str(ttmp / "cali_init.npz")
+        cali_model(ptq.build_adapter(task, ptq.QuantArgs(use_aq=True)),
+                   params, None, a_cali, hp=None, use_aq=True,
+                   running_stat=False,
+                   generator=torch.Generator().manual_seed(2), path=art,
+                   w_scaler="minmax", act_scaler="minmax", init_samples=n,
+                   meta={"task": name, "wq": 4, "aq": 8,
+                         "softmax_a_bit": 8, "use_aq": True,
+                         "cali_t": [float(v) for v in cali_t]})
+        sync(dev)
+        walk = uncond_walk(task)
+        print(f"   {name}: random-init checkpoint "
+              f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB in {ck_s:.2f} s"
+              f"; EMA swap {swaps or 'none (no EMA weights)'}; init-only "
+              f"artifact (harvest {steps} steps x {n}, eta {task.eta:g}; "
+              f"minmax grids, FSC init pass) "
+              f"{time.perf_counter() - t0:.2f} s; harvest launches "
+              f"{harvest}; walk per forward {walk}", flush=True)
+        if harvest["flash_fp"] != walk["flash_int8"] * steps:
+            raise AssertionError(f"{name} harvest: flash_fp launched "
+                                 f"{harvest['flash_fp']} times, the walk "
+                                 f"{walk['flash_int8']} x {steps}")
+        del params, a_cali
+        torch.cuda.empty_cache()
+
+        common = ["--task", name, "--ckpt", ckpt, "-n", str(n), "--batch",
+                  str(n), "--seed", str(SEED), "--device", dev.type,
+                  "--timesteps", str(steps)]
+        quant = ["--ptq", "--cali_ckpt", art, "--use_aq", "--int-kernels",
+                 "--int4-serving"]
+        img_shape = (n, img_res, img_res, 3)
+        runs = {}
+        plan = [("deployed", quant, False), ("plain", quant, True)]
+        if name == "lsun_churches256":
+            plan.append(("fp", [], False))
+        for run_name, argv, plain in plan:
+            runs[run_name] = cli_sample(ttmp, run_name, common + argv,
+                                        img_shape, dev, plain)
+        if "fp" in runs and runs["fp"]["launches"]["flash_fp"] != \
+                walk["flash_int8"] * steps:
+            raise AssertionError(f"{name} fp: flash_fp launched "
+                                 f"{runs['fp']['launches']['flash_fp']} "
+                                 "times")
+
+        def held(run_name, a="deployed", b="plain"):
+            got = {k: runs[a]["launches"][k] for k in walk}
+            want = {k: v * steps for k, v in walk.items()}
+            if got != want:
+                raise AssertionError(f"{name} {a}: launches {got}, the "
+                                     f"walk of the layers {want}")
+            if ddim:
+                p = psnr(runs[a]["img"], runs[b]["img"])
+                lim = MIN_PSNR_KERNEL_VS_PLAIN_DB
+            else:
+                p = latent_psnr(runs[a]["lat"], runs[b]["lat"])
+                lim = MIN_LATENT_PSNR_DB
+            print(f"   {name} {run_name}: launches {got} equal to the walk "
+                  f"({steps} forwards); PSNR kernels vs plain "
+                  f"{'images' if ddim else 'latents'} {p:.2f} dB (gate "
+                  f"{lim:g})", flush=True)
+            if not p >= lim:
+                raise AssertionError(f"{name} {run_name}: PSNR kernels vs "
+                                     f"plain {p:.2f} dB < {lim}")
+            return p if math.isfinite(p) else "bit-identical"
+
+        rec = {"walk": walk, "psnr_kernel_vs_plain": held("init-only")}
+        if not ddim and "fp" in runs:
+            rec["psnr_latents_quant_vs_fp"] = latent_psnr(
+                runs["deployed"]["lat"], runs["fp"]["lat"])
+
+        # one deployed forward kernels vs plain (churches), the device
+        # profile of a deployed sample
+        args = cli.build_argparser().parse_args(common + quant +
+                                                ["--out", "-"])
+        sampler_fn, sample_t = ptq.make_schedule(task, steps=PROFILE_STEPS)
+        if ddim:
+            params = load_ddim_checkpoint(ckpt, task.unet, device=dev)
+            fn = cli.build_model_fn(args, params, task.unet, sample_t, dev)
+        else:
+            params = load_ldm_checkpoint(ckpt, task, device=dev)[0]
+            fn = cli.build_ldm_model_fn(args, task, params, None, sample_t,
+                                        dev)
+        x = torch.randn((n, res, res, task.unet.in_channels),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+        if name == "lsun_churches256":
+            rec["forward"] = forward_check(fn, x, int(sample_t[0]), dev)
+        rec["profile"] = profile_device(
+            lambda: sampler_fn(fn, x, torch.Generator().manual_seed(4)),
+            f"{name} {PROFILE_STEPS}-step deployed sample (batch {n}, eta "
+            f"{task.eta:g}, no decode)", top=10)
+        del params, fn
+        torch.cuda.empty_cache()
+
+        if name == "lsun_churches256":
+            recon = calibrate_ldm(task, ckpt, ttmp, dev, [],
+                                  UNCOND_CALI_STEPS, UNCOND_CALI_N,
+                                  UNCOND_CALI_ITERS,
+                                  walk["flash_int8"] * UNCOND_CALI_STEPS,
+                                  UNCOND_UNITS)
+            quant_recon = ["--ptq", "--cali_ckpt", recon["art"], "--use_aq",
+                           "--int-kernels", "--int4-serving"]
+            for run_name, plain in (("recon", False), ("recon_plain", True)):
+                runs[run_name] = cli_sample(ttmp, run_name,
+                                            common + quant_recon, img_shape,
+                                            dev, plain)
+            rec["psnr_recon_kernel_vs_plain"] = held(
+                "calibrated", "recon", "recon_plain")
+            rec["calibration"] = {k: v for k, v in recon.items()
+                                  if k != "art"}
+        print(f"   {name} per forward (batch {n}; the kernels phase's "
+              f"times): " + per_forward_line(measured, name), flush=True)
+        rec["runs"] = {k: {"s": v["s"], "launches": v["launches"]}
+                       for k, v in runs.items()}
+        rec["ema_swap"] = swaps
+        out[name] = rec
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2286,7 +2676,8 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict, peaks: dict,
         if ldm_task:
             params, _, cond = load_ldm_checkpoint(ldm["ckpt"], task,
                                                   device=dev)
-            sampler_fn, sample_t = ptq.make_schedule(task, steps=cin_steps)
+            sampler_fn, sample_t = ptq.make_schedule(task,
+                                                     steps=PROFILE_STEPS)
             fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t,
                                         dev)
             x = torch.randn((n, res, res, task.unet.in_channels),
@@ -2296,13 +2687,13 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict, peaks: dict,
                            device=dev)
             per_fwd, shapes = forward_counts(fn, (x, t, 0))
             prof = profile_device(lambda: sampler_fn(fn, x),
-                                  f"{name} {cin_steps}-step sample (batch "
-                                  f"{n} x CFG, no decode)", top=10)
+                                  f"{name} {PROFILE_STEPS}-step sample "
+                                  f"(batch {n} x CFG, no decode)", top=10)
             steps = cin_steps
         else:
             cfg = ddim_unet.cifar10_config()
             params, _ = load_params(main_path["ckpt"], device=dev)
-            betas, seq = cli.cifar10_schedule(STEPS)
+            betas, seq = cli.cifar10_schedule(PROFILE_STEPS)
             fn = cli.build_model_fn(args, params, cfg, seq[::-1], dev)
             x = torch.randn((BATCH, 32, 32, 3),
                             generator=torch.Generator().manual_seed(3)
@@ -2311,8 +2702,8 @@ def drive_deploy_path(dev, main_path: dict, ldm: dict, peaks: dict,
                            device=dev)
             per_fwd, shapes = forward_counts(fn, (x, t, 0))
             prof = profile_device(lambda: generalized_scan(fn, betas, seq, x),
-                                  f"{name} {STEPS}-step sample (batch "
-                                  f"{BATCH})", top=8)
+                                  f"{name} {PROFILE_STEPS}-step sample "
+                                  f"(batch {BATCH})", top=8)
             steps = STEPS
         prof_s = time.perf_counter() - t0
         del params, fn
@@ -2410,7 +2801,13 @@ def run() -> None:
         sd_linears = linear_counts(sd_unet)
         conv_shapes += [(2 * SD_N, r, k, ci, co)
                         for (r, k, ci, co) in sorted(sd_convs)]
-        for (b, r, k, ci, co) in conv_shapes:
+        # phase uncond's geometries run the int4 kernels only (the int8
+        # checks below keep to the other paths' shapes)
+        uncond_geo = {name: uncond_geometries(get_task(name))
+                      for name in UNCOND_TASKS}
+        uncond_convs = sorted({(UNCOND_N, *key) for convs_, _ in
+                               uncond_geo.values() for key in convs_})
+        for (b, r, k, ci, co) in conv_shapes + uncond_convs:
             case = conv_case(g, b, r, k, ci, co, dev)
             got = K.int4_conv2d(*case)
             check_close(f"int4_conv2d b{b} {r}x{r} {k}x{k} {ci}->{co}", got,
@@ -2425,7 +2822,9 @@ def run() -> None:
         lin_shapes += [(2 * CIN_N * m, k, n) for (m, k, n) in cin_linears]
         lin_shapes += [(2 * SD_N * m, k, n)
                        for (m, k, n) in sorted(sd_linears)]
-        for (m, k, n) in lin_shapes:
+        uncond_lins = sorted({(UNCOND_N * m, k, n) for _, lins in
+                              uncond_geo.values() for (m, k, n) in lins})
+        for (m, k, n) in lin_shapes + uncond_lins:
             case = linear_case(g, m, k, n, dev)
             got = K.int4_linear(*case)
             check_close(f"int4_linear M{m} {k}->{n}", got,
@@ -2445,8 +2844,12 @@ def run() -> None:
               "kernel wall per eager call; bound):", flush=True)
         measured = {"conv_geometries": time_conv_geometries(
             g, dev, peaks, conv_geometry_cases(
-                convs, cin_conv_counts(get_task("cin256_v2").unet),
-                sd_convs))}
+                [("cifar10", BATCH, convs),
+                 ("cin256", 2 * CIN_N,
+                  cin_conv_counts(get_task("cin256_v2").unet)),
+                 ("sd", 2 * SD_N, sd_convs)]
+                + [(name, UNCOND_N, uncond_geo[name][0])
+                   for name in UNCOND_TASKS]))}
         for b, r, ci in ((64, 16, 256), (64, 32, 128), (BATCH, 32, 128),
                          (2 * CIN_N, 64, 192), (2 * CIN_N, 32, 384)):
             measured[("conv", b, r, ci)] = t = time_conv(
@@ -2460,23 +2863,14 @@ def run() -> None:
                 linear_case(g, m, k, n, dev), peaks)
             print(f"   int4_linear M{m} {k}->{n}: " + timing_line(t)
                   + earlier_note(t, ("int4_linear", m, k, n)), flush=True)
-        sd_lin = []
-        for (m, k, n), per_fwd in sorted(sd_linears.items()):
-            t = time_linear(linear_case(g, 2 * SD_N * m, k, n, dev), peaks)
-            sd_lin.append({"shape": [2 * SD_N * m, k, n],
-                           "launches_per_forward": per_fwd, **t})
-            print(f"   int4_linear sd M{2 * SD_N * m} {k}->{n} x{per_fwd}: "
-                  + timing_line(t), flush=True)
-        measured["sd_linears"] = sd_lin
-        per = {key: sum(x[key] * x["launches_per_forward"]
-                        for x in sd_lin)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        measured["sd_linear_per_forward"] = per
-        print("   int4_linear sd per forward ("
-              f"{sum(x['launches_per_forward'] for x in sd_lin)} launches, "
-              "the K/V cache's once a rollout left out): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in per.items()),
-              flush=True)
+        measured["sd_linears"], measured["sd_linear_per_forward"] = \
+            time_linear_geometries(g, dev, peaks, "sd", 2 * SD_N,
+                                   sd_linears)
+        for name in UNCOND_TASKS:
+            measured[f"{name} linears"], \
+                measured[f"{name} linear_per_forward"] = \
+                time_linear_geometries(g, dev, peaks, name, UNCOND_N,
+                                       uncond_geo[name][1])
         measured.update(time_flash(g, dev, peaks))
         sd_sites = flash_sites(sd_unet)
         for name, head in (("flash_int8", "8-bit p"), ("flash_fp", "f32")):
@@ -2490,6 +2884,17 @@ def run() -> None:
                   "length): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in per.items()),
                   flush=True)
+            measured[name]["uncond_per_forward"] = {}
+            for task_name, label in UNCOND_FLASH.items():
+                sites = sum(flash_sites(get_task(task_name).unet).values())
+                tm = measured[name]["grids"][f"{label} {head}"]
+                per = {key: sites * tm[key] for key in
+                       ("ms", "plain_ms", "library_ms", "bound_ms")}
+                measured[name]["uncond_per_forward"][task_name] = per
+                print(f"   {name} {task_name} per forward ({sites} launches "
+                      f"at {label}): " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in per.items()),
+                      flush=True)
         measured["int8"] = time_int8(g, dev, peaks)
         measured["flash_fqk"] = time_fqk(g, dev, peaks)
         # no model path reaches these two: their launches are those of
@@ -2513,6 +2918,8 @@ def run() -> None:
             sd = drive_sd_path(dev, tmp)
         with phase("deploy"):
             dep = drive_deploy_path(dev, main_path, ldm, peaks)
+        with phase("uncond"):
+            unc = drive_uncond_path(dev, tmp, measured)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
@@ -2522,7 +2929,9 @@ def run() -> None:
         "cin256": (runs["deployed"]["launches"]["int4_conv2d"],
                    ldm["steps"]),
         "sd": (sd["runs"]["deployed"]["launches"]["int4_conv2d"],
-               sd["forwards"])})
+               sd["forwards"]),
+        **{name: (unc[name]["runs"]["deployed"]["launches"]["int4_conv2d"],
+                  UNCOND_STEPS) for name in UNCOND_TASKS}})
     sd_runs = sd["runs"]
     tc = measured[("conv", BATCH, 32, 128)]
     tl = measured[("linear", BATCH, 512, 256)]
@@ -2545,6 +2954,9 @@ def run() -> None:
          "launches": launches["int4_conv2d"],
          "launches_cin256": runs["deployed"]["launches"]["int4_conv2d"],
          "launches_sd": sd_runs["deployed"]["launches"]["int4_conv2d"],
+         "launches_uncond": {
+             name: unc[name]["runs"]["deployed"]["launches"]["int4_conv2d"]
+             for name in UNCOND_TASKS},
          "max_abs_err": max(errs["int4_conv2d"]), **tc,
          "cin256": measured[("conv", 2 * CIN_N, 64, 192)],
          "geometries": measured["conv_geometries"]},
@@ -2558,6 +2970,12 @@ def run() -> None:
          "launches_sd": sd_runs["deployed"]["launches"]["int4_linear"],
          "sd_per_forward": measured["sd_linear_per_forward"],
          "sd_shapes": measured["sd_linears"],
+         "launches_uncond": {
+             name: unc[name]["runs"]["deployed"]["launches"]["int4_linear"]
+             for name in UNCOND_TASKS},
+         "uncond_per_forward": {
+             name: measured[f"{name} linear_per_forward"]
+             for name in UNCOND_TASKS},
          "max_abs_err": max(errs["int4_linear"]), **tl,
          "cin256": measured[("linear", 2 * CIN_N * 1024, 384, 3072)],
          "shapes": [{"shape": list(key[1:]), **v}
@@ -2571,6 +2989,9 @@ def run() -> None:
          "launches_path": f"cin256 cli.main {run_name}",
          "launches_sd": sd_runs[run_name]["launches"][name]
          if run_name in sd_runs else None,
+         "launches_uncond": {
+             t: unc[t]["runs"][run_name]["launches"][name]
+             for t in UNCOND_FLASH if run_name in unc[t]["runs"]} or None,
          "max_abs_err": max(errs[name]), **measured[name]}
         for name, where, mode, run_name, what in flash_rows] + [
         {"name": "int8_matmul_pre", "route": "cuda",
@@ -2664,6 +3085,9 @@ def run() -> None:
         "forward_mean_rel": sd["forward_mean_rel"],
         "forward_noise_mean_rel": sd["noise_mean_rel"],
         "profile": sd["profile"]}}), flush=True)
+    print(json.dumps({"uncond": {
+        name: {**rec, "steps": UNCOND_STEPS, "images": UNCOND_N}
+        for name, rec in unc.items()}}), flush=True)
     print(json.dumps({"deploy": {
         k: {f: x for f, x in v.items() if f != "gemm_shapes"}
         for k, v in dep.items()}}), flush=True)

@@ -179,6 +179,35 @@ def test_cuda_int4_conv2d_sd_geometries_match_plain(cuda, res, kk, cin, n):
     _conv_close(got, K.int4_conv2d_plain(*args), kk * kk * cin)
 
 
+def _uncond_conv_geometries():
+    """(res, k, cin, cout) of every packed conv of the LDM-4 UNet
+    (celeba256 / ffhq256 / lsun_beds256: Cin 224, 448, 672, ... 1568, a
+    multiple of 64 plus 32, so only the mma route takes them) and of
+    LSUN-Churches' LDM-8 UNet (resblock_updown: its res blocks resample
+    between their norm and their first conv), a walk of their layers."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    out = set()
+    for cfg in (ldm_unet.celeba_config(), ldm_unet.lsun_churches_config()):
+        for kind, name, shape, res in ldm_unet.iter_layers_with_res(cfg):
+            if kind == "conv" and name not in ("input_blocks.0.0", "out.2"):
+                out.add((res, shape[0], shape[2], shape[3]))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("res,kk,cin,n", _uncond_conv_geometries())
+def test_cuda_int4_conv2d_uncond_geometries_match_plain(cuda, res, kk, cin,
+                                                        n):
+    """Every conv geometry of the unconditional LDM int4-serving paths at
+    batch 2, with the plan the cost model picks (Cin 224 / 672 / 1568
+    among them)."""
+    args = _conv_args(2, res, cin, n, kk, "SAME" if kk == 3 else "VALID",
+                      cuda)
+    before = K.LAUNCHES["int4_conv2d"]
+    got = K.int4_conv2d(*args)
+    assert K.LAUNCHES["int4_conv2d"] == before + 1
+    _conv_close(got, K.int4_conv2d_plain(*args), kk * kk * cin)
+
+
 @pytest.mark.parametrize("b,h,cin,n,kk,padding", [
     (8, 4, 512, 256, 3, "SAME"), (4, 8, 960, 960, 3, "SAME"),
     (8, 8, 256, 256, 3, "SAME")])
@@ -210,7 +239,9 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
 # flash attention: each kernel against its plain version
 # ---------------------------------------------------------------------------
 # Shapes: cin256 (B*H = 4, T = 1024, D = 384), SD (8 heads: T = 4096 and
-# 1024 at D = 40, 1024 at D = 80, 256 at D = 160), ragged T, and Tk != Tq.
+# 1024 at D = 40, 1024 at D = 80, 256 at D = 160), ragged T, Tk != Tq,
+# and the 32x32 AttentionBlocks of the unconditional LDMs at batch 2:
+# LSUN-Churches (8 heads of 24) and the LDM-4 UNet (14 heads of 32).
 # Tolerances: without a softmax quantizer, 2e-5 of the output's largest
 # magnitude (f32 sums in another order); with one, the JAX tests' one-level
 # rule (tests/test_flash_attention.py:71-79): a quantized probability at a
@@ -220,7 +251,8 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
 FLASH_SHAPES = [(4, 1024, 1024, 384), (16, 4096, 4096, 40),
                 (16, 1024, 1024, 40), (16, 1024, 1024, 80),
                 (16, 256, 256, 160), (4, 100, 100, 40), (4, 130, 130, 40),
-                (2, 130, 77, 64)]
+                (2, 130, 77, 64), (16, 1024, 1024, 24),
+                (28, 1024, 1024, 32)]
 A8 = (0, 255)
 
 

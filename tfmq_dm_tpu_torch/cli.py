@@ -1,6 +1,10 @@
-"""CLI of the port: the ``cifar10``, class-conditional LDM (``cin256_v2``)
-and Stable Diffusion v1.4 (``sd_v1_4``) subset of ``tfmq_dm_tpu/cli.py``,
-with their CPU miniatures ``tiny_ddim``, ``tiny_cin`` and ``tiny_sd``.
+"""CLI of the port: the subset of ``tfmq_dm_tpu/cli.py`` that serves the
+ddim family (``cifar10``, ``ddim_celeba64``, ``ddim_lsun_bedroom``,
+``ddim_lsun_church``), the unconditional LDMs (``celeba256``,
+``ffhq256``, ``lsun_beds256``, ``lsun_churches256``), the
+class-conditional LDM (``cin256_v2``) and Stable Diffusion v1.4
+(``sd_v1_4``), with their CPU miniatures ``tiny_ddim``, ``tiny_ldm``,
+``tiny_cin`` and ``tiny_sd``.
 
 Calibrate, then exit (the reference's ``--cali``): harvest ``--cali_n``
 samples per sampler step (class-conditional tasks with classifier-free
@@ -18,6 +22,10 @@ every unit with AdaRound (``--cali_iters`` iterations each), run FSC
       --ptq --cali --wq 4 --aq 8 --use_aq --token_ids prompts.npy \\
       --cali_save_path cali.npz
 
+  python -m tfmq_dm_tpu_torch.cli --task lsun_churches256 \\
+      --ckpt lsun_churches256.ckpt --ptq --cali --wq 4 --aq 8 --use_aq \\
+      --cali_save_path cali.npz
+
 Quantized sampling with the hand-written kernels, from a calibration
 artifact (either package's):
 
@@ -32,6 +40,10 @@ artifact (either package's):
       --ptq --cali_ckpt cali.npz --use_aq --int-kernels --int4-serving \\
       --token_ids prompts.npy -n 1 --batch 1 --out /tmp/sd
 
+  python -m tfmq_dm_tpu_torch.cli --task ddim_lsun_church \\
+      --ckpt ema_lsun_church --ptq --cali_ckpt cali.npz --use_aq \\
+      --int-kernels --int4-serving -n 8 --batch 8 --out /tmp/church
+
 ``--int-kernels`` deploys integer weights: int8 codes run the exact int8
 conv and GEMM, and ``--int4-serving`` packs 4-bit weights for the
 packed-int4 kernels instead. ``--deploy_dtype bfloat16`` (the fast deploy)
@@ -40,7 +52,13 @@ and takes the ``fqk`` flash kernel; float32 keeps the deployed model exact
 against its fake-quant simulation. ``--wq/--aq/--w_sym`` give the
 artifact's grids. Without ``--int-kernels`` the quantized model runs as a
 fake-quant simulation; without ``--ptq`` it runs in full precision.
-Conditioned tasks sample with classifier-free guidance (``--scale``,
+The ddim family reads the repo's ``p::`` npz, the reference's DDIM
+checkpoint (a state dict, or the trainer's list with its EMA weights) or a
+pretrained-DDPM name (``ema_lsun_church``, ...) found in the local cache
+with its md5 (``pipelines/ckpt_util``: nothing is downloaded). The LDM
+tasks read the reference's Lightning checkpoint, LitEma weights swapped
+in where the task samples EMA. Unconditional tasks sample one UNet
+evaluation a step. Conditioned tasks sample with classifier-free guidance (``--scale``,
 default the task's) and cache the cross-attention K/V of the constant
 context (``--no-kv-cache`` recomputes them every step, as the reference
 does). Class-conditional tasks take ``--classes``; text-conditioned ones
@@ -68,13 +86,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .configs.tasks import get_task, task_betas
+from .configs.tasks import TASKS, get_task, task_betas
 from .convert import load_params
 from .data.prompts import prompts_from_file
 from .models import clip_text, ddim_unet, ddim_units, ldm_unet, ldm_units
 from .ops.nn import exact_f32
 from .pipelines import ptq
-from .pipelines.loading import load_ldm_checkpoint
+from .pipelines import ckpt_util
+from .pipelines.loading import load_ddim_checkpoint, load_ldm_checkpoint
 from .pipelines.sampling import sample_fid
 from .quant.calibrate import load_cali_model
 from .quant.deploy import (cast_fp_params, deploy_weights,
@@ -96,13 +115,14 @@ def cifar10_schedule(steps: int = 100):
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("tfmq-torch")
-    p.add_argument("--task", required=True,
-                   choices=("cifar10", "cin256_v2", "sd_v1_4", "tiny_cin",
-                            "tiny_ddim", "tiny_sd"))
+    p.add_argument("--task", required=True, choices=tuple(TASKS))
     p.add_argument("--ckpt", default=None,
-                   help="trained weights: a p::<layer>::<field> npz "
-                        "(cifar10, default runs/cifar10_ddpm.npz) or the "
-                        "reference's Lightning .ckpt (LDM tasks)")
+                   help="trained weights: the ddim family's .npz of "
+                        "p::<layer>::<field> (cifar10's default "
+                        "runs/cifar10_ddpm.npz), its reference DDIM "
+                        "checkpoint or a pretrained-DDPM name in the "
+                        "local cache (e.g. ema_lsun_church); the "
+                        "reference's Lightning .ckpt for LDM tasks")
     p.add_argument("--out", default=None,
                    help="output directory of the samples (sampling)")
     p.add_argument("--seed", type=int, default=1234)
@@ -302,20 +322,44 @@ def text_context(args, task, cond_params, n: int, device):
 
 
 def conditioning(args, task, cond_params, n: int, device):
-    """(context, uncond) of n rows for the task's conditioning."""
+    """(context, uncond) of n rows for the task's conditioning; (None,
+    None) for an unconditional task (cli.py:200)."""
+    if task.cond == "none":
+        return None, None
     if task.cond == "text":
         return text_context(args, task, cond_params, n, device)
     return class_context(cond_params, args.classes, n, device)
 
 
+def load_ddim(args, task, device):
+    """The ddim family's UNet parameters from ``--ckpt``: the repo's
+    ``p::`` npz (cifar10's default ``runs/cifar10_ddpm.npz``), a
+    pretrained-DDPM name resolved from the local cache with its md5
+    (cli.py:233-239), or the reference's DDIM checkpoint."""
+    if not args.ckpt and task.name != "cifar10":
+        raise SystemExit(f"--task {task.name} needs --ckpt")
+    path = args.ckpt or str(DEFAULT_CKPT)
+    if path.endswith(".npz"):
+        return load_params(path, device=device)[0]
+    if not os.path.exists(path) and \
+            ckpt_util.canonical_name(path) in ckpt_util.URLS:
+        try:
+            path = ckpt_util.get_ckpt_path(path)
+        except FileNotFoundError as e:
+            raise SystemExit(str(e)) from e
+    return load_ddim_checkpoint(path, task.unet, use_ema=task.use_ema,
+                                device=device)
+
+
 def load_ldm(args, task, device):
     """(unet, vae, cond params) of ``--ckpt``, a Lightning checkpoint
-    that must hold the encoder of the task's conditioning."""
+    that must hold the encoder of the task's conditioning, if it has
+    one."""
     if not args.ckpt:
         raise SystemExit(f"--task {task.name} needs --ckpt")
     params, vae_params, cond_params = load_ldm_checkpoint(
         args.ckpt, task, device=device)
-    if cond_params is None:
+    if cond_params is None and task.cond != "none":
         key = "cond_stage_model.transformer.*" if task.cond == "text" \
             else "cond_stage_model.embedding"
         raise SystemExit(f"{args.ckpt}: no {key} (the task's "
@@ -325,21 +369,27 @@ def load_ldm(args, task, device):
 
 def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
     """model_fn(x, t, step) of an LDM task: the UNet (FP, fake-quant or
-    deployed), flash attention in the quantized contexts, the cached
-    cross-attention K/V and double-batched CFG (cli.py:339-432)."""
+    deployed), flash attention in the quantized contexts; for a
+    conditioned task the cached cross-attention K/V and double-batched CFG
+    (cli.py:339-432), for an unconditional one a single evaluation."""
     cfg = task.unet
     ctx, uc = conditioning(args, task, cond_params, args.batch, device)
-    c_in = torch.cat([uc, ctx])
+    c_in = None if ctx is None else torch.cat([uc, ctx])
+    kv_on = c_in is not None and not args.no_kv_cache
     scale = task.cfg_scale if args.scale is None else args.scale
 
+    def guided(apply_fn):
+        if ctx is None:
+            return lambda x, t, step: apply_fn(x, t, None, step)
+        return make_cfg_model_fn(apply_fn, ctx, uc, scale)
+
     if not args.ptq:
-        kv = None if args.no_kv_cache else \
-            ldm_unet.build_cross_kv(params, cfg, c_in)
+        kv = ldm_unet.build_cross_kv(params, cfg, c_in) if kv_on else None
 
         def apply_fn(x, t, c, step):
             return ldm_unet.apply(params, cfg, x, t, context=c, kv_cache=kv)
 
-        return make_cfg_model_fn(apply_fn, ctx, uc, scale)
+        return guided(apply_fn)
 
     wstate, astate, meta = _load_artifact(args, device)
     adapter = ldm_units.build_adapter(
@@ -352,7 +402,9 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
     if args.int_kernels:
         ex = (torch.zeros((1, cfg.image_size, cfg.image_size,
                            cfg.in_channels), device=device),
-              torch.zeros((1,), dtype=torch.int32, device=device), ctx[:1])
+              torch.zeros((1,), dtype=torch.int32, device=device))
+        if ctx is not None:
+            ex += (ctx[:1],)
         deployed, params, act_dtype = deploy(args, adapter, params, wstate,
                                              ex)
 
@@ -362,7 +414,7 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
     def kv_cache_fn(qctx):
         return ldm_unet.build_cross_kv(params, cfg, c_in, qctx=qctx)
 
-    kv_fn = None if args.no_kv_cache else kv_cache_fn
+    kv_fn = kv_cache_fn if kv_on else None
     if args.int_kernels:
         model_fn = make_deployed_model_fn(
             adapter, params, deployed, astate, use_aq=args.use_aq,
@@ -373,9 +425,9 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
                                  kv_cache_fn=kv_fn)
 
     def apply_fn(x, t, c, step):
-        return model_fn(x, t, step, c)
+        return model_fn(x, t, step) if c is None else model_fn(x, t, step, c)
 
-    return make_cfg_model_fn(apply_fn, ctx, uc, scale)
+    return guided(apply_fn)
 
 
 def sample(args, latents: list = None) -> np.ndarray:
@@ -396,10 +448,7 @@ def sample(args, latents: list = None) -> np.ndarray:
                                              eta=args.eta)
     vae_params = None
     if task.family == "ddim":
-        if not args.ckpt and task.name != "cifar10":
-            raise SystemExit(f"--task {task.name} needs --ckpt")
-        params, _ = load_params(args.ckpt or str(DEFAULT_CKPT),
-                                device=device)
+        params = load_ddim(args, task, device)
         model_fn = build_model_fn(args, params, task.unet, sample_t, device)
     else:
         params, vae_params, cond_params = load_ldm(args, task, device)
@@ -425,22 +474,20 @@ def resolve_device(args) -> torch.device:
 def calibrate(args) -> None:
     """The calibrate-then-exit flow (cli.py:244-314): harvest (with CFG
     for a conditioned task: ``--scale`` or the task's, the classes of
-    ``--classes`` or the prompts' token ids), reconstruction and FSC, the
-    artifact at ``--cali_save_path``."""
+    ``--classes`` or the prompts' token ids; unconditional rollouts
+    otherwise), reconstruction and FSC, the artifact at
+    ``--cali_save_path``."""
     log = logging.getLogger("tfmq_torch")
     device = resolve_device(args)
     exact_f32()
     task = get_task(args.task)
-    if not args.ckpt and task.name != "cifar10":
-        raise SystemExit(f"--task {task.name} needs --ckpt")
     if args.interval_length is not None:
         task = dataclasses.replace(task,
                                    interval_length=args.interval_length)
     n_per_t = args.cali_n or task.cali_n
     ctx = uc = None
     if task.family == "ddim":
-        params, _ = load_params(args.ckpt or str(DEFAULT_CKPT),
-                                device=device)
+        params = load_ddim(args, task, device)
 
         def fp_apply(x, t, c):
             return ddim_unet.apply(params, task.unet, x, t)

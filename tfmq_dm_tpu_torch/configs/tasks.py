@@ -1,6 +1,7 @@
 """Task registry (the port's copy of the tasks it serves from
 ``tfmq_dm_tpu/configs/tasks.py``): one typed config per model/dataset,
-values transcribed from ddim/configs/cifar10.yml,
+values transcribed from ddim/configs/{cifar10,celeba,church,bedroom}.yml,
+models/ldm/{celeba256,ffhq256,lsun_beds256,lsun_churches256}/config.yaml,
 configs/latent-diffusion/cin256-v2.yaml and
 configs/stable-diffusion/v1-inference.yaml with the reference's sampler
 settings (README.md:86-125)."""
@@ -49,6 +50,41 @@ def cifar10() -> TaskConfig:
         cali_n=256, interval_length=5)
 
 
+def _ddim_lsun(name, resolution=256) -> TaskConfig:
+    """ddim/configs/{bedroom,church}.yml: 256^2, ch_mult (1,1,2,2,4,4),
+    attention at 16x16 (tasks.py:62-71)."""
+    unet = ddim_unet.DDIMUNetConfig(
+        resolution=resolution, in_channels=3, out_ch=3, ch=128,
+        ch_mult=(1, 1, 2, 2, 4, 4), num_res_blocks=2,
+        attn_resolutions=(16,))
+    return TaskConfig(
+        name=name, family="ddim", unet=unet,
+        beta_start=0.0001, beta_end=0.02,
+        sampler="generalized", steps=100, eta=0.0, skip_type="uniform")
+
+
+def ddim_celeba64() -> TaskConfig:
+    """ddim/configs/celeba.yml: 64^2, ch_mult (1,2,2,2,4), attention at
+    16x16."""
+    unet = ddim_unet.DDIMUNetConfig(
+        resolution=64, in_channels=3, out_ch=3, ch=128,
+        ch_mult=(1, 2, 2, 2, 4), num_res_blocks=2,
+        attn_resolutions=(16,))
+    return TaskConfig(
+        name="ddim_celeba64", family="ddim", unet=unet,
+        beta_start=0.0001, beta_end=0.02,
+        sampler="generalized", steps=100, eta=0.0, skip_type="uniform",
+        cali_n=256, interval_length=5)
+
+
+def ddim_lsun_bedroom() -> TaskConfig:
+    return _ddim_lsun("ddim_lsun_bedroom")
+
+
+def ddim_lsun_church() -> TaskConfig:
+    return _ddim_lsun("ddim_lsun_church")
+
+
 def tiny_ddim() -> TaskConfig:
     """A CPU-runnable miniature of the ddim family (tasks.py:206-211)."""
     return TaskConfig(
@@ -61,6 +97,48 @@ _LDM_VQ4_VAE = vae_mod.VAEConfig(
     ch=128, out_ch=3, in_channels=3, z_channels=3, ch_mult=(1, 2, 4),
     num_res_blocks=2, attn_resolutions=(), resolution=256,
     double_z=False, embed_dim=3, vq=True, n_embed=8192)
+
+
+def celeba256() -> TaskConfig:
+    """LDM-4 CelebA-HQ: unconditional, 200 DDIM steps (tasks.py:106-111)."""
+    return TaskConfig(
+        name="celeba256", family="ldm", unet=ldm_unet.celeba_config(),
+        vae=_LDM_VQ4_VAE, beta_start=0.0015, beta_end=0.0195,
+        beta_schedule="linear", sampler="ddim", steps=200, eta=0.0,
+        cali_n=256, interval_length=10)
+
+
+def ffhq256() -> TaskConfig:
+    """LDM-4 FFHQ: the CelebA-HQ UNet, stochastic DDIM (eta 1)."""
+    return TaskConfig(
+        name="ffhq256", family="ldm", unet=ldm_unet.celeba_config(),
+        vae=_LDM_VQ4_VAE, beta_start=0.0015, beta_end=0.0195,
+        sampler="ddim", steps=200, eta=1.0, cali_n=256,
+        interval_length=10)
+
+
+def lsun_beds256() -> TaskConfig:
+    """LDM-4 LSUN-Bedrooms: stochastic DDIM (eta 1)."""
+    return TaskConfig(
+        name="lsun_beds256", family="ldm",
+        unet=ldm_unet.lsun_beds_config(), vae=_LDM_VQ4_VAE,
+        beta_start=0.0015, beta_end=0.0195, sampler="ddim", steps=200,
+        eta=1.0, cali_n=256, interval_length=10)
+
+
+def lsun_churches256() -> TaskConfig:
+    """LDM-8 LSUN-Churches: KL-f8 latents at ``scale_factor`` 1.0, 400
+    DDIM steps (tasks.py:129-141)."""
+    kl_f8 = vae_mod.VAEConfig(
+        ch=128, out_ch=3, in_channels=3, z_channels=4,
+        ch_mult=(1, 2, 4, 4), num_res_blocks=2, attn_resolutions=(),
+        resolution=256, double_z=True, embed_dim=4, vq=False,
+        scale_factor=1.0)
+    return TaskConfig(
+        name="lsun_churches256", family="ldm",
+        unet=ldm_unet.lsun_churches_config(), vae=kl_f8,
+        beta_start=0.0015, beta_end=0.0155, sampler="ddim", steps=400,
+        eta=0.0, cali_n=256, interval_length=25)
 
 
 def cin256_v2() -> TaskConfig:
@@ -100,6 +178,16 @@ def tiny_sd() -> TaskConfig:
         use_ema=False, clip=clip_text.tiny_clip_config())
 
 
+def tiny_ldm() -> TaskConfig:
+    """A CPU-runnable unconditional miniature of the LDM family
+    (tasks.py:214-219)."""
+    return TaskConfig(
+        name="tiny_ldm", family="ldm", unet=ldm_unet.tiny_ldm_config(),
+        vae=vae_mod.tiny_vae_config(), beta_start=0.0015,
+        beta_end=0.0195, sampler="ddim", steps=4, num_timesteps=100,
+        cali_n=4, interval_length=1, recon_batch=4, use_ema=False)
+
+
 def tiny_cin() -> TaskConfig:
     return TaskConfig(
         name="tiny_cin", family="ldm",
@@ -110,8 +198,14 @@ def tiny_cin() -> TaskConfig:
         use_ema=False)
 
 
-TASKS = {"cifar10": cifar10, "cin256_v2": cin256_v2, "sd_v1_4": sd_v1_4,
-         "tiny_cin": tiny_cin, "tiny_ddim": tiny_ddim, "tiny_sd": tiny_sd}
+TASKS = {"cifar10": cifar10, "tiny_ddim": tiny_ddim, "tiny_ldm": tiny_ldm,
+         "tiny_sd": tiny_sd, "tiny_cin": tiny_cin,
+         "ddim_celeba64": ddim_celeba64,
+         "ddim_lsun_bedroom": ddim_lsun_bedroom,
+         "ddim_lsun_church": ddim_lsun_church, "celeba256": celeba256,
+         "ffhq256": ffhq256, "lsun_beds256": lsun_beds256,
+         "lsun_churches256": lsun_churches256, "cin256_v2": cin256_v2,
+         "sd_v1_4": sd_v1_4}
 
 
 def get_task(name: str) -> TaskConfig:

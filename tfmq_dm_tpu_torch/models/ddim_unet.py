@@ -15,6 +15,7 @@ value unchanged.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -129,6 +130,28 @@ def iter_layers(cfg: DDIMUNetConfig):
 
     yield ("norm", "norm_out", block_in)
     yield ("conv", "conv_out", (3, 3, block_in, cfg.out_ch))
+
+
+def init_params(generator: torch.Generator, cfg: DDIMUNetConfig,
+                device=None) -> Dict[str, dict]:
+    """The JAX package's init scheme (norms 1/0, weights and biases
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))), drawn with ``generator`` on its
+    device (or ``device``)."""
+    device = device or generator.device
+    params = {}
+    for kind, name, shape in iter_layers(cfg):
+        if kind == "norm":
+            params[name] = {"scale": torch.ones(shape, device=device),
+                            "bias": torch.zeros(shape, device=device)}
+            continue
+        fan_in = shape[0] if kind == "linear" else \
+            shape[0] * shape[1] * shape[2]
+        bound = 1.0 / math.sqrt(fan_in)
+        params[name] = {
+            k: (2.0 * torch.rand(s, generator=generator, device=device)
+                - 1.0) * bound
+            for k, s in (("w", shape), ("b", (shape[-1],)))}
+    return params
 
 
 def layer_infos(cfg: DDIMUNetConfig) -> List[LayerInfo]:

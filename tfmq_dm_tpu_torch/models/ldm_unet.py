@@ -10,8 +10,10 @@ inventory all walk it. Every quantizable call site goes through
 :mod:`..quant.qfunc` with its dotted name; the attention act-quant sites
 follow QuantBasicTransformerBlock / QuantQKMatMul / QuantSMVMatMul.
 
-Conditioning: cross-attention context (cin256-v2 class embeddings, SD
-text) and label embeddings (``num_classes``). Reconstruction units tap
+Conditioning: none (the unconditional LDM-4 / LDM-8 tasks), cross-attention
+context (cin256-v2 class embeddings, SD text), label embeddings
+(``num_classes``), and :func:`diffusion_wrapper`'s dispatch over them.
+Reconstruction units tap
 their boundaries through ``QuantCtx.tap`` (res blocks ``(x, emb_out)``,
 attention blocks ``(x,)``, transformer blocks ``(x, context)``, the
 ``proj_in``/``proj_out`` layers, the upsample convs and the input conv
@@ -56,6 +58,31 @@ class LDMUNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.model_channels * 4
+
+
+def celeba_config() -> LDMUNetConfig:
+    """LDM-4 CelebA-HQ / FFHQ (models/ldm/celeba256/config.yaml):
+    AttentionBlocks of 32-channel heads at 32x32, 16x16 and 8x8."""
+    return LDMUNetConfig(image_size=64, in_channels=3, model_channels=224,
+                         out_channels=3, attention_resolutions=(8, 4, 2),
+                         channel_mult=(1, 2, 3, 4), num_head_channels=32)
+
+
+def lsun_beds_config() -> LDMUNetConfig:
+    """LDM-4 LSUN-Bedrooms (models/ldm/lsun_beds256/config.yaml)."""
+    return LDMUNetConfig(image_size=64, in_channels=3, model_channels=224,
+                         out_channels=3, attention_resolutions=(8, 4, 2),
+                         channel_mult=(1, 2, 3, 4), num_head_channels=32)
+
+
+def lsun_churches_config() -> LDMUNetConfig:
+    """LDM-8 LSUN-Churches (models/ldm/lsun_churches256/config.yaml):
+    KL-f8 latents, scale-shift norm, res blocks that resample."""
+    return LDMUNetConfig(image_size=32, in_channels=4, model_channels=192,
+                         out_channels=4,
+                         attention_resolutions=(1, 2, 4, 8),
+                         channel_mult=(1, 2, 2, 4, 4), num_heads=8,
+                         use_scale_shift_norm=True, resblock_updown=True)
 
 
 def cin256_config() -> LDMUNetConfig:
@@ -272,13 +299,18 @@ def iter_layers(cfg: LDMUNetConfig):
 
 def iter_layers_with_res(cfg: LDMUNetConfig):
     """(kind, name, shape, res) of :func:`iter_layers`, ``res`` the side of
-    the latent the layer writes: a Downsample op halves it, an Upsample's
-    conv doubles it."""
+    the latent the layer writes: a Downsample op halves it and an
+    Upsample's conv doubles it; with ``resblock_updown`` a res block
+    resamples between its ``in_layers.0`` norm and its ``in_layers.2``
+    conv (``updown`` 2 halves, 1 doubles)."""
+    resample = {f"{s.prefix}.in_layers.2": s.updown for s in _all_subs(cfg)
+                if s.kind == "res" and s.updown}
     res = cfg.image_size
     for kind, name, shape in iter_layers(cfg):
-        if kind == "conv_ds":
+        if kind == "conv_ds" or resample.get(name) == 2:
             res //= 2
-        elif kind == "conv" and name.endswith(".conv"):
+        elif (kind == "conv" and name.endswith(".conv")) or \
+                resample.get(name) == 1:
             res *= 2
         yield kind, name, shape, res
 
@@ -593,6 +625,25 @@ def build_cross_kv(params: Dict[str, dict], cfg: LDMUNetConfig,
             cache[prefix] = (k.reshape(b, tk, s.heads, s.d_head),
                              v.reshape(b, tk, s.heads, s.d_head))
     return cache
+
+
+def diffusion_wrapper(params: Dict[str, dict], cfg: LDMUNetConfig,
+                      conditioning_key: Optional[str], x: torch.Tensor,
+                      t: torch.Tensor, c_concat=None, c_crossattn=None,
+                      qctx: Optional[QuantCtx] = None) -> torch.Tensor:
+    """DiffusionWrapper.forward's conditioning dispatch (ddpm.py:1395-1424,
+    ldm_unet.py:660-688). ``c_concat`` / ``c_crossattn``: lists of tensors
+    (NHWC for concat, (B,T,Cd) for crossattn; adm takes class ids in
+    ``c_crossattn[0]``)."""
+    if conditioning_key not in (None, "none", "concat", "crossattn",
+                                "hybrid", "adm"):
+        raise ValueError(f"conditioning key {conditioning_key!r}")
+    if conditioning_key in ("concat", "hybrid"):
+        x = torch.cat([x] + list(c_concat), dim=-1)
+    context = torch.cat(list(c_crossattn), dim=1) \
+        if conditioning_key in ("crossattn", "hybrid") else None
+    y = c_crossattn[0] if conditioning_key == "adm" else None
+    return apply(params, cfg, x, t, context=context, y=y, qctx=qctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,15 @@
-"""Checkpoint loading (port of the LDM part of
-``tfmq_dm_tpu/pipelines/loading.py``): a PyTorch-Lightning ``.ckpt``
-``{'state_dict': ...}`` with the submodule prefixes
-``model.diffusion_model.`` / ``first_stage_model.`` /
-``cond_stage_model.``, and LitEma weights under ``model_ema.*`` with the
-dots stripped from their names (ldm/modules/ema.py). The CIFAR-10 ``p::``
-npz loader stays in ``convert.py``.
+"""Checkpoint loading (port of ``tfmq_dm_tpu/pipelines/loading.py``):
+
+- the LDM family: a PyTorch-Lightning ``.ckpt`` ``{'state_dict': ...}``
+  with the submodule prefixes ``model.diffusion_model.`` /
+  ``first_stage_model.`` / ``cond_stage_model.`` (the last absent for the
+  unconditional tasks), and LitEma weights under ``model_ema.*`` with the
+  dots stripped from their names (ldm/modules/ema.py);
+- the ddim family: the reference's DDIM ``ckpt.pth``, a bare state dict
+  or the trainer's ``[state, optimizer, epoch, step, ema]`` list, with
+  DataParallel's ``module.`` prefixes (ddim/runners/diffusion.py:205-243).
+
+The repo's own ``p::`` npz loader stays in ``convert.py``.
 
 A Lightning checkpoint pickles more than tensors: ``callbacks`` (the
 CompVis SD v1.x files carry a ``ModelCheckpoint``), ``hyper_parameters``
@@ -26,7 +31,7 @@ from typing import Dict, Optional
 import torch
 
 from ..configs.tasks import TaskConfig
-from ..models import clip_text, ldm_unet, vae as vae_mod
+from ..models import clip_text, ddim_unet, ldm_unet, vae as vae_mod
 from ..utils.torch_convert import convert_state_dict
 
 logger = logging.getLogger(__name__)
@@ -87,6 +92,36 @@ def _apply_ema(unet_sd: Dict, full_sd: Dict) -> Dict:
     return out
 
 
+def _strip_module(sd: Dict) -> Dict:
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def load_ddim_checkpoint(path: str, cfg: ddim_unet.DDIMUNetConfig,
+                         use_ema: bool = True, device="cuda") -> Dict:
+    """The reference's DDIM checkpoint -> the port's parameters on
+    ``device``: a bare state dict (the pretrained-DDPM files), or the
+    trainer's ``[state, optimizer, epoch, step, ema]`` list, whose EMAHelper
+    shadow weights replace the raw ones when ``use_ema``
+    (loading.py:55-78, ddim/models/ema.py)."""
+    states = load_checkpoint(path)
+    ema = None
+    if isinstance(states, (list, tuple)):
+        sd = states[0]
+        if use_ema and len(states) >= 2 and \
+                isinstance(states[-1], dict) and any(
+                    hasattr(v, "shape") for v in states[-1].values()):
+            ema = states[-1]
+    else:
+        sd = states.get("state_dict", states)
+    sd = _strip_module(sd)
+    if ema:
+        ema = _strip_module(ema)
+        n = sum(1 for k in sd if k in ema)
+        sd = {k: ema.get(k, v) for k, v in sd.items()}
+        logger.info("EMA swap: %d/%d tensors", n, len(sd))
+    return convert_state_dict(sd, ddim_unet.iter_layers(cfg), device)
+
+
 def load_ldm_checkpoint(path: str, task: TaskConfig,
                         use_ema: Optional[bool] = None, device="cuda"):
     """-> (unet_params, vae_params, cond_params or None), tensors on
@@ -94,7 +129,8 @@ def load_ldm_checkpoint(path: str, task: TaskConfig,
     ``cond_params``: the class embedding table ``{"embedding": tensor}``
     of a class-conditional task, or the CLIP text tower's parameters
     (``cond_stage_model.transformer.*``, loading.py:99-111) of a
-    text-conditioned one; None when the checkpoint has neither."""
+    text-conditioned one; None for an unconditional task and when the
+    checkpoint has neither."""
     full = load_checkpoint(path)
     sd = full.get("state_dict", full)
     unet_sd = _strip_prefix(sd, "model.diffusion_model.")

@@ -53,7 +53,9 @@ def make_schedule(task: TaskConfig, steps: Optional[int] = None,
     """(sampler_fn, cali_t): ``sampler_fn(model_fn, x, generator,
     collect)`` runs the task's sampler; ``cali_t`` holds the timestep of
     each sampler step (the FSC groups). The ddim family's generalized
-    sampler and the LDM family's DDIM and PLMS samplers."""
+    sampler and the LDM family's DDIM and PLMS samplers; the LDM DDIM
+    sampler also takes ``noise``, its stochastic steps' draws
+    (``ddim_scan_ldm``)."""
     betas = task_betas(task)
     steps = steps or task.steps
     eta = task.eta if eta is None else eta
@@ -78,9 +80,9 @@ def make_schedule(task: TaskConfig, steps: Optional[int] = None,
         def fn(model_fn, x, generator=None, collect="none"):
             return ldm_s.plms_scan(model_fn, sched, x, collect=collect)
     else:
-        def fn(model_fn, x, generator=None, collect="none"):
+        def fn(model_fn, x, generator=None, collect="none", noise=None):
             return ldm_s.ddim_scan_ldm(model_fn, sched, x, generator,
-                                       collect=collect)
+                                       collect=collect, noise=noise)
     return fn, sched.t.copy()
 
 
@@ -99,16 +101,20 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
                        steps: Optional[int] = None,
                        rollout_batch: Optional[int] = None,
                        noise: Optional[torch.Tensor] = None,
+                       step_noise: Optional[torch.Tensor] = None,
                        device="cuda"):
     """Harvest (x_t, t[, c]) at every sampler step in O(T) rollouts.
 
     ``fp_apply(x, t, c) -> eps`` is the FP UNet. The starting noise (and
     that of stochastic steps) is drawn with ``generator`` (a CPU
     generator), one rollout batch at a time; ``noise`` (n_per_t, H, W,
-    C) replaces the starting noise's draws. With conditioning, each
-    rollout uses CFG and every group holds the rows [(x, t, uc);
-    (x, t, c)] (data_generate.py:13-49); ``context``/``uncond`` are (n,
-    1, embed_dim) class embeddings or (n, 77, 768) CLIP text contexts.
+    C) replaces the starting noise's draws, and ``step_noise`` (steps,
+    n_per_t, H, W, C) those of the stochastic DDIM steps (eta > 0). With
+    conditioning, each rollout uses CFG and every group holds the rows
+    [(x, t, uc); (x, t, c)] (data_generate.py:13-49); ``context``/
+    ``uncond`` are (n, 1, embed_dim) class embeddings or (n, 77, 768)
+    CLIP text contexts. Without, each group holds the n_per_t rows of
+    the unconditional rollouts.
 
     Returns (w_cali sample-major tuple, a_cali group-major tuple (G, N,
     ...), cali_t)."""
@@ -129,7 +135,10 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
                 context[done:done + b], uncond[done:done + b], scale)
         else:
             model_fn = lambda x, t, s: fp_apply(x, t, None)  # noqa: E731
-        _, (xs, ts) = sampler_fn(model_fn, x0, generator, collect="traj")
+        kw = {} if step_noise is None else \
+            {"noise": step_noise[:, done:done + b]}
+        _, (xs, ts) = sampler_fn(model_fn, x0, generator, collect="traj",
+                                 **kw)
         xs_all.append(xs)
         ts_all.append(ts)
         done += b

@@ -77,10 +77,14 @@ class DDIMScheduleLDM:
 @torch.no_grad()
 def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
-                  collect: str = "none"):
+                  collect: str = "none",
+                  noise: Optional[torch.Tensor] = None):
     """p_sample_ddim loop (ddim.py:123-175). ``collect="traj"`` also
-    returns the model inputs (x_t, t) of every step, stacked.
-    ``generator`` draws the noise of stochastic steps (eta > 0)."""
+    returns the model inputs (x_t, t) of every step, stacked. The noise of
+    stochastic steps (eta > 0, ffhq256 / lsun_beds256) is drawn with
+    ``generator``, one step at a time, or read from ``noise``, a
+    (steps, N, H, W, C) tensor of unit normals (step i's at ``noise[i]``;
+    JAX draws it from ``fold_in(key, i)``, samplers/ldm.py:105)."""
     if collect not in ("none", "traj"):
         raise ValueError(f"collect must be 'none' or 'traj', got {collect!r}")
     f32 = np.float32
@@ -88,8 +92,12 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
     a_prev = sched.a_prev.astype(f32)
     sigma = sched.sigma.astype(f32)
     s1ma = sched.sqrt_1m_a.astype(f32)
-    if np.any(sigma > 0) and generator is None:
-        raise ValueError("eta > 0 needs a torch.Generator")
+    if noise is not None and tuple(noise.shape) != \
+            (sched.num_steps,) + tuple(x.shape):
+        raise ValueError(f"noise {tuple(noise.shape)}: expected "
+                         f"{(sched.num_steps,) + tuple(x.shape)}")
+    if np.any(sigma > 0) and generator is None and noise is None:
+        raise ValueError("eta > 0 needs a torch.Generator or the noise")
     n = x.shape[0]
     xs, ts = [], []
     xt = x
@@ -102,9 +110,10 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
             f32(1.0) - a_prev[i] - sigma[i] ** 2, f32(0.0)))) * e_t
         x_prev = float(np.sqrt(a_prev[i])) * pred_x0 + dir_xt
         if sigma[i] > 0:
-            noise = torch.randn(xt.shape, generator=generator,
-                                device=generator.device, dtype=xt.dtype)
-            x_prev = x_prev + float(sigma[i]) * noise.to(xt.device)
+            z = noise[i] if noise is not None else torch.randn(
+                xt.shape, generator=generator, device=generator.device,
+                dtype=xt.dtype)
+            x_prev = x_prev + float(sigma[i]) * z.to(xt.device, xt.dtype)
         if collect == "traj":
             xs.append(xt)
             ts.append(t_b)
