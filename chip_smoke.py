@@ -77,7 +77,31 @@ when one is exceeded):
               artifacts (w4a8 with symmetric grids, and w8a8) are of that
               second kind, calibrated here on a 10-step harvest at batch 8:
               no reconstruction.
-5. ldm      - the full-width class-conditional LDM (cin256_v2) w4a8
+5. recon    - the rest of reconstruction at CIFAR-10 width on the
+              trained weights, on phase main's harvest (drawn again with
+              its seed), each cut printed: (a) ``recon.reconstruct`` of a
+              few units with ``resume_dir`` and short segments, under
+              ``torch.use_deterministic_algorithms``, twice uninterrupted,
+              then crashed by an injected failure after a partial save
+              inside a unit that is not the first and run again: the unit
+              and iteration it resumed at, the resumed alphas bit-equal to
+              the uninterrupted run's (or, where an op has no
+              deterministic algorithm, named, within twice the difference
+              of the two uninterrupted runs), no partial file left, and
+              the seconds of one partial save at the largest unit; (b)
+              ``capture_unit_grads`` of mid.block_1 on the card against
+              the CPU on the same rows, its seconds over the harvest, and
+              a fisher_diag ``reconstruct_unit`` of it whose losses must
+              fall; (c) ``reconstruct_act`` over every unit on one FSC
+              group of phase main's artifact (every site kept, zero
+              points unchanged, a delta moved; the guard's kept and
+              reverted counts), its seconds per iteration under the CUDA
+              graph, and that group's trained deltas written back into an
+              artifact sampled by ``cli.main --int-kernels
+              --int4-serving`` with the kernels and with the plain
+              versions (PSNR >= 30 dB). Prints the phase's seconds split
+              into resume, Fisher and act.
+6. ldm      - the full-width class-conditional LDM (cin256_v2) w4a8
               int4-serving path: a seeded random-init checkpoint in the
               reference's Lightning layout (UNet, VQ-f4 decoder, class
               embedding) in a temporary directory, a ``LDM_STEPS``-step
@@ -100,7 +124,7 @@ when one is exceeded):
               deployed UNet forward, kernels against plain versions; and
               a 4-step sample with a 16-bit softmax grid (flash pquant). Launch
               counts are read around each run.
-6. sd       - the full-width Stable Diffusion v1.4 w4a8 int4-serving path
+7. sd       - the full-width Stable Diffusion v1.4 w4a8 int4-serving path
               (512 x 512, 1 image x CFG at 7.5, PLMS cut to ``SD_STEPS``
               steps, one more UNet evaluation than steps): a seeded
               random-init checkpoint in the reference's Lightning layout
@@ -119,7 +143,7 @@ when one is exceeded):
               ``SD_CALI_ITERS`` iterations a unit, each cut printed) with
               the checks of phase ldm and the peak device memory, and that
               artifact sampled with the kernels and the plain versions.
-7. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
+8. deploy   - the int8 and bf16 deployments through ``cli.main``: cin256_v2
               ``--int-kernels --deploy_dtype bfloat16`` (``LDM_STEPS``, the ldm
               phase's checkpoint and artifact; fqk, int8_matmul_pre and the
               int8 conv), the CIFAR-10 bench configuration (w4a8
@@ -130,7 +154,7 @@ when one is exceeded):
               the run and around one UNet forward, PSNR against the FP
               sample (information) and the device-busy share of a
               profiled sample.
-8. uncond   - the unconditional tasks at full width, each from a seeded
+9. uncond   - the unconditional tasks at full width, each from a seeded
               random-init checkpoint in the reference's layout written in
               a temporary directory: lsun_churches256 (LDM-8: scale-shift
               norm, res blocks that resample, KL-f8 at scale_factor 1.0;
@@ -180,11 +204,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+# cuBLAS is deterministic under phase recon's
+# torch.use_deterministic_algorithms only with a fixed workspace, set
+# before its first handle
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
-                  "ldm": 420, "sd": 300, "deploy": 360, "uncond": 150}
+                  "recon": 120, "ldm": 420, "sd": 300, "deploy": 360, "uncond": 150}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -286,6 +314,25 @@ STEPS, BATCH, SEED = 10, 8, 1234
 # the FSC running-stat pass's batch of 16, so that the pass runs) and
 # reconstruction iterations a unit (300 until phase uncond came)
 CALI_STEPS, CALI_N, CALI_ITERS = 4, 16, 100
+# phase recon, the rest of reconstruction at CIFAR-10 width on the trained
+# weights and phase main's harvest settings: (a) mid-unit resume over
+# RESUME_UNITS (4 of the 33 units) at RESUME_ITERS iterations a unit (the
+# task's 20000) in segments of RESUME_SEG (recon.RESUME_SEG_ITERS, 2500),
+# crashed after the RESUME_CRASH-th partial save (inside the third
+# unit); (b) the Fisher weights of FISHER_UNIT on the card against the
+# CPU on FISHER_CPU_ROWS rows, timed on the harvest's rows, and a
+# fisher_diag reconstruction of it at FISHER_ITERS iterations; (c) the
+# act phase over every unit on FSC group ACT_GROUP's act state at
+# ACT_ITERS iterations a unit (the task's 20000), its per-iteration time
+# from two runs of one unit's loop (ACT_TIME_ITERS and three times that)
+RESUME_UNITS = ("tib", "down.0.block.0", "down.1.block.0", "down.1.attn.0")
+RESUME_ITERS, RESUME_SEG, RESUME_CRASH = 30, 10, 8
+FISHER_UNIT, FISHER_CPU_ROWS, FISHER_ITERS = "mid.block_1", 8, 100
+# the Fisher gradient is softmax(quantized) - softmax(FP) carried back
+# through the model: a difference of nearly equal f32 values, held to
+# this share of its largest magnitude (tests/test_torch_recon_extras.py)
+FISHER_REL = 2e-3
+ACT_GROUP, ACT_ITERS, ACT_TIME_ITERS = 2, 20, 50
 NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "scripts/micro_gn.py); launches of the kernels phase's "
                  "timing runs, the micro_gn twin's included")
@@ -776,7 +823,318 @@ def drive_main_path(cfg, dev, tmp: Path, steps: int = STEPS) -> dict:
             "fp_s": fp_s, "psnr_kernel_vs_plain": p_kp,
             "psnr_quant_vs_fp": p_qf, "psnr_init_only_vs_fp": p_init,
             "cali_s": cali_s, "recon": recon, "arts": arts,
-            "ckpt": str(ckpt), "fp_img": fp}
+            "ckpt": str(ckpt), "fp_img": fp, "art": art}
+
+
+class InjectedCrash(RuntimeError):
+    """The failure phase recon injects after a partial save."""
+
+
+def _max_alpha_diff(a: dict, b: dict) -> float:
+    """The largest |alpha| difference of two reconstructions (NaN
+    propagates, and fails any limit)."""
+    keys = {k for k, st in a.items() if "alpha" in st}
+    if keys != {k for k, st in b.items() if "alpha" in st} or not keys:
+        raise AssertionError("the runs trained different layers")
+    return max(float((a[k]["alpha"] - b[k]["alpha"]).abs().max())
+               for k in keys)
+
+
+def drive_recon_path(cfg, dev, tmp: Path, main_path: dict) -> dict:
+    """The rest of reconstruction at CIFAR-10 width (the trained weights;
+    phase main's harvest, drawn again with its seed): (a) mid-unit resume
+    under deterministic algorithms, a crash injected after a partial save
+    inside a unit that is not the first, the resumed alphas held to an
+    uninterrupted run's; the cost of one partial save at the largest
+    unit; (b) the Fisher weights of one unit on the card against the CPU,
+    their seconds on the card, and a fisher_diag reconstruction of the
+    unit; (c) the act phase over every unit on one FSC group of phase
+    main's artifact, its seconds per iteration, and the artifact with
+    that group's trained deltas sampled through ``cli.main`` with the
+    int4 kernels against the plain versions."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.convert import load_params
+    from tfmq_dm_tpu_torch.models import ddim_unet, ddim_units
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.quant import recon as R
+    from tfmq_dm_tpu_torch.quant.artifact import save_artifact
+    from tfmq_dm_tpu_torch.quant.calibrate import load_cali_model
+    from tfmq_dm_tpu_torch.quant.fsc import slice_fsc
+
+    tmp = tmp / "recon"
+    tmp.mkdir()
+    ckpt = main_path["ckpt"]
+    task = get_task("cifar10")
+    params, _ = load_params(ckpt, device=dev)
+    adapter = ddim_units.build_adapter(cfg, w_bits=4, a_bits=8)
+    _, a_cali, cali_t = ptq.generate_cali_data(
+        task, lambda x, t, c: ddim_unet.apply(params, cfg, x, t),
+        torch.Generator().manual_seed(SEED), n_per_t=CALI_N,
+        steps=CALI_STEPS, device=dev)
+    w_cali = tuple(x.reshape((-1,) + x.shape[2:]) for x in a_cali)
+    wstate0 = R.init_weight_qparams(adapter.policy, params, scaler="minmax")
+    seconds = {}
+    print(f"   cuts: (a) {len(RESUME_UNITS)} of {len(adapter.units)} units "
+          f"{RESUME_UNITS}, {RESUME_ITERS} iterations a unit (the task's "
+          f"20000) in segments of {RESUME_SEG} (RESUME_SEG_ITERS "
+          f"{R.RESUME_SEG_ITERS}); (b) {FISHER_UNIT}, card vs CPU on "
+          f"{FISHER_CPU_ROWS} rows, timed on {w_cali[0].shape[0]}, "
+          f"{FISHER_ITERS} iterations; (c) FSC group {ACT_GROUP} of "
+          f"{CALI_STEPS}, {a_cali[0].shape[1]} rows, {ACT_ITERS} "
+          "iterations a unit (the task's 20000), sampled in "
+          f"{CALI_STEPS} steps", flush=True)
+
+    # (a) mid-unit resume
+    t0 = time.perf_counter()
+    sub = dataclasses.replace(adapter, units=tuple(
+        adapter.unit_by_name(n) for n in RESUME_UNITS))
+    hp = R.ReconHP(iters=RESUME_ITERS, batch_size=task.recon_batch)
+
+    def run(d):
+        return R.reconstruct(sub, params, w_cali, dict(wstate0), hp,
+                             torch.Generator().manual_seed(SEED),
+                             capture_batch_size=64, resume_dir=str(d))
+
+    seg, save = R.RESUME_SEG_ITERS, R._save_partial
+    saves = [0]
+
+    def bomb(*a, **k):
+        save(*a, **k)
+        saves[0] += 1
+        if saves[0] == RESUME_CRASH:
+            raise InjectedCrash(f"injected after partial save {saves[0]}")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        R.RESUME_SEG_ITERS = RESUME_SEG
+        try:
+            first, second = run(tmp / "a1"), run(tmp / "a2")
+            R._save_partial = bomb
+            try:
+                run(tmp / "a3")
+            except InjectedCrash as e:
+                print(f"   (a) {e}", flush=True)
+            else:
+                raise AssertionError("the injected failure did not fire")
+            finally:
+                R._save_partial = save
+            partial = sorted((tmp / "a3").glob("*.partial"))
+            if len(partial) != 1:
+                raise AssertionError(f"partial files {partial}")
+            with np.load(partial[0]) as z:
+                it0 = int(z["__it0"])
+            at = partial[0].name.removesuffix(".npz.partial")
+            print(f"   (a) resuming {at} (unit "
+                  f"{RESUME_UNITS.index(at) + 1} of {len(RESUME_UNITS)}) "
+                  f"at iteration {it0} of {RESUME_ITERS}", flush=True)
+            if at == RESUME_UNITS[0] or not 0 < it0 < RESUME_ITERS:
+                raise AssertionError("the failure did not land inside a "
+                                     "unit after the first")
+            resumed = run(tmp / "a3")
+        finally:
+            R.RESUME_SEG_ITERS = seg
+            torch.use_deterministic_algorithms(False)
+    left = sorted(p.name for p in (tmp / "a3").glob("*.partial"))
+    nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                     if "determinis" in str(w.message)})
+    d_runs = _max_alpha_diff(first, second)
+    d_res = _max_alpha_diff(first, resumed)
+    print(f"   (a) max |alpha| difference: resumed vs uninterrupted "
+          f"{d_res:.3g}, two uninterrupted runs {d_runs:.3g}; ops without "
+          f"a deterministic algorithm: {nondet or 'none'}; partial files "
+          f"left {left or 'none'}", flush=True)
+    if left:
+        raise AssertionError(f"partial files left: {left}")
+    if not d_res <= (2 * d_runs if nondet else 0.0):
+        raise AssertionError(f"resumed alphas differ by {d_res} (two "
+                             f"uninterrupted runs: {d_runs})")
+    big = max((u for u in adapter.units if adapter.default_train_roles(u)),
+              key=lambda u: sum(params[f]["w"].numel() for r, f in u.layers
+                                if r in adapter.default_train_roles(u)))
+    alphas = {r: torch.zeros_like(params[f]["w"]) for r, f in big.layers
+              if r in adapter.default_train_roles(big)}
+    moments = tuple({r: torch.zeros_like(a) for r, a in alphas.items()}
+                    for _ in range(2))
+    path = str(tmp / "big.npz.partial")
+    save_s = []
+    for _ in range(3):
+        sync(dev)
+        t1 = time.perf_counter()
+        R._save_partial(path, alphas, moments, 10000,
+                        torch.zeros(10000, device=dev))
+        save_s.append(time.perf_counter() - t1)
+    save_s = sorted(save_s)[1]
+    print(f"   (a) one _save_partial at the largest unit, {big.name} "
+          f"({sum(a.numel() for a in alphas.values())} alphas, "
+          f"{os.path.getsize(path) / 2 ** 20:.1f} MiB): {save_s:.4f} s "
+          "(median of 3)", flush=True)
+    seconds["resume"] = time.perf_counter() - t0
+
+    # (b) Fisher
+    t0 = time.perf_counter()
+    unit = adapter.unit_by_name(FISHER_UNIT)
+    rows = tuple(x[:FISHER_CPU_ROWS] for x in w_cali)
+    cpu = torch.device("cpu")
+    cpu_params = load_params(ckpt, device=cpu)[0]
+    cpu_rows = tuple(x.cpu() for x in rows)
+    cpu_w = {k: {f: v.cpu() for f, v in st.items()}
+             for k, st in wstate0.items()}
+    got = R.capture_unit_grads(adapter, unit, params, rows, wstate0,
+                               batch_size=FISHER_CPU_ROWS).cpu()
+    ref = R.capture_unit_grads(adapter, unit, cpu_params, cpu_rows, cpu_w,
+                               batch_size=FISHER_CPU_ROWS)
+    # |g| + 1 keeps only the top bits of a small gradient: the gradient
+    # itself is held too
+    g_card = R._grad_batch(adapter, FISHER_UNIT, False, params,
+                           R.wstate_upto(adapter, unit, wstate0), {},
+                           rows).cpu()
+    g_cpu = R._grad_batch(adapter, FISHER_UNIT, False, cpu_params,
+                          R.wstate_upto(adapter, unit, cpu_w), {}, cpu_rows)
+    err = float((g_card - g_cpu).abs().max())
+    scale = float(g_cpu.abs().max())
+    w_err = float((got - ref).abs().max())
+    print(f"   (b) Fisher gradient of {FISHER_UNIT}, card vs CPU: max "
+          f"|difference| {err:.3g} against a largest |gradient| of "
+          f"{scale:.3g} (limit {FISHER_REL} of it); the weights |g| + 1 "
+          f"{w_err:.3g} apart (limit 2^-22)", flush=True)
+    if not (err <= FISHER_REL * scale and w_err <= 2 ** -22):
+        raise AssertionError(f"Fisher gradient card vs CPU: {err}, "
+                             f"weights {w_err}")
+    sync(dev)
+    t1 = time.perf_counter()
+    fgrads = R.capture_unit_grads(adapter, unit, params, w_cali, wstate0)
+    sync(dev)
+    fisher_s = time.perf_counter() - t1
+    print(f"   (b) capture_unit_grads of {FISHER_UNIT}: {fisher_s:.3f} s for "
+          f"{w_cali[0].shape[0]} rows at batch 32 (a full forward and "
+          "backward a batch)", flush=True)
+    inputs, outputs = R.capture_unit_io(adapter, unit, params, w_cali,
+                                        wstate0, batch_size=64)
+    stats = {}
+    _, losses = R.reconstruct_unit(
+        adapter, unit, params, wstate0, inputs, outputs,
+        R.ReconHP(iters=FISHER_ITERS, batch_size=task.recon_batch,
+                  rloss="fisher_diag"),
+        torch.Generator().manual_seed(SEED), fgrads, stats=stats)
+    del inputs, outputs, fgrads
+    ls = losses.cpu().numpy()
+    fisher_guard = stats[FISHER_UNIT]
+    print(f"   (b) fisher_diag reconstruction of {FISHER_UNIT}: loss "
+          f"{ls[:10].mean():.6g} (first 10) -> {ls[-10:].mean():.6g} (last "
+          f"10); guard {fisher_guard}", flush=True)
+    if not (np.isfinite(ls).all() and ls[-10:].mean() < ls[:10].mean()):
+        raise AssertionError("the fisher_diag losses did not fall")
+    seconds["fisher"] = time.perf_counter() - t0
+
+    # (c) the act phase
+    t0 = time.perf_counter()
+    wstate, batched, meta = load_cali_model(main_path["art"], device=dev)
+    if [float(v) for v in cali_t] != meta["cali_t"]:
+        raise AssertionError("phase main's groups are not this harvest's")
+    ast = slice_fsc(batched, ACT_GROUP)
+    data = (a_cali[0][ACT_GROUP], a_cali[1][ACT_GROUP])
+    hp = R.ReconHP(iters=ACT_ITERS, batch_size=task.recon_batch)
+    stats = {}
+    new = R.reconstruct_act(adapter, params, data, wstate, ast, hp,
+                            torch.Generator().manual_seed(SEED),
+                            capture_batch_size=64, stats=stats)
+    sync(dev)
+    act_s = time.perf_counter() - t0
+    moved = sum(not torch.equal(new[k]["delta"], ast[k]["delta"])
+                for k in ast)
+    kept = sum(r["kept"] == "trained" for r in stats.values())
+    print(f"   (c) reconstruct_act over {len(stats)} units "
+          f"({ACT_ITERS} iterations each): {act_s:.2f} s; guard kept the "
+          f"trained deltas of {kept} units, reverted {len(stats) - kept}; "
+          f"{moved} of {len(ast)} deltas moved", flush=True)
+    if set(new) != set(ast) or any(
+            not torch.equal(new[k]["zp"], ast[k]["zp"]) for k in ast):
+        raise AssertionError("the act phase lost a site or moved a zero "
+                             "point")
+    if moved == 0:
+        raise AssertionError("the act phase moved no delta")
+    # seconds per iteration under the CUDA graph: two lengths of one
+    # unit's loop, the difference over the extra iterations
+    unit = adapter.unit_by_name(FISHER_UNIT)
+    inputs, outputs = R.capture_unit_io(adapter, unit, params, data, wstate,
+                                        ast, use_aq=True, batch_size=64)
+    roles = [(r, f) for r, f in tuple(unit.layers) + tuple(unit.act_sites)
+             if f in ast]
+    n = data[0].shape[0]
+    times = []
+    for iters in (ACT_TIME_ITERS, 3 * ACT_TIME_ITERS):
+        idx = R.draw_indices(torch.Generator().manual_seed(0), n,
+                             min(task.recon_batch, n), iters).to(dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        R._act_run(adapter.unit_fwd, unit.kind,
+                   adapter.role_cfgs(unit, frozenset()), unit.extra,
+                   dataclasses.replace(hp, iters=iters),
+                   adapter.extract_uparams(params, unit),
+                   {r: wstate[f] for r, f in unit.layers if f in wstate},
+                   {r: ast[f]["zp"] for r, f in roles},
+                   {r: ast[f]["delta"] for r, f in roles}, inputs, outputs,
+                   idx)
+        sync(dev)
+        times.append(time.perf_counter() - t1)
+    per_iter_ms = (times[1] - times[0]) / (2 * ACT_TIME_ITERS) * 1e3
+    print(f"   (c) act phase of {FISHER_UNIT}, {n} rows a minibatch of "
+          f"{min(task.recon_batch, n)}: {per_iter_ms:.3f} ms an iteration "
+          f"under its CUDA graph ({ACT_TIME_ITERS} and "
+          f"{3 * ACT_TIME_ITERS} iterations: {times[0]:.3f} / "
+          f"{times[1]:.3f} s)", flush=True)
+    del inputs, outputs
+    for site, st in new.items():
+        batched[site]["delta"][ACT_GROUP] = st["delta"]
+    art = str(tmp / "cali_act.npz")
+    save_artifact(art, wstate, batched, meta)
+    common = ["--task", "cifar10", "--ckpt", ckpt, "--timesteps",
+              str(CALI_STEPS), "-n", str(BATCH), "--batch", str(BATCH),
+              "--seed", str(SEED), "--device", dev.type, "--ptq",
+              "--cali_ckpt", art, "--use_aq", "--int-kernels",
+              "--int4-serving"]
+    reset_all_counts()
+    if cli.main(common + ["--out", str(tmp / "q")]) != 0:
+        raise RuntimeError("cli.main returned non-zero")
+    launches = {k: v for k, v in all_counts().items() if v}
+    with plain_kernels():
+        cli.main(common + ["--out", str(tmp / "plain")])
+    q = np.load(tmp / "q" / "samples.npy")
+    p_kp = psnr(q, np.load(tmp / "plain" / "samples.npy"))
+    print(f"   (c) cli.main int4-serving from the artifact with group "
+          f"{ACT_GROUP}'s trained deltas ({BATCH} images, {CALI_STEPS} "
+          f"steps): PSNR kernels vs plain versions {p_kp:.2f} dB; launches "
+          f"{launches}", flush=True)
+    if not (np.isfinite(q).all() and p_kp >= MIN_PSNR_KERNEL_VS_PLAIN_DB):
+        raise AssertionError(f"act-phase artifact: kernel vs plain PSNR "
+                             f"{p_kp:.2f} dB")
+    for name in ("int4_conv2d", "int4_linear"):
+        if dev.type == "cuda" and not launches.get(name):
+            raise AssertionError(f"{name} did not launch")
+    seconds["act"] = time.perf_counter() - t0
+    print("   seconds: " + ", ".join(f"{k} {v:.2f}"
+                                     for k, v in seconds.items()),
+          flush=True)
+    return {"seconds": seconds, "resume": {
+        "unit": at, "it0": it0,
+        "max_alpha_diff_resumed": d_res, "max_alpha_diff_runs": d_runs,
+        "nondeterministic": nondet, "save_partial_s": save_s,
+        "save_partial_unit": big.name},
+        "fisher": {"max_abs_err": err, "max_grad": scale,
+                   "weights_max_abs_err": w_err,
+                   "capture_s": fisher_s, "rows": int(w_cali[0].shape[0]),
+                   "guard": fisher_guard},
+        "act": {"units": len(stats), "kept_trained": kept,
+                "deltas_moved": moved, "ms_per_iter": per_iter_ms,
+                "s": act_s, "psnr_kernel_vs_plain_db": p_kp,
+                "launches": launches}}
 
 
 def cin_geometries(cfg):
@@ -2912,6 +3270,8 @@ def run() -> None:
     try:
         with phase("main"):
             main_path = drive_main_path(cfg, dev, tmp)
+        with phase("recon"):
+            rec = drive_recon_path(cfg, dev, tmp, main_path)
         with phase("ldm"):
             ldm = drive_ldm_path(dev, tmp)
         with phase("sd"):
@@ -3052,6 +3412,7 @@ def run() -> None:
                                       "iters": CALI_ITERS,
                                       **main_path["recon"]}}),
           flush=True)
+    print(json.dumps({"recon": rec}), flush=True)
     print(json.dumps({"ldm": {
         "task": "cin256_v2", "images": CIN_N,
         "e2e_s": {k: v["s"] for k, v in runs.items()},

@@ -14,13 +14,15 @@ after every addition. 2e-5 of the output's largest magnitude. The int8
 GEMMs are bit-equal (exact int32 sums). The fused GroupNorm's codes may
 move one level where its statistics, summed in another order, put a
 value at a rounding boundary: at most 1 level, on under 1e-4 of the
-codes.
+codes. The reconstruction engine (the weight phase, the act phase, the
+Fisher gradients) runs on the card against the CPU at the end.
 """
 
 import contextlib
 import dataclasses
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
@@ -1076,7 +1078,7 @@ def test_cuda_reconstruct_unit_matches_cpu(cuda, name):
     fp_out = None if name == "tib" else R.precapture_fp_outs(
         adapter, [name], params, cali, batch_size=8)[name]
     inputs, outputs = R.capture_unit_io(adapter, unit, params, cali, wstate,
-                                        fp_out, batch_size=8)
+                                        batch_size=8, fp_out=fp_out)
     hp = R.ReconHP(iters=40, batch_size=8)
     idx = torch.stack([torch.randperm(16, generator=g)[:8]
                        for _ in range(hp.iters)])
@@ -1134,7 +1136,7 @@ def test_cuda_reconstruct_ldm_unit_matches_cpu(cuda, cache, monkeypatch):
     fp_out = R.precapture_fp_outs(adapter, [name], params, cali,
                                   batch_size=8)[name]
     inputs, outputs = R.capture_unit_io(adapter, unit, params, cali, wstate,
-                                        fp_out, batch_size=8,
+                                        batch_size=8, fp_out=fp_out,
                                         to_host=cache == "host")
     if cache == "host":
         monkeypatch.setattr(R, "_HOST_CHUNK_BYTES",
@@ -1172,3 +1174,179 @@ def test_cuda_reconstruct_ldm_unit_matches_cpu(cuda, cache, monkeypatch):
             eq += int((a == b).sum())
             tot += a.numel()
     assert tot > 0 and eq / tot >= RECON_HARD_EQUAL
+
+
+# the act phase and the Fisher gradients at CIFAR-10 width: the limits of
+# tests/test_torch_recon_extras.py (the Fisher gradient is a difference of
+# nearly equal softmaxes carried back through the model; an activation one
+# ulp apart flips an 8-bit code now and then, which moves a delta's
+# gradient, and the two runs' deltas part after it)
+FISHER_REL, ACT_LOSS_REL = 2e-3, 1e-2
+ACT_GRAD_REL, ACT_GRAD_FLOOR, ADAM_ULPS = 1e-2, 1e-5, 4
+
+
+def _cifar10_case(rows: int):
+    from pathlib import Path
+
+    from tfmq_dm_tpu_torch.convert import load_params
+    from tfmq_dm_tpu_torch.models import ddim_unet as T
+    from tfmq_dm_tpu_torch.models import ddim_units as TU
+    from tfmq_dm_tpu_torch.quant import recon as R
+
+    ckpt = Path(__file__).resolve().parent.parent / "runs" / \
+        "cifar10_ddpm.npz"
+    params, _ = load_params(str(ckpt), device="cpu")
+    g = torch.Generator().manual_seed(2)
+    cali = (torch.randn((rows, 32, 32, 3), generator=g),
+            torch.randint(0, 1000, (rows,), generator=g, dtype=torch.int32))
+    adapter = TU.build_adapter(T.cifar10_config(), w_bits=4, a_bits=8)
+    wstate = R.init_weight_qparams(adapter.policy, params, scaler="minmax")
+    return params, cali, adapter, wstate
+
+
+def _on(dev, tree):
+    if isinstance(tree, dict):
+        return {k: _on(dev, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_on(dev, v) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def test_cuda_capture_unit_grads_matches_cpu(cuda):
+    """The Fisher weights |d KL / d out| + 1 of CIFAR-10's mid.block_1 (8
+    rows, the trained weights, minmax grids) on the card and on the CPU:
+    the gradients within FISHER_REL of the largest, plus two ulp of 1."""
+    from tfmq_dm_tpu_torch.quant import recon as R
+
+    params, cali, adapter, wstate = _cifar10_case(8)
+    unit = adapter.unit_by_name("mid.block_1")
+    ref = R.capture_unit_grads(adapter, unit, params, cali, wstate,
+                               batch_size=8)
+    got = R.capture_unit_grads(adapter, unit, _on(cuda, params),
+                               _on(cuda, cali), _on(cuda, wstate),
+                               batch_size=8)
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    diff = float(((got.cpu() - 1) - (ref - 1)).abs().max())
+    assert diff <= FISHER_REL * float((ref - 1).abs().max()) + 2 ** -22
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in float32 units in the last place."""
+    def order(v):
+        i = np.asarray(v, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(order(a) - order(b)).max())
+
+
+def _adam_cosine(d0, grads, lr: float, iters: int):
+    """``optax.adam(optax.cosine_decay_schedule(lr, iters))`` in numpy
+    float32, fed one gradient dict a step; the parameters after each."""
+    f = np.float32
+    d = {k: np.asarray(v, f) for k, v in d0.items()}
+    mu = {k: np.zeros_like(v) for k, v in d.items()}
+    nu = {k: np.zeros_like(v) for k, v in d.items()}
+    out = []
+    for c, g in enumerate(grads):
+        lr_c = f(lr) * (f(0.5) * (f(1) + np.cos(
+            f(np.pi) * f(min(c, iters)) / f(iters))))
+        c1, c2 = f(1) - f(0.9) ** f(c + 1), f(1) - f(0.999) ** f(c + 1)
+        for k in d:
+            gk = np.asarray(g[k], f)
+            mu[k] = f(1 - 0.9) * gk + f(0.9) * mu[k]
+            nu[k] = f(1 - 0.999) * (gk * gk) + f(0.999) * nu[k]
+            u = (mu[k] / c1) / (np.sqrt(nu[k] / c2) + f(1e-8))
+            d[k] = d[k] + (-lr_c) * u
+        out.append(dict(d))
+    return out
+
+
+def test_cuda_reconstruct_unit_act_matches_cpu(cuda, monkeypatch):
+    """``reconstruct_unit_act`` of CIFAR-10's mid.block_1 (24 iterations,
+    a fixed minibatch sequence, lr_delta 4e-5) on the card and on the CPU
+    from the same cached I/O and act state (an init pass on 8 rows), in
+    the halves of tests/test_torch_recon_extras.py: the first step's
+    gradient on the card within ACT_GRAD_REL of the CPU's (plus
+    ACT_GRAD_FLOOR of the largest); the card's steps, run eagerly and
+    recorded, within ADAM_ULPS of optax's Adam on its cosine schedule fed
+    the card's own gradients, the first step delta0 - lr * sign(g0); the
+    CUDA-graphed run bit-equal to the eager one. Then the first loss within
+    1e-4 of the CPU's, the rest within ACT_LOSS_REL, zero points equal,
+    the same guard decision."""
+    from tfmq_dm_tpu_torch.quant import recon as R
+    from tfmq_dm_tpu_torch.quant.context import QuantCtx
+
+    params, cali, adapter, wstate = _cifar10_case(16)
+    ctx = QuantCtx(adapter.policy, wstate=wstate, use_wq=True, use_aq=True,
+                   act_mode="init", act_scaler="minmax")
+    with torch.no_grad():
+        adapter.forward(params, ctx, *(x[:8] for x in cali))
+    astate = ctx.out_astate
+    unit = adapter.unit_by_name("mid.block_1")
+    inputs, outputs = R.capture_unit_io(adapter, unit, params, cali, wstate,
+                                        astate, use_aq=True, batch_size=8)
+    hp = R.ReconHP(iters=24, batch_size=8)
+    g = torch.Generator().manual_seed(3)
+    idx = torch.stack([torch.randperm(16, generator=g)[:8]
+                       for _ in range(hp.iters)])
+    real_adam, real_warmup = R.adam_update, R.GRAPH_WARMUP
+
+    def run(dev, eager: bool):
+        """(astate, losses, guard record, the Adam steps recorded when
+        eager)."""
+        trace = []
+
+        def rec(p, gr, *a, **k):
+            out = real_adam(p, gr, *a, **k)
+            trace.append(tuple({r: v.detach().cpu().clone()
+                                for r, v in d.items()}
+                               for d in (p, gr, out[0])))
+            return out
+        # a graph's capture copies nothing to the host
+        monkeypatch.setattr(R, "adam_update", rec if eager else real_adam)
+        monkeypatch.setattr(R, "GRAPH_WARMUP",
+                            hp.iters if eager else real_warmup)
+        stats = {}
+        new, losses = R.reconstruct_unit_act(
+            adapter, unit, _on(dev, params), _on(dev, wstate),
+            _on(dev, astate), _on(dev, inputs), _on(dev, outputs), hp,
+            stats=stats, indices=lambda u, n, bs, it: idx)
+        return new, losses, stats["mid.block_1"], trace
+
+    ac, lc, sc, tc = run("cpu", True)
+    ae, le, se, te = run(cuda, True)
+    ag, lg, sg, _ = run(cuda, False)
+    monkeypatch.setattr(R, "adam_update", real_adam)
+    assert len(tc) == len(te) == hp.iters
+    # the gradient: the card's first step against the CPU's
+    top = max(float(v.abs().max()) for v in tc[0][1].values())
+    for r, ref in tc[0][1].items():
+        assert torch.all((te[0][1][r] - ref).abs()
+                         <= ACT_GRAD_REL * ref.abs() + ACT_GRAD_FLOOR * top), r
+    # the optimizer: the card's eager steps against Adam fed its gradients
+    p0 = {r: v.numpy() for r, v in te[0][0].items()}
+    want = _adam_cosine(p0, [{r: v.numpy() for r, v in st[1].items()}
+                             for st in te], hp.lr_delta, hp.iters)
+    for c, (st, w) in enumerate(zip(te, want)):
+        for r in w:
+            assert _ulps(st[2][r].numpy(), w[r]) <= ADAM_ULPS, (c, r)
+    for r, g0 in te[0][1].items():
+        g0 = g0.numpy().astype(np.float64)
+        with np.errstate(divide="ignore"):
+            tol = hp.lr_delta * (1e-3 + 1e-8 / np.abs(g0))
+        assert np.all(np.abs(te[0][2][r].numpy() - (p0[r] - hp.lr_delta
+                                                    * np.sign(g0)))
+                      <= tol), r
+    # the CUDA graph replays the eager steps
+    assert lg.device.type == "cuda" and lg.shape == (hp.iters,)
+    assert torch.equal(lg.cpu(), le.cpu()), (lg.cpu() - le.cpu()).abs().max()
+    assert set(ag) == set(ae) == set(ac)
+    for site in ae:
+        assert torch.equal(ag[site]["delta"].cpu(), ae[site]["delta"].cpu())
+    assert sg == se
+    # the card against the CPU
+    lg = lg.cpu()
+    assert abs(float(lg[0] - lc[0])) <= 1e-4 * float(lc[0])
+    assert torch.all((lg - lc).abs() <= ACT_LOSS_REL * lc.abs())
+    assert sg["kept"] == sc["kept"]
+    for site in ac:
+        assert torch.equal(ag[site]["zp"].cpu(), ac[site]["zp"])

@@ -295,7 +295,7 @@ def test_capture_unit_io_matches_jax(fam, mode):
             asym=True, batch_size=CAPTURE, fp_out=jfp, to_host=host)
         tin, tout = TR.capture_unit_io(
             ta, ta.unit_by_name(name), fam["tp"], fam["tcali"], fam["tw"],
-            tfp, batch_size=CAPTURE, to_host=host)
+            batch_size=CAPTURE, to_host=host, fp_out=tfp)
         cache_close(tin, jin)
         cache_close(tout, jout)
         if host:

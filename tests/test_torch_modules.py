@@ -29,9 +29,11 @@ import torch
 
 from tfmq_dm_tpu.models import ddim_unet as J
 from tfmq_dm_tpu.pipelines.training import load_params as j_load_params
+from tfmq_dm_tpu.pipelines.training import save_params
 from tfmq_dm_tpu.quant import fsc as jfsc
 from tfmq_dm_tpu.quant import quantizer as jq
 from tfmq_dm_tpu_torch import cli
+from tfmq_dm_tpu_torch.configs.tasks import get_task, task_betas
 from tfmq_dm_tpu_torch.convert import load_params, params_from_numpy
 from tfmq_dm_tpu_torch.models import ddim_unet as T
 from tfmq_dm_tpu_torch.models import ddim_units as TU
@@ -39,6 +41,8 @@ from tfmq_dm_tpu_torch.quant import fsc as tfsc
 from tfmq_dm_tpu_torch.quant import quantizer as tq
 from tfmq_dm_tpu_torch.quant.calibrate import cali_model
 from tfmq_dm_tpu_torch.samplers.ddim import harvest_trajectory
+from tfmq_dm_tpu_torch.utils.schedules import skip_seq
+from test_torch_ddim_slice import random_params
 
 REPO = Path(__file__).resolve().parent.parent
 CKPT = REPO / "runs" / "cifar10_ddpm.npz"
@@ -237,15 +241,22 @@ def test_wide_weight_grid_deploys_fake_quantized_weights():
 # ---------------------------------------------------------------------------
 
 def test_cli_int4_serving_on_cpu(tmp_path):
-    """Calibrate at full width on 2 steps x 2 samples, then sample through
-    ``cli.main`` with the packed-int4 deployment: finite images in [0, 1]
-    that stay near the FP model's from the same noise."""
+    """Calibrate tiny_ddim (seeded random weights) on 2 steps x 2 samples,
+    then sample through ``cli.main`` with the packed-int4 deployment:
+    finite images in [0, 1] that stay near the FP model's from the same
+    noise. ``chip_smoke.py`` phase main runs this path at CIFAR-10 width
+    on the card."""
     steps = 2
-    cfg = T.cifar10_config()
-    params, _ = load_params(str(CKPT), device="cpu")
+    cfg = T.tiny_config()
+    np_params = random_params(J.tiny_config(), np.random.default_rng(0))
+    ckpt = str(tmp_path / "tiny.npz")
+    save_params(ckpt, np_params)
+    params = params_from_numpy(np_params, "cpu")
     adapter = TU.build_adapter(cfg, w_bits=4, a_bits=8)
-    betas, seq = cli.cifar10_schedule(steps)
-    x_T = torch.randn((2, 32, 32, 3), generator=torch.Generator()
+    task = get_task("tiny_ddim")
+    betas = task_betas(task)
+    seq = skip_seq(task.skip_type, task.num_timesteps, steps)
+    x_T = torch.randn((2, 16, 16, 3), generator=torch.Generator()
                       .manual_seed(0))
     xs, ts = harvest_trajectory(lambda x, t, s: T.apply(params, cfg, x, t),
                                 betas, seq, x_T)
@@ -256,8 +267,9 @@ def test_cli_int4_serving_on_cpu(tmp_path):
                path=art, w_scaler="minmax", act_scaler="minmax",
                meta={"wq": 4, "aq": 8,
                      "cali_t": [float(v) for v in seq[::-1]]})
-    common = ["--task", "cifar10", "--timesteps", str(steps), "-n", "2",
-              "--batch", "2", "--device", "cpu", "--seed", "7"]
+    common = ["--task", "tiny_ddim", "--ckpt", ckpt, "--timesteps",
+              str(steps), "-n", "2", "--batch", "2", "--device", "cpu",
+              "--seed", "7"]
     assert cli.main(common + ["--out", str(tmp_path / "q"), "--ptq",
                               "--cali_ckpt", art, "--use_aq",
                               "--int-kernels", "--int4-serving"]) == 0
@@ -269,9 +281,8 @@ def test_cli_int4_serving_on_cpu(tmp_path):
     sim = np.load(tmp_path / "sim" / "samples.npy")
     # the deployed model is the fake-quant simulation up to the bf16
     # rounding of the int4 path's operands
-    # (measured: 0.15 of the distance to FP)
     assert np.abs(q - sim).mean() < np.abs(q - fp).mean() / 3
-    assert q.shape == fp.shape == (2, 32, 32, 3)
+    assert q.shape == fp.shape == (2, 16, 16, 3)
     assert np.all(np.isfinite(q)) and q.min() >= 0 and q.max() <= 1
     # w4a8 after 2 steps: close to FP, not equal to it
     assert 0 < np.abs(q - fp).mean() < 0.05

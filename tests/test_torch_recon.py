@@ -305,7 +305,7 @@ def test_capture_unit_io_matches_jax(setup, name, batch):
                                    s["jw"], asym=True, batch_size=8,
                                    fp_out=jfp)
     tin, tout = TR.capture_unit_io(s["ta"], tu, s["tp"], s["tcali"],
-                                   s["tw"], tfp, batch_size=batch)
+                                   s["tw"], batch_size=batch, fp_out=tfp)
     for g, r in zip(leaves(tin), leaves(jin)):
         close(g.numpy(), r)
     for g, r in zip(leaves(tout), leaves(jout)):

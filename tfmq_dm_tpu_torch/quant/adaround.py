@@ -6,40 +6,18 @@ A per-element logit ``alpha`` decides whether each weight rounds up or
 down. During reconstruction the rounding is a soft value h(alpha) in
 [0, 1], so gradients flow; at inference it hardens to (alpha >= 0).
 
-The clips take ``jnp.clip``'s gradient: an element exactly on a bound
-passes half the gradient (``torch.clamp`` passes all of it).
+The clips take ``jnp.clip``'s gradient (``quantizer.clip``): an element
+exactly on a bound passes half the gradient (``torch.clamp`` passes all
+of it).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .quantizer import QCfg, broadcast_channel
+from .quantizer import QCfg, broadcast_channel, clip
 
 GAMMA, ZETA = -0.1, 1.1
-
-
-class _Clip(torch.autograd.Function):
-    """clamp(x, lo, hi) with ``jnp.clip``'s gradient, which is that of
-    min(max(x, lo), hi) with ties split: 1 inside, 1/2 on a bound, 0
-    outside."""
-
-    @staticmethod
-    def forward(ctx, x, lo: float, hi: float):
-        ctx.save_for_backward(x)
-        ctx.lo, ctx.hi = lo, hi
-        return torch.clamp(x, lo, hi)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        inside = ((x > ctx.lo) & (x < ctx.hi)).to(g.dtype)
-        tie = ((x == ctx.lo) | (x == ctx.hi)).to(g.dtype)
-        return g * (inside + 0.5 * tie), None, None
-
-
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    return _Clip.apply(x, lo, hi)
 
 
 def init_alpha(w: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -57,7 +35,7 @@ def init_alpha(w: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 def soft_targets(alpha: torch.Tensor) -> torch.Tensor:
     """h(alpha) = clip(sigmoid(alpha) (zeta - gamma) + gamma, 0, 1)
     (adaptive_rounding.py:40-41)."""
-    return _clip(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
+    return clip(torch.sigmoid(alpha) * (ZETA - GAMMA) + GAMMA, 0.0, 1.0)
 
 
 def adaround_fq(w: torch.Tensor, delta: torch.Tensor,
@@ -75,7 +53,7 @@ def adaround_fq(w: torch.Tensor, delta: torch.Tensor,
         w_int = w_floor + (alpha >= 0).to(w.dtype)
     nb = -cfg.level // 2 if cfg.symmetric else 0
     pb = cfg.level // 2 - 1 if cfg.symmetric else cfg.level - 1
-    w_q = _clip(w_int + zero_point, float(nb), float(pb))
+    w_q = clip(w_int + zero_point, float(nb), float(pb))
     return delta * (w_q - zero_point)
 
 

@@ -19,6 +19,10 @@ goes through the unit forwards, models/ddim_units.py), and:
   values land in ``tape["<unit>::<tag>"]``. ``stop_when_taped`` ends the
   forward (``CaptureDone``) once every listed unit's listed tags are on
   the tape, the reference's StopForwardException (data_utill.py:76-169);
+- ``override``: {unit: value} — an "out" tap of a listed unit returns
+  ``value`` in place of the unit's output, and the forward runs on from
+  it (the Fisher gradients, ``recon.capture_unit_grads``: d loss / d
+  unit output, the reference's backward hooks, data_utill.py:172-256);
 - ``deploy``: {layer: deployed weight} — the call sites execute the
   deployed integer weights (quant/deploy.py) instead of fake-quant;
 - ``act_out_dtype``: the carrier dtype of deployed layers' outputs
@@ -62,6 +66,7 @@ class QuantCtx:
                  ema_momentum: float = 0.95,
                  deploy: Optional[dict] = None,
                  act_out_dtype: Optional[torch.dtype] = None,
+                 override: Optional[dict] = None,
                  flash: bool = False,
                  capture_tags: Optional[FrozenSet[str]] = None,
                  stop_when_taped: bool = False):
@@ -78,8 +83,11 @@ class QuantCtx:
         # None: tape both "in" and "out"; else only the listed tags
         self.capture_tags = capture_tags
         self.tape: Dict[str, object] = {}
+        self.override = override
         self._stop_keys = None
-        if stop_when_taped and capture is not None and "*" not in capture:
+        # an override pass runs the forward on from the unit to the end
+        if stop_when_taped and capture is not None and \
+                "*" not in capture and override is None:
             tags = capture_tags or frozenset({"in", "out"})
             self._stop_keys = {f"{u}::{t}" for u in capture for t in tags}
         self.act_mode = act_mode
@@ -142,7 +150,11 @@ class QuantCtx:
 
     def tap(self, unit: str, tag: str, value):
         """Record a unit-boundary value when ``unit`` and ``tag`` are
-        captured; returns ``value`` unchanged."""
+        captured; returns the value that flows on: ``override[unit]`` for
+        an "out" tag of an overridden unit, else ``value``."""
+        if self.override is not None and tag == "out" and \
+                unit in self.override:
+            value = self.override[unit]
         if self.capture is not None and \
                 ("*" in self.capture or unit in self.capture) and \
                 (self.capture_tags is None or tag in self.capture_tags):
