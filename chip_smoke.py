@@ -12,8 +12,9 @@ when one is exceeded):
               shared memory.
 3. kernels  - every distinct conv and linear geometry of the CIFAR-10
               (batch 8), cin256 (batch 2 x CFG), SD v1.4 (batch 1 x
-              CFG) and phase uncond's (batch 2: lsun_churches256,
-              lsun_beds256, ddim_celeba64) int4-serving paths plus odd
+              CFG), phase uncond's (batch 2: lsun_churches256,
+              lsun_beds256, ddim_celeba64) and phase text's (batch 1 x
+              CFG: txt2img_1p4b, text2img_256) int4-serving paths plus odd
               shapes, the first three paths' geometries on the int8 GEMM (``int8_matmul_pre``, and the
               int8 conv on its im2col, sym and asym grids), and the four
               flash-attention kernels at the cin256 and SD shapes (fqk
@@ -43,12 +44,14 @@ when one is exceeded):
               CIFAR-10's, ``flash_fqk`` in its three modes, ``flash_fp``,
               ``flash_pquant`` (8- and 16-bit softmax grids) and
               ``flash_int8`` (with and without the softmax quantizer) at
-              cin256, SD's 64x64 and 32x32 and the 32x32 AttentionBlocks
-              of phase uncond (T 1024, D 24 and 32; the f32 kernels also
-              beside SDPA on their f32 operands), with the sums per
-              forward of ``int4_linear`` (every linear geometry of SD and
-              of phase uncond's paths, by launches), ``flash_int8`` and
-              ``flash_fp`` (SD, lsun_churches256, lsun_beds256), each
+              cin256, SD's 64x64 and 32x32, the 32x32 AttentionBlocks
+              of phase uncond (T 1024, D 24 and 32) and phase text's
+              32x32 self-attentions (T 1024: B*H 16, D 40; B*H 24, D 32;
+              the f32 kernels also beside SDPA on their f32 operands),
+              with the sums per forward of ``int4_linear`` (every linear
+              geometry of SD and of phases uncond's and text's paths, by
+              launches), ``flash_int8`` and ``flash_fp`` (SD and those
+              paths), each
               printed beside its earlier
               design's device time where one was taken (``EARLIER_MS``;
               not in the
@@ -178,9 +181,33 @@ when one is exceeded):
               each deployed sample, and each kernel's time per forward
               beside cuDNN / SDPA and the bound.
 
+10. text    - the BERT-conditioned LDM text2img tasks at full width
+              from seeded random-init checkpoints in the reference's
+              Lightning layout (UNet, first stage, BERT tower under
+              ``cond_stage_model.transformer.``) and token-id files (the
+              stub tokenizer's ids at bert-base-uncased's vocabulary,
+              whose WordPiece file is not in the repository), 1 image x
+              CFG at 5.0, DDIM cut to ``TEXT_STEPS`` of 50 steps:
+              txt2img_1p4b (KL-f8 to 256 x 256, BERT 1280 x 32) from an
+              init-only artifact (DDIM harvest, flash fp counted; minmax
+              grids, FSC init pass) through ``cli.main --token_ids`` with
+              the kernels, with the plain versions (latents >= 30 dB) and
+              in FP, launches held against a walk of the layers
+              (``flash_int8`` 5 a forward at T 1024 / D 40, the K/V
+              projections once a rollout), one deployed forward kernels
+              vs plain and the device profile of a deployed sample;
+              text2img_256 (VQ-f4, BERT 640 x 32) through ``cli.main
+              --ptq --cali`` cut as phase sd's (``TEXT_CALI_STEPS`` x
+              ``TEXT_CALI_N`` x CFG, ``TEXT_CALI_ITERS`` iterations a
+              unit) with phase ldm's checks, that artifact sampled with
+              the kernels and the plain versions (latents >= 30 dB,
+              ``flash_int8`` 5 a forward at T 1024 / D 32); each task's
+              kernel times per forward beside cuDNN / ``torch.matmul`` /
+              SDPA and the bound.
+
 The profiled samples of every phase and the one-forward checks of phases
-ldm, sd and deploy run ``PROFILE_STEPS`` steps, cut from their samples'
-10 (phase uncond's 4).
+ldm, sd, deploy and text run ``PROFILE_STEPS`` steps, cut from their
+samples' 10 (main) and 4 (the other phases).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -212,7 +239,8 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
-                  "recon": 120, "ldm": 420, "sd": 300, "deploy": 360, "uncond": 150}
+                  "recon": 120, "ldm": 420, "sd": 300, "deploy": 360,
+                  "uncond": 150, "text": 180}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -338,8 +366,9 @@ NO_MODEL_PATH = ("no model path (JAX: tests/test_pallas_kernels.py, "
                  "timing runs, the micro_gn twin's included")
 # cin256 images per batch (the UNet sees twice as many: CFG), and the
 # DDIM steps of its samples in phases ldm and deploy (the task's 20, cut
-# to 10 for the script's time when phase sd came)
-CIN_N, LDM_STEPS = 2, 10
+# to 10 for the script's time when phase sd came, to 4 when phase text
+# came)
+CIN_N, LDM_STEPS = 2, 4
 # phase ldm's full-width calibration through the CLI, cut to the phase's
 # time: sampler steps of the harvest (the task's 20), samples a step (the
 # task's 512; with CFG twice as many rows, 16: the FSC running-stat
@@ -350,12 +379,13 @@ CIN_N, LDM_STEPS = 2, 10
 LDM_CALI_STEPS, LDM_CALI_N, LDM_CALI_ITERS = 2, 8, 10
 LDM_UNITS = 74
 # phase sd: SD v1.4 at full width (512 x 512, 64 x 64 latents), 1 image
-# x CFG, PLMS cut from the task's 50 steps to SD_STEPS (SD_STEPS + 1 UNet
-# evaluations: step 0 evaluates twice); its calibration cut as phase
+# x CFG, PLMS cut from the task's 50 steps to SD_STEPS (10 until phase
+# text came; SD_STEPS + 1 UNet evaluations: step 0 evaluates twice); its
+# calibration cut as phase
 # ldm's (a harvest of SD_CALI_STEPS steps x SD_CALI_N prompts, 16 rows
 # with CFG, and SD_CALI_ITERS iterations a unit); as cin256_v2, 74 of
 # its 75 units train
-SD_N, SD_STEPS = 1, 10
+SD_N, SD_STEPS = 1, 4
 SD_CALI_STEPS, SD_CALI_N, SD_CALI_ITERS = 1, 8, 10
 SD_UNITS = 74
 SD_PROMPT = "a photograph of an astronaut riding a horse"
@@ -375,6 +405,16 @@ UNCOND_N, UNCOND_STEPS = 2, 4
 PROFILE_STEPS = 2
 UNCOND_CALI_STEPS, UNCOND_CALI_N, UNCOND_CALI_ITERS = 2, 16, 10
 UNCOND_UNITS = 57
+# phase text: the BERT-conditioned LDM text2img tasks at full width, 1
+# image x CFG at the tasks' 5.0, DDIM cut from 50 steps to TEXT_STEPS;
+# text2img_256's calibration cut as phase sd's (a harvest of
+# TEXT_CALI_STEPS steps x TEXT_CALI_N prompts, 16 rows with CFG, and
+# TEXT_CALI_ITERS iterations a unit); 74 of their 75 units train
+TEXT_TASKS = ("txt2img_1p4b", "text2img_256")
+TEXT_N, TEXT_STEPS = 1, 4
+TEXT_CALI_STEPS, TEXT_CALI_N, TEXT_CALI_ITERS = 1, 8, 10
+TEXT_UNITS = 74
+TEXT_PROMPT = "a painting of a lighthouse on a cliff at sunset"
 
 
 class PhaseTimeout(Exception):
@@ -1233,8 +1273,8 @@ def time_linear_geometries(g, dev, peaks, path: str, batch: int,
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     print(f"   int4_linear {path} per forward "
           f"({sum(x['launches_per_forward'] for x in rows)} launches"
-          + (", the K/V cache's once a rollout left out" if path == "sd"
-             else "") + "): "
+          + (", the K/V cache's once a rollout left out"
+             if path == "sd" or path in TEXT_TASKS else "") + "): "
           + ", ".join(f"{k} {v:.4f}" for k, v in per.items()), flush=True)
     return rows, per
 
@@ -1335,16 +1375,21 @@ def check_one_level(label, got, ref, level, errors):
 # 24) and the LDM-4 UNet (14 heads of 32)
 FLASH_SHAPES = [("cin256", 4, 1024, 1024, 384),
                 ("sd 64x64", 16, 4096, 4096, 40),
-                ("sd 32x32 d40", 16, 1024, 1024, 40),
+                ("txt2img 32x32", 16, 1024, 1024, 40),
                 ("sd 32x32", 16, 1024, 1024, 80),
                 ("sd 16x16", 16, 256, 256, 160),
                 ("ragged", 4, 100, 100, 40), ("ragged", 4, 130, 130, 40),
                 ("tk != tq", 2, 130, 77, 64),
                 ("churches 32x32", 2 * 8, 1024, 1024, 24),
-                ("ldm4 32x32", 2 * 14, 1024, 1024, 32)]
-# the flash_int8 / flash_fp shapes of phase uncond's paths, by key length
+                ("ldm4 32x32", 2 * 14, 1024, 1024, 32),
+                ("text256 32x32", 2 * 12, 1024, 1024, 32)]
+# the flash_int8 / flash_fp shape of each path of phases uncond and text,
+# all at key length 1024 (txt2img_1p4b: 1 x CFG, 8 heads of D 40;
+# text2img_256: 1 x CFG, 12 heads of D 32)
 UNCOND_FLASH = {"lsun_churches256": "churches 32x32",
                 "lsun_beds256": "ldm4 32x32"}
+PATH_FLASH = {**UNCOND_FLASH, "txt2img_1p4b": "txt2img 32x32",
+              "text2img_256": "text256 32x32"}
 INT8_GRIDS = ((0.031, 130.0), (0.029, 120.0), (0.033, 125.0))
 P_GRIDS = ((1 / 255.0, 0.0), (0.004, 3.0))
 # the 16-bit softmax grid (--softmax_a_bit 16, always zero): levels up to
@@ -1462,9 +1507,11 @@ def sdpa_backend(q, k, v) -> str:
 def time_flash(g, dev, peaks) -> dict:
     """Each flash kernel at the cin256 shape (B*H 4, T 1024, D 384), at
     SD's 64x64 (B*H 16, T 4096, D 40) and 32x32 (B*H 16, T 1024, D 80,
-    the head dim padded to 96), and at the 32x32 AttentionBlocks of
+    the head dim padded to 96), at the 32x32 AttentionBlocks of
     LSUN-Churches (B*H 16, T 1024, D 24) and the LDM-4 UNet (B*H 28, T
-    1024, D 32): the kernel, its plain version and
+    1024, D 32), and at the text2img tasks' 32x32 (txt2img_1p4b: B*H 16,
+    T 1024, D 40; text2img_256: B*H 24, T 1024, D 32): the kernel, its
+    plain version and
     ``scaled_dot_product_attention`` on bf16 q/k/v of the same shape
     (dequantized for int8), timed only; for the f32 kernels also SDPA on
     the f32 operands (``library_f32_ms``: the same function at the
@@ -1481,8 +1528,9 @@ def time_flash(g, dev, peaks) -> dict:
     from tfmq_dm_tpu_torch.ops import flash_attention as FA
     rows = {}
     for label, bh, t, _, d in (FLASH_SHAPES[0], FLASH_SHAPES[1],
-                               FLASH_SHAPES[3], FLASH_SHAPES[8],
-                               FLASH_SHAPES[9]):
+                               FLASH_SHAPES[2], FLASH_SHAPES[3],
+                               FLASH_SHAPES[8], FLASH_SHAPES[9],
+                               FLASH_SHAPES[10]):
         q, k, v = flash_case(g, bh, t, t, d, dev)
         sm = d ** -0.5
         qb, kb, vb = (x.to(torch.bfloat16)[:, None] for x in (q, k, v))
@@ -1566,13 +1614,15 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int = 0,
     """A seeded random-init checkpoint of an LDM task in the reference's
     Lightning layout, through the port's export: UNet, first stage (VQ
     decoder with codebook, or KL decoder), and the class embedding
-    (cin256_v2: 1001 x 512) or the CLIP text tower (SD v1.4: ViT-L/14,
-    under ``cond_stage_model.transformer.``) where the task is
-    conditioned. ``ema``: LitEma weights under ``model_ema.`` (names
-    without their dots, ldm/modules/ema.py), a second random init, so
-    that the loader's swap changes the weights it returns."""
+    (cin256_v2: 1001 x 512) or the text tower (SD v1.4: CLIP ViT-L/14;
+    the LDM text2img tasks: BERT; under ``cond_stage_model.transformer.``)
+    where the task is conditioned. ``ema``: LitEma weights under
+    ``model_ema.`` (names without their dots, ldm/modules/ema.py), a
+    second random init, so that the loader's swap changes the weights it
+    returns."""
     import torch
-    from tfmq_dm_tpu_torch.models import clip_text, ldm_unet, vae
+    from tfmq_dm_tpu_torch.configs.tasks import text_encoder
+    from tfmq_dm_tpu_torch.models import ldm_unet, vae
     from tfmq_dm_tpu_torch.utils.torch_convert import export_state_dict
     g = torch.Generator(device=dev).manual_seed(seed)
     sd = {}
@@ -1593,10 +1643,11 @@ def make_ldm_checkpoint(path: str, task, dev, n_classes: int = 0,
         sd["model_ema.num_updates"] = torch.tensor(0, dtype=torch.int32)
         del ep
     if task.cond == "text":
-        cp = clip_text.init_params(g, task.clip)
+        enc, ecfg = text_encoder(task)
+        cp = enc.init_params(g, ecfg)
         sd.update({f"cond_stage_model.transformer.{k}": v for k, v in
-                   export_state_dict(cp, clip_text.iter_layers(task.clip))
-                   .items()})
+                   export_state_dict(cp, enc.iter_layers(ecfg)).items()})
+        del cp
     elif task.cond == "class":
         sd["cond_stage_model.embedding.weight"] = torch.randn(
             (n_classes, task.unet.context_dim), generator=g,
@@ -1769,6 +1820,8 @@ def drive_ldm_path(dev, tmp: Path, steps: int = LDM_STEPS,
     task = get_task(task_name)
     n = CIN_N
     res, img_res = task.unet.image_size, task.vae.resolution
+    print(f"   cut: samples of {steps} DDIM steps, the task's {task.steps} "
+          "(10 until phase text came)", flush=True)
     tmp = tmp / "cin"
     tmp.mkdir()
     t0 = time.perf_counter()
@@ -1918,6 +1971,21 @@ def flash_sites(cfg) -> dict:
     return sites
 
 
+def cond_walk(task, forwards: int) -> dict:
+    """Launches of a conditioned task's int4-serving sample of
+    ``forwards`` UNet evaluations, a walk of its layers: ``flash_int8`` at
+    each self-attention whose key length reaches the flash gate,
+    ``int4_conv2d`` at every packed conv, ``int4_linear`` at every packed
+    linear, and the cross-attention K/V projections of the constant
+    context once a rollout."""
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    return {"flash_int8": sum(flash_sites(task.unet).values()) * forwards,
+            "int4_linear": sum(linear_counts(task.unet).values()) * forwards
+            + 2 * len(ldm_unet.cross_attn_prefixes(task.unet)),
+            "int4_conv2d": sum(cin_conv_counts(task.unet).values())
+            * forwards}
+
+
 def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
     """The SD v1.4 w4a8 int4-serving path at full width: a seeded
     random-init checkpoint (UNet, KL-f8 decoder, CLIP ViT-L/14 text tower),
@@ -1941,6 +2009,9 @@ def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
     n, res = SD_N, task.unet.image_size
     img_res = res * 2 ** (len(task.vae.ch_mult) - 1)
     forwards = steps + 1
+    print(f"   cut: samples and the init-only harvest of {steps} PLMS steps"
+          f", the task's {task.steps} (10 until phase text came)",
+          flush=True)
     tmp = tmp / "sd"
     tmp.mkdir()
     t0 = time.perf_counter()
@@ -2000,11 +2071,7 @@ def drive_sd_path(dev, tmp: Path, steps: int = SD_STEPS) -> dict:
             ("fp", [], False)):
         runs[name] = cli_sample(tmp, name, common + argv, img_shape, dev,
                                 plain)
-    walk = {"flash_int8": sites * forwards,
-            "int4_linear": sum(linear_counts(task.unet).values()) * forwards
-            + 2 * len(ldm_unet.cross_attn_prefixes(task.unet)),
-            "int4_conv2d": sum(cin_conv_counts(task.unet).values())
-            * forwards}
+    walk = cond_walk(task, forwards)
     got = {k: runs["deployed"]["launches"][k] for k in walk}
     print(f"   launches against the layer walk ({forwards} UNet "
           f"evaluations; {sites} self-attentions a forward at T >= 1024): "
@@ -2134,9 +2201,10 @@ def ema_swaps():
 
 
 def per_forward_line(measured, name: str) -> str:
-    """Device ms per UNet forward of each kernel of an unconditional path
-    beside its library call and its bound, from the kernels phase's
-    timings at the path's shapes, weighted by launches per forward."""
+    """Device ms per UNet forward of each kernel of a path of phases
+    uncond and text beside its library call and its bound, from the
+    kernels phase's timings at the path's shapes, weighted by launches
+    per forward."""
     rows = [x for x in measured["conv_geometries"] if x["path"] == name]
     conv = {k: sum(x[k] * x["launches_per_forward"] for x in rows)
             for k in ("ms", "library_ms", "bound_ms")}
@@ -2146,7 +2214,7 @@ def per_forward_line(measured, name: str) -> str:
             f"int4_linear {lin['ms']:.4f} / torch.matmul "
             f"{lin['library_ms']:.4f} / bound {lin['bound_ms']:.4f}")
     for kern in ("flash_int8", "flash_fp"):
-        per = measured[kern]["uncond_per_forward"].get(name)
+        per = measured[kern]["path_per_forward"].get(name)
         if per:
             line += (f"; {kern} {per['ms']:.4f} / SDPA "
                      f"{per['library_ms']:.4f} / bound "
@@ -2337,6 +2405,196 @@ def drive_uncond_path(dev, tmp: Path, measured: dict,
                        for k, v in runs.items()}
         rec["ema_swap"] = swaps
         out[name] = rec
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase text: the BERT-conditioned LDM text2img tasks
+# ---------------------------------------------------------------------------
+
+def text_checkpoint(task, tmp: Path, dev) -> tuple:
+    """A seeded random-init checkpoint of a text2img task (UNet, first
+    stage, BERT tower) and a token-id file (the stub tokenizer's ids of
+    ``TEXT_PROMPT`` at bert-base-uncased's vocabulary, whose WordPiece
+    file is not in the repository) -> (ckpt, the CLI's conditioning
+    arguments)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    ckpt = str(tmp / f"{task.name}_random.ckpt")
+    make_ldm_checkpoint(ckpt, task, dev)
+    print(f"   random-init {task.name} checkpoint (UNet, "
+          f"{'VQ-f4' if task.vae.vq else 'KL-f8'} decoder, BERT "
+          f"{task.bert.dim} x {task.bert.depth}) "
+          f"{os.path.getsize(ckpt) / 2 ** 30:.2f} GiB: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    from tfmq_dm_tpu_torch.models import bert_text
+    ids = str(tmp / "token_ids.npy")
+    np.save(ids, bert_text.stub_tokenize([TEXT_PROMPT], task.bert).numpy())
+    return ckpt, ["--token_ids", ids]
+
+
+def check_text_runs(name: str, runs: dict, walk: dict, a: str,
+                    b: str) -> float:
+    """Run ``a``'s launches equal to the walk and its latents within
+    ``MIN_LATENT_PSNR_DB`` of run ``b``'s (the plain versions')."""
+    got = {k: runs[a]["launches"][k] for k in walk}
+    p = latent_psnr(runs[a]["lat"], runs[b]["lat"])
+    print(f"   {name} {a}: launches {got}, the walk {walk}; latents "
+          f"kernels vs plain versions {p:.2f} dB (gate "
+          f"{MIN_LATENT_PSNR_DB:g})", flush=True)
+    if got != walk:
+        raise AssertionError(f"{name} {a}: launches {got}, the walk of "
+                             f"the layers {walk}")
+    if not p >= MIN_LATENT_PSNR_DB:
+        raise AssertionError(f"{name} {a}: latent PSNR kernels vs plain "
+                             f"{p:.2f} dB < {MIN_LATENT_PSNR_DB}")
+    return p
+
+
+def drive_text_path(dev, tmp: Path, measured: dict,
+                    steps: int = TEXT_STEPS) -> dict:
+    """The BERT-conditioned LDM text2img tasks at full width, 1 image x
+    CFG at 5.0, DDIM cut to ``steps`` steps, token ids in place of
+    prompts. txt2img_1p4b (KL-f8, BERT 1280 x 32): a seeded random-init
+    checkpoint, an init-only artifact (DDIM harvest with CFG, flash fp
+    counted; minmax grids, FSC init pass), then ``cli.main --token_ids``
+    with the int4 and flash int8 kernels, with the plain versions and in
+    FP, decoded to 256 x 256; launches held against a walk of the layers;
+    one deployed forward kernels vs plain; the device profile of a
+    deployed sample. text2img_256 (VQ-f4, BERT 640 x 32): ``cli.main
+    --ptq --cali`` at full width, cut as phase sd's, held as phase ldm's,
+    and that artifact sampled with the kernels and the plain versions.
+    Each task's kernel times per forward from the kernels phase."""
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.models import ldm_unet, ldm_units
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.pipelines.loading import load_ldm_checkpoint
+    from tfmq_dm_tpu_torch.quant.calibrate import cali_model
+
+    n = TEXT_N
+    out = {}
+    quant = ["--use_aq", "--int-kernels", "--int4-serving"]
+
+    # txt2img_1p4b: init-only artifact, kernels / plain / FP, forward,
+    # profile
+    task = get_task("txt2img_1p4b")
+    ttmp = tmp / "text" / task.name
+    ttmp.mkdir(parents=True)
+    ckpt, cond_argv = text_checkpoint(task, ttmp, dev)
+    res = task.unet.image_size
+    img_res = res * 2 ** (len(task.vae.ch_mult) - 1)
+    walk = cond_walk(task, steps)
+    t0 = time.perf_counter()
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    ctx, uc = cli.conditioning(cli.build_argparser().parse_args(
+        ["--task", task.name] + cond_argv), task, cond, n, dev)
+    reset_all_counts()
+    _, a_cali, cali_t = ptq.generate_cali_data(
+        task, lambda x, t, c: ldm_unet.apply(params, task.unet, x, t,
+                                             context=c),
+        torch.Generator().manual_seed(1), n_per_t=n, context=ctx,
+        uncond=uc, steps=steps, device=dev)
+    sync(dev)
+    harvest = all_counts()
+    if harvest["flash_fp"] != walk["flash_int8"]:
+        raise AssertionError(f"{task.name} harvest: flash_fp launched "
+                             f"{harvest['flash_fp']} times, the walk "
+                             f"{walk['flash_int8']}")
+    adapter = ldm_units.build_adapter(task.unet, w_bits=4, a_bits=8,
+                                      use_aq=True)
+    art = str(ttmp / "cali_init.npz")
+    cali_model(adapter, params, None, a_cali, hp=None, use_aq=True,
+               running_stat=False, generator=torch.Generator().manual_seed(2),
+               path=art, w_scaler="minmax", act_scaler="minmax",
+               init_samples=2 * n,
+               meta={"task": task.name, "wq": 4, "aq": 8,
+                     "softmax_a_bit": 8, "use_aq": True,
+                     "cali_t": [float(v) for v in cali_t]})
+    sync(dev)
+    print(f"   {task.name} init-only artifact (DDIM harvest {steps} steps x "
+          f"{n} x CFG {task.cfg_scale:g}; minmax grids, FSC init pass): "
+          f"{time.perf_counter() - t0:.2f} s; harvest launches {harvest}",
+          flush=True)
+    del params, cond, a_cali, ctx, uc
+    torch.cuda.empty_cache()
+
+    common = ["--task", task.name, "--ckpt", ckpt, *cond_argv, "-n", str(n),
+              "--batch", str(n), "--seed", str(SEED), "--device", dev.type,
+              "--timesteps", str(steps)]
+    img_shape = (n, img_res, img_res, 3)
+    runs = {}
+    for name, argv, plain in (
+            ("deployed", ["--ptq", "--cali_ckpt", art] + quant, False),
+            ("plain", ["--ptq", "--cali_ckpt", art] + quant, True),
+            ("fp", [], False)):
+        runs[name] = cli_sample(ttmp, name, common + argv, img_shape, dev,
+                                plain)
+    if runs["fp"]["launches"]["flash_fp"] != walk["flash_int8"]:
+        raise AssertionError(f"{task.name} fp: flash_fp launched "
+                             f"{runs['fp']['launches']['flash_fp']} times")
+    rec = {"walk": walk,
+           "psnr_latents_kernel_vs_plain": check_text_runs(
+               task.name, runs, walk, "deployed", "plain"),
+           "psnr_images_kernel_vs_plain": psnr(runs["deployed"]["img"],
+                                               runs["plain"]["img"]),
+           "psnr_latents_quant_vs_fp": latent_psnr(runs["deployed"]["lat"],
+                                                   runs["fp"]["lat"])}
+    print(f"   {task.name} quantized vs FP latents (information) "
+          f"{rec['psnr_latents_quant_vs_fp']:.2f} dB; decoded images "
+          f"kernels vs plain {rec['psnr_images_kernel_vs_plain']:.2f} dB",
+          flush=True)
+    args = cli.build_argparser().parse_args(
+        common + ["--ptq", "--cali_ckpt", art] + quant + ["--out", "-"])
+    params, _, cond = load_ldm_checkpoint(ckpt, task, device=dev)
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=PROFILE_STEPS)
+    fn = cli.build_ldm_model_fn(args, task, params, cond, sample_t, dev)
+    x = torch.randn((n, res, res, task.unet.in_channels),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    rec["forward"] = forward_check(fn, x, int(sample_t[0]), dev)
+    rec["profile"] = profile_device(
+        lambda: sampler_fn(fn, x), f"{task.name} {PROFILE_STEPS}-step "
+        f"deployed sample (batch {n} x CFG, no decode)", top=10)
+    del params, cond, fn
+    torch.cuda.empty_cache()
+    rec["runs"] = {k: {"s": v["s"], "launches": v["launches"]}
+                   for k, v in runs.items()}
+    print(f"   {task.name} per forward (1 x CFG; the kernels phase's "
+          f"times): " + per_forward_line(measured, task.name), flush=True)
+    out[task.name] = rec
+    shutil.rmtree(ttmp, ignore_errors=True)
+
+    # text2img_256: the CLI's calibration at full width, its artifact
+    # sampled with the kernels and the plain versions
+    task = get_task("text2img_256")
+    ttmp = tmp / "text" / task.name
+    ttmp.mkdir(parents=True)
+    ckpt, cond_argv = text_checkpoint(task, ttmp, dev)
+    res = task.unet.image_size
+    img_res = res * 2 ** (len(task.vae.ch_mult) - 1)
+    walk = cond_walk(task, steps)
+    sites = sum(flash_sites(task.unet).values())
+    recon = calibrate_ldm(task, ckpt, ttmp, dev, cond_argv, TEXT_CALI_STEPS,
+                          TEXT_CALI_N, TEXT_CALI_ITERS,
+                          sites * TEXT_CALI_STEPS, TEXT_UNITS)
+    common = ["--task", task.name, "--ckpt", ckpt, *cond_argv, "-n", str(n),
+              "--batch", str(n), "--seed", str(SEED), "--device", dev.type,
+              "--timesteps", str(steps), "--ptq", "--cali_ckpt",
+              recon["art"]] + quant
+    runs = {name: cli_sample(ttmp, name, common, (n, img_res, img_res, 3),
+                             dev, plain)
+            for name, plain in (("recon", False), ("recon_plain", True))}
+    out[task.name] = {
+        "walk": walk,
+        "psnr_latents_recon_kernel_vs_plain": check_text_runs(
+            task.name, runs, walk, "recon", "recon_plain"),
+        "calibration": {k: v for k, v in recon.items() if k != "art"},
+        "runs": {k: {"s": v["s"], "launches": v["launches"]}
+                 for k, v in runs.items()}}
+    print(f"   {task.name} per forward (1 x CFG; the kernels phase's "
+          f"times): " + per_forward_line(measured, task.name), flush=True)
+    shutil.rmtree(ttmp, ignore_errors=True)
     return out
 
 
@@ -3165,7 +3423,13 @@ def run() -> None:
                       for name in UNCOND_TASKS}
         uncond_convs = sorted({(UNCOND_N, *key) for convs_, _ in
                                uncond_geo.values() for key in convs_})
-        for (b, r, k, ci, co) in conv_shapes + uncond_convs:
+        # phase text's paths: batch 1 x CFG
+        text_geo = {name: (cin_conv_counts(get_task(name).unet),
+                           linear_counts(get_task(name).unet))
+                    for name in TEXT_TASKS}
+        text_convs = sorted({(2 * TEXT_N, *key) for convs_, _ in
+                             text_geo.values() for key in convs_})
+        for (b, r, k, ci, co) in conv_shapes + uncond_convs + text_convs:
             case = conv_case(g, b, r, k, ci, co, dev)
             got = K.int4_conv2d(*case)
             check_close(f"int4_conv2d b{b} {r}x{r} {k}x{k} {ci}->{co}", got,
@@ -3182,7 +3446,9 @@ def run() -> None:
                        for (m, k, n) in sorted(sd_linears)]
         uncond_lins = sorted({(UNCOND_N * m, k, n) for _, lins in
                               uncond_geo.values() for (m, k, n) in lins})
-        for (m, k, n) in lin_shapes + uncond_lins:
+        text_lins = sorted({(2 * TEXT_N * m, k, n) for _, lins in
+                            text_geo.values() for (m, k, n) in lins})
+        for (m, k, n) in lin_shapes + uncond_lins + text_lins:
             case = linear_case(g, m, k, n, dev)
             got = K.int4_linear(*case)
             check_close(f"int4_linear M{m} {k}->{n}", got,
@@ -3207,7 +3473,9 @@ def run() -> None:
                   cin_conv_counts(get_task("cin256_v2").unet)),
                  ("sd", 2 * SD_N, sd_convs)]
                 + [(name, UNCOND_N, uncond_geo[name][0])
-                   for name in UNCOND_TASKS]))}
+                   for name in UNCOND_TASKS]
+                + [(name, 2 * TEXT_N, text_geo[name][0])
+                   for name in TEXT_TASKS]))}
         for b, r, ci in ((64, 16, 256), (64, 32, 128), (BATCH, 32, 128),
                          (2 * CIN_N, 64, 192), (2 * CIN_N, 32, 384)):
             measured[("conv", b, r, ci)] = t = time_conv(
@@ -3224,11 +3492,12 @@ def run() -> None:
         measured["sd_linears"], measured["sd_linear_per_forward"] = \
             time_linear_geometries(g, dev, peaks, "sd", 2 * SD_N,
                                    sd_linears)
-        for name in UNCOND_TASKS:
+        for name, batch, lins in (
+                [(t, UNCOND_N, uncond_geo[t][1]) for t in UNCOND_TASKS]
+                + [(t, 2 * TEXT_N, text_geo[t][1]) for t in TEXT_TASKS]):
             measured[f"{name} linears"], \
                 measured[f"{name} linear_per_forward"] = \
-                time_linear_geometries(g, dev, peaks, name, UNCOND_N,
-                                       uncond_geo[name][1])
+                time_linear_geometries(g, dev, peaks, name, batch, lins)
         measured.update(time_flash(g, dev, peaks))
         sd_sites = flash_sites(sd_unet)
         for name, head in (("flash_int8", "8-bit p"), ("flash_fp", "f32")):
@@ -3242,13 +3511,13 @@ def run() -> None:
                   "length): " + ", ".join(f"{k} {v:.4f}"
                                           for k, v in per.items()),
                   flush=True)
-            measured[name]["uncond_per_forward"] = {}
-            for task_name, label in UNCOND_FLASH.items():
+            measured[name]["path_per_forward"] = {}
+            for task_name, label in PATH_FLASH.items():
                 sites = sum(flash_sites(get_task(task_name).unet).values())
                 tm = measured[name]["grids"][f"{label} {head}"]
                 per = {key: sites * tm[key] for key in
                        ("ms", "plain_ms", "library_ms", "bound_ms")}
-                measured[name]["uncond_per_forward"][task_name] = per
+                measured[name]["path_per_forward"][task_name] = per
                 print(f"   {name} {task_name} per forward ({sites} launches "
                       f"at {label}): " + ", ".join(
                           f"{k} {v:.4f}" for k, v in per.items()),
@@ -3280,6 +3549,8 @@ def run() -> None:
             dep = drive_deploy_path(dev, main_path, ldm, peaks)
         with phase("uncond"):
             unc = drive_uncond_path(dev, tmp, measured)
+        with phase("text"):
+            text = drive_text_path(dev, tmp, measured)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
@@ -3291,8 +3562,17 @@ def run() -> None:
         "sd": (sd["runs"]["deployed"]["launches"]["int4_conv2d"],
                sd["forwards"]),
         **{name: (unc[name]["runs"]["deployed"]["launches"]["int4_conv2d"],
-                  UNCOND_STEPS) for name in UNCOND_TASKS}})
+                  UNCOND_STEPS) for name in UNCOND_TASKS},
+        "txt2img_1p4b": (text["txt2img_1p4b"]["runs"]["deployed"]["launches"]
+                         ["int4_conv2d"], TEXT_STEPS),
+        "text2img_256": (text["text2img_256"]["runs"]["recon"]["launches"]
+                         ["int4_conv2d"], TEXT_STEPS)})
     sd_runs = sd["runs"]
+
+    def launches_text(kern):
+        return {t: {r: v["launches"][kern] for r, v in text[t]["runs"]
+                    .items()} for t in TEXT_TASKS}
+
     tc = measured[("conv", BATCH, 32, 128)]
     tl = measured[("linear", BATCH, 512, 256)]
     fqk = measured["flash_fqk"]
@@ -3317,6 +3597,7 @@ def run() -> None:
          "launches_uncond": {
              name: unc[name]["runs"]["deployed"]["launches"]["int4_conv2d"]
              for name in UNCOND_TASKS},
+         "launches_text": launches_text("int4_conv2d"),
          "max_abs_err": max(errs["int4_conv2d"]), **tc,
          "cin256": measured[("conv", 2 * CIN_N, 64, 192)],
          "geometries": measured["conv_geometries"]},
@@ -3336,6 +3617,10 @@ def run() -> None:
          "uncond_per_forward": {
              name: measured[f"{name} linear_per_forward"]
              for name in UNCOND_TASKS},
+         "launches_text": launches_text("int4_linear"),
+         "text_per_forward": {
+             name: measured[f"{name} linear_per_forward"]
+             for name in TEXT_TASKS},
          "max_abs_err": max(errs["int4_linear"]), **tl,
          "cin256": measured[("linear", 2 * CIN_N * 1024, 384, 3072)],
          "shapes": [{"shape": list(key[1:]), **v}
@@ -3352,6 +3637,7 @@ def run() -> None:
          "launches_uncond": {
              t: unc[t]["runs"][run_name]["launches"][name]
              for t in UNCOND_FLASH if run_name in unc[t]["runs"]} or None,
+         "launches_text": launches_text(name),
          "max_abs_err": max(errs[name]), **measured[name]}
         for name, where, mode, run_name, what in flash_rows] + [
         {"name": "int8_matmul_pre", "route": "cuda",
@@ -3449,6 +3735,9 @@ def run() -> None:
     print(json.dumps({"uncond": {
         name: {**rec, "steps": UNCOND_STEPS, "images": UNCOND_N}
         for name, rec in unc.items()}}), flush=True)
+    print(json.dumps({"text": {
+        name: {**rec, "steps": TEXT_STEPS, "images": TEXT_N}
+        for name, rec in text.items()}}), flush=True)
     print(json.dumps({"deploy": {
         k: {f: x for f, x in v.items() if f != "gemm_shapes"}
         for k, v in dep.items()}}), flush=True)

@@ -1,6 +1,7 @@
 """The port's calibrate-then-exit CLI on the class-conditional LDM family
 against the JAX CLI's, on the CPU, at ``tiny_cin``; the quality gate's
-twin on ``tiny_cin``; the JAX script's exported noise draws.
+twin on ``tiny_cin``, ``tiny_sd`` and ``tiny_bert``; the JAX script's
+exported noise draws.
 
 - ``cli.main --task tiny_cin --ptq --cali --use_aq`` on both packages,
   from one Lightning checkpoint and one harvest (the port's CFG harvest
@@ -12,8 +13,9 @@ twin on ``tiny_cin``; the JAX script's exported noise draws.
   tests/test_torch_ldm_recon.py's), the JAX CLI's meta plus the port's
   reconstruction and FSC records; the port then samples from its
   artifact with the int4-serving deployment.
-- The twin of scripts/quality_gate.py end to end on tiny_cin, and with
-  ``--noise-npz``.
+- The twin of scripts/quality_gate.py end to end on tiny_cin (class
+  table), tiny_sd (CLIP tower, PLMS) and tiny_bert (BERT tower, DDIM), and
+  on tiny_cin with ``--noise-npz``.
 - ``tfmq_dm_tpu_torch/scripts/jax_noise_cifar10.npz`` holds the noise
   that scripts/quality_gate.py draws for the cifar10 row at its default
   key (the harvest's starting noise, quality_gate.py:178 through
@@ -273,16 +275,20 @@ def test_cli_samples_from_its_ldm_artifact(setup, cli_runs, tmp_path):
     assert img.min() >= 0 and img.max() <= 1
 
 
-def test_quality_gate_twin_runs_on_tiny_cin(tmp_path):
+@pytest.mark.parametrize("task", ["tiny_cin", "tiny_sd", "tiny_bert"])
+def test_quality_gate_twin_runs(tmp_path, task):
     """The twin on the LDM family: seeded random-init weights, a random
-    class table, CFG harvest and rollouts; every unit in the guard's
-    record and finite numbers; no kernel launches on the CPU."""
+    class table (tiny_cin) or a random-init text tower (tiny_sd: CLIP,
+    PLMS; tiny_bert: BERT, DDIM), CFG harvest and rollouts; every unit
+    in the guard's record and finite numbers; no kernel launches on the
+    CPU."""
     from tfmq_dm_tpu_torch.scripts import quality_gate
     out = tmp_path / "gate.json"
-    assert quality_gate.main(["tiny_cin", "--iters", "2", "--n-cali", "4",
+    assert quality_gate.main([task, "--iters", "2", "--n-cali", "4",
                               "--batch", "2", "--device", "cpu", "--json",
                               str(out)]) == 0
     r = json.loads(out.read_text())
+    assert r["task"] == task
     for k in ("unet_sqnr_db_mean", "unet_sqnr_db_min", "sample_psnr_db",
               "traj_sqnr_db", "calibration_s"):
         assert np.isfinite(r[k]), k
@@ -294,8 +300,7 @@ def test_quality_gate_twin_runs_on_tiny_cin(tmp_path):
                                          "flash_int8"}
     assert not any(r["kernel_launches"].values())
     with pytest.raises(SystemExit):
-        quality_gate.main(["tiny_cin", "--ckpt", "x.npz", "--device",
-                           "cpu"])
+        quality_gate.main([task, "--ckpt", "x.npz", "--device", "cpu"])
 
 
 def test_quality_gate_twin_takes_noise_npz(tmp_path):

@@ -2,9 +2,10 @@
 ddim family (``cifar10``, ``ddim_celeba64``, ``ddim_lsun_bedroom``,
 ``ddim_lsun_church``), the unconditional LDMs (``celeba256``,
 ``ffhq256``, ``lsun_beds256``, ``lsun_churches256``), the
-class-conditional LDM (``cin256_v2``) and Stable Diffusion v1.4
-(``sd_v1_4``), with their CPU miniatures ``tiny_ddim``, ``tiny_ldm``,
-``tiny_cin`` and ``tiny_sd``.
+class-conditional LDM (``cin256_v2``), Stable Diffusion v1.4
+(``sd_v1_4``) and the BERT-conditioned LDM text2img models
+(``text2img_256``, ``txt2img_1p4b``), with their CPU miniatures
+``tiny_ddim``, ``tiny_ldm``, ``tiny_cin``, ``tiny_sd`` and ``tiny_bert``.
 
 Calibrate, then exit (the reference's ``--cali``): harvest ``--cali_n``
 samples per sampler step (class-conditional tasks with classifier-free
@@ -40,6 +41,11 @@ artifact (either package's):
       --ptq --cali_ckpt cali.npz --use_aq --int-kernels --int4-serving \\
       --token_ids prompts.npy -n 1 --batch 1 --out /tmp/sd
 
+  python -m tfmq_dm_tpu_torch.cli --task txt2img_1p4b \\
+      --ckpt txt2img-f8-large.ckpt --ptq --cali_ckpt cali.npz --use_aq \\
+      --int-kernels --int4-serving --token_ids prompts.npy -n 1 \\
+      --batch 1 --out /tmp/ldm_txt
+
   python -m tfmq_dm_tpu_torch.cli --task ddim_lsun_church \\
       --ckpt ema_lsun_church --ptq --cali_ckpt cali.npz --use_aq \\
       --int-kernels --int4-serving -n 8 --batch 8 --out /tmp/church
@@ -64,10 +70,11 @@ context (``--no-kv-cache`` recomputes them every step, as the reference
 does). Class-conditional tasks take ``--classes``; text-conditioned ones
 take ``--prompt`` or ``--from-file`` (one prompt a line), tokenized by
 the stub tokenizer at a miniature's vocabulary, or ``--token_ids``: an
-``.npy`` of token ids, (rows, 77) at CLIP's vocabulary, whose BPE files
-are not in this repository, so that prompt text is refused there. The
-rows, prompts or classes repeat to fill a batch; the unconditional row is
-the empty prompt's tokens, or the class table's last row.
+``.npy`` of token ids, (rows, 77) at CLIP's or BERT's vocabulary, whose
+tokenizer files (CLIP's BPE, bert-base-uncased's WordPiece) are not in
+this repository, so that prompt text is refused there. The rows, prompts
+or classes repeat to fill a batch; the unconditional row is the empty
+prompt's tokens, or the class table's last row.
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Images in [0, 1], NHWC float32, are written to
 ``<out>/samples.npy``; LDM tasks also write the sampled latents to
@@ -86,10 +93,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .configs.tasks import TASKS, get_task, task_betas
+from .configs.tasks import TASKS, get_task, task_betas, text_encoder
 from .convert import load_params
 from .data.prompts import prompts_from_file
-from .models import clip_text, ddim_unet, ddim_units, ldm_unet, ldm_units
+from .models import (bert_text, clip_text, ddim_unet, ddim_units, ldm_unet,
+                     ldm_units)
 from .ops.nn import exact_f32
 from .pipelines import ptq
 from .pipelines import ckpt_util
@@ -188,8 +196,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--token_ids", default=None,
                    help="an .npy of token ids (rows, max_len) for a "
                         "text-conditioned task, in place of prompts (at "
-                        "CLIP's vocabulary, whose BPE files are not in "
-                        "this repository)")
+                        "CLIP's or BERT's vocabulary, whose tokenizer "
+                        "files are not in this repository)")
     p.add_argument("-n", "--num_images", type=int, default=64)
     p.add_argument("--batch", type=int, default=16)
     p.add_argument("--device", default="cuda")
@@ -287,17 +295,22 @@ def load_token_ids(path: str, ccfg) -> np.ndarray:
     return ids
 
 
-def text_token_ids(args, ccfg, n: int) -> torch.Tensor:
-    """(n, max_len) token ids of the prompts (cli.py:148-186): from
-    ``--token_ids``, or ``--prompt`` / ``--from-file`` through the stub
-    tokenizer at a miniature's vocabulary; prompt text at CLIP's
-    vocabulary is refused (its BPE files are not in this repository)."""
+def text_token_ids(args, ecfg, n: int) -> torch.Tensor:
+    """(n, max_len) token ids of the prompts for the text encoder of
+    config ``ecfg`` (CLIP's or BERT's; cli.py:148-186): from
+    ``--token_ids``, checked against its vocabulary, or ``--prompt`` /
+    ``--from-file`` through the stub tokenizer at a miniature's
+    vocabulary; prompt text at the published vocabulary (CLIP's,
+    bert-base-uncased's) is refused, since the tokenizer files are not in
+    this repository."""
+    enc = bert_text if isinstance(ecfg, bert_text.BERTTextConfig) \
+        else clip_text
     if args.token_ids:
         if args.prompt or args.from_file:
             raise SystemExit("give --token_ids or --prompt/--from-file, "
                              "not both")
         return torch.from_numpy(np.stack(_repeat_to(
-            list(load_token_ids(args.token_ids, ccfg)), n)).astype(np.int64))
+            list(load_token_ids(args.token_ids, ecfg)), n)).astype(np.int64))
     if args.from_file:
         prompts = prompts_from_file(args.from_file)
     elif args.prompt:
@@ -305,20 +318,25 @@ def text_token_ids(args, ccfg, n: int) -> torch.Tensor:
     else:
         raise SystemExit("a text-conditioned task needs --prompt, "
                          "--from-file or --token_ids")
-    if ccfg.vocab_size == clip_text.vit_l_14_config().vocab_size:
-        raise SystemExit(clip_text.BPE_FILES_MISSING)
-    return clip_text.stub_tokenize(_repeat_to(prompts, n), ccfg)
+    prompts = _repeat_to(prompts, n)
+    # a config's defaults are the published encoder's
+    if ecfg.vocab_size == type(ecfg)().vocab_size:
+        try:
+            return enc.tokenize(prompts, max_length=ecfg.max_len)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from e
+    return enc.stub_tokenize(prompts, ecfg)
 
 
 def text_context(args, task, cond_params, n: int, device):
-    """(context, uncond) (n, max_len, width): the CLIP text encoder's
-    last hidden state of the prompts' token ids and of the empty
-    prompt's."""
-    ccfg = task.clip
-    ids = text_token_ids(args, ccfg, n).to(device)
-    uids = clip_text.empty_prompt_ids(n, ccfg).to(device)
-    return (clip_text.apply(cond_params, ccfg, ids),
-            clip_text.apply(cond_params, ccfg, uids))
+    """(context, uncond) (n, max_len, width): the task's text encoder
+    (CLIP's last hidden state, or BERT's embeddings) of the prompts'
+    token ids and of the empty prompt's."""
+    enc, ecfg = text_encoder(task)
+    ids = text_token_ids(args, ecfg, n).to(device)
+    uids = enc.empty_prompt_ids(n, ecfg).to(device)
+    return (enc.apply(cond_params, ecfg, ids),
+            enc.apply(cond_params, ecfg, uids))
 
 
 def conditioning(args, task, cond_params, n: int, device):
@@ -360,10 +378,14 @@ def load_ldm(args, task, device):
     params, vae_params, cond_params = load_ldm_checkpoint(
         args.ckpt, task, device=device)
     if cond_params is None and task.cond != "none":
-        key = "cond_stage_model.transformer.*" if task.cond == "text" \
-            else "cond_stage_model.embedding"
-        raise SystemExit(f"{args.ckpt}: no {key} (the task's "
-                         f"{task.cond} conditioning)")
+        if task.cond == "text":
+            key = "cond_stage_model.transformer.*"
+            what = ("BERT" if task.bert is not None else "CLIP") + \
+                " text encoder"
+        else:
+            key, what = "cond_stage_model.embedding.weight", \
+                "class embedding"
+        raise SystemExit(f"{args.ckpt}: no {key} (the task's {what})")
     return params, vae_params, cond_params
 
 

@@ -2,7 +2,8 @@
 ``tfmq_dm_tpu/configs/tasks.py``): one typed config per model/dataset,
 values transcribed from ddim/configs/{cifar10,celeba,church,bedroom}.yml,
 models/ldm/{celeba256,ffhq256,lsun_beds256,lsun_churches256}/config.yaml,
-configs/latent-diffusion/cin256-v2.yaml and
+configs/latent-diffusion/{cin256-v2,txt2img-1p4B-eval}.yaml,
+models/ldm/text2img256/config.yaml and
 configs/stable-diffusion/v1-inference.yaml with the reference's sampler
 settings (README.md:86-125)."""
 
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from ..models import clip_text, ddim_unet, ldm_unet, vae as vae_mod
+from ..models import bert_text, clip_text, ddim_unet, ldm_unet, vae as vae_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,8 +38,10 @@ class TaskConfig:
     interval_length: int = 1       # weight-phase timestep subsampling
     recon_batch: int = 32
     use_ema: bool = True
-    # CLIP text-encoder config of a cond == "text" task
+    # the text encoder of a cond == "text" task: CLIP (SD v1.x) or, for
+    # the LDM text2img family, BERT (BERTEmbedder, modules.py:80-103)
     clip: object = None
+    bert: object = None
 
 
 def cifar10() -> TaskConfig:
@@ -149,6 +152,47 @@ def cin256_v2() -> TaskConfig:
         cali_n=512, interval_length=1, recon_batch=8, use_ema=False)
 
 
+def text2img_256() -> TaskConfig:
+    """LDM text2img 256 x 256 (models/ldm/text2img256/config.yaml,
+    tasks.py:152-171): VQ-f4 latents (64 x 64), a SpatialTransformer UNet
+    with context_dim 640, the BERT encoder 640 x 32; the LDM repo's
+    txt2img recipe (50 DDIM steps, CFG 5.0)."""
+    unet = ldm_unet.LDMUNetConfig(
+        image_size=64, in_channels=3, model_channels=192, out_channels=3,
+        attention_resolutions=(8, 4, 2), channel_mult=(1, 2, 3, 5),
+        num_head_channels=32, use_spatial_transformer=True,
+        transformer_depth=1, context_dim=640)
+    return TaskConfig(
+        name="text2img_256", family="ldm", unet=unet, vae=_LDM_VQ4_VAE,
+        cond="text", beta_start=0.0015, beta_end=0.0195,
+        sampler="ddim", steps=50, eta=0.0, cfg_scale=5.0, cali_n=256,
+        interval_length=1, recon_batch=8, use_ema=False,
+        bert=bert_text.text2img_256_config())
+
+
+def txt2img_1p4b() -> TaskConfig:
+    """LDM-KL-8 text2img 1.4B (configs/latent-diffusion/
+    txt2img-1p4B-eval.yaml, tasks.py:174-194): KL-f8 latents (32 x 32,
+    256 x 256 images; scale_factor 0.18215), an SD-shaped UNet with
+    context_dim 1280, the BERT encoder 1280 x 32."""
+    unet = ldm_unet.LDMUNetConfig(
+        image_size=32, in_channels=4, model_channels=320, out_channels=4,
+        attention_resolutions=(4, 2, 1), channel_mult=(1, 2, 4, 4),
+        num_heads=8, use_spatial_transformer=True, transformer_depth=1,
+        context_dim=1280, legacy=False)
+    kl_f8 = vae_mod.VAEConfig(
+        ch=128, out_ch=3, in_channels=3, z_channels=4,
+        ch_mult=(1, 2, 4, 4), num_res_blocks=2, attn_resolutions=(),
+        resolution=256, double_z=True, embed_dim=4, vq=False,
+        scale_factor=0.18215)
+    return TaskConfig(
+        name="txt2img_1p4b", family="ldm", unet=unet, vae=kl_f8,
+        cond="text", beta_schedule="linear", beta_start=0.00085,
+        beta_end=0.012, sampler="ddim", steps=50, eta=0.0,
+        cfg_scale=5.0, cali_n=256, interval_length=1, recon_batch=8,
+        use_ema=False, bert=bert_text.txt2img_1p4b_config())
+
+
 def sd_v1_4() -> TaskConfig:
     """Stable Diffusion v1.4 (tasks.py:196-203). Sampled at 512 x 512, the
     reference's txt2img.py default (--H 512 --W 512, f 8): 64 x 64
@@ -178,6 +222,19 @@ def tiny_sd() -> TaskConfig:
         use_ema=False, clip=clip_text.tiny_clip_config())
 
 
+def tiny_bert() -> TaskConfig:
+    """A CPU-runnable miniature of the BERT-conditioned LDM text2img
+    pipeline (tasks.py:235-245): tiny BERT encoder (stub tokenizer), DDIM
+    with CFG, FSC."""
+    return TaskConfig(
+        name="tiny_bert", family="ldm",
+        unet=ldm_unet.tiny_sd_config(context_dim=32),
+        vae=vae_mod.tiny_vae_config(), cond="text", beta_start=0.0015,
+        beta_end=0.0195, sampler="ddim", steps=4, cfg_scale=5.0,
+        num_timesteps=100, cali_n=2, interval_length=1, recon_batch=4,
+        use_ema=False, bert=bert_text.tiny_bert_config())
+
+
 def tiny_ldm() -> TaskConfig:
     """A CPU-runnable unconditional miniature of the LDM family
     (tasks.py:214-219)."""
@@ -199,17 +256,28 @@ def tiny_cin() -> TaskConfig:
 
 
 TASKS = {"cifar10": cifar10, "tiny_ddim": tiny_ddim, "tiny_ldm": tiny_ldm,
-         "tiny_sd": tiny_sd, "tiny_cin": tiny_cin,
+         "tiny_sd": tiny_sd, "tiny_bert": tiny_bert, "tiny_cin": tiny_cin,
          "ddim_celeba64": ddim_celeba64,
          "ddim_lsun_bedroom": ddim_lsun_bedroom,
          "ddim_lsun_church": ddim_lsun_church, "celeba256": celeba256,
          "ffhq256": ffhq256, "lsun_beds256": lsun_beds256,
          "lsun_churches256": lsun_churches256, "cin256_v2": cin256_v2,
+         "text2img_256": text2img_256, "txt2img_1p4b": txt2img_1p4b,
          "sd_v1_4": sd_v1_4}
 
 
 def get_task(name: str) -> TaskConfig:
     return TASKS[name]()
+
+
+def text_encoder(task: TaskConfig):
+    """(module, config) of a text-conditioned task's encoder: ``bert_text``
+    where the task names a BERT config, else ``clip_text``. The two
+    modules share ``iter_layers``, ``init_params``, ``apply``,
+    ``stub_tokenize``, ``empty_prompt_ids`` and ``tokenize``."""
+    if task.bert is not None:
+        return bert_text, task.bert
+    return clip_text, task.clip
 
 
 def task_betas(task: TaskConfig):

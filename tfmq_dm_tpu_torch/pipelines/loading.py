@@ -30,8 +30,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..configs.tasks import TaskConfig
-from ..models import clip_text, ddim_unet, ldm_unet, vae as vae_mod
+from ..configs.tasks import TaskConfig, text_encoder
+from ..models import ddim_unet, ldm_unet, vae as vae_mod
 from ..utils.torch_convert import convert_state_dict
 
 logger = logging.getLogger(__name__)
@@ -127,10 +127,11 @@ def load_ldm_checkpoint(path: str, task: TaskConfig,
     """-> (unet_params, vae_params, cond_params or None), tensors on
     ``device``. The first stage's decoder side only (the port decodes).
     ``cond_params``: the class embedding table ``{"embedding": tensor}``
-    of a class-conditional task, or the CLIP text tower's parameters
-    (``cond_stage_model.transformer.*``, loading.py:99-111) of a
-    text-conditioned one; None for an unconditional task and when the
-    checkpoint has neither."""
+    of a class-conditional task, or the text tower's parameters
+    (``cond_stage_model.transformer.*``: BERT's x-transformers names where
+    the task has a BERT encoder, else CLIP's HF names; loading.py:97-111)
+    of a text-conditioned one; None for an unconditional task and when
+    the checkpoint has neither."""
     full = load_checkpoint(path)
     sd = full.get("state_dict", full)
     unet_sd = _strip_prefix(sd, "model.diffusion_model.")
@@ -150,6 +151,7 @@ def load_ldm_checkpoint(path: str, task: TaskConfig,
     elif task.cond == "text":
         cond_sd = _strip_prefix(sd, "cond_stage_model.transformer.")
         if cond_sd:
+            enc, ecfg = text_encoder(task)
             cond_params = convert_state_dict(
-                cond_sd, clip_text.iter_layers(task.clip), device)
+                cond_sd, enc.iter_layers(ecfg), device)
     return unet_params, vae_params, cond_params

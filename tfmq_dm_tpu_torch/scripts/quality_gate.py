@@ -9,14 +9,20 @@ pipeline, on identical noise:
   rollout.
 
 The ddim family samples trained weights (``--ckpt``, default
-runs/cifar10_ddpm.npz for cifar10). An LDM task (cin256_v2, tiny_cin)
-takes seeded random-init weights and a random class-embedding table, as
-the JAX script does (scripts/quality_gate.py:48-60, 153), and samples
-with classifier-free guidance at the task's scale: the harvest and both
-rollouts are double-batched [unconditional; conditional], classes
-0, 1, ... a row. ``--noise-npz`` gives the harvest's starting noise
-("harvest", n-cali rows) and the rollouts' ("rollout", batch rows) in
-place of the script's own draws, e.g. the JAX script's
+runs/cifar10_ddpm.npz for cifar10). An LDM task takes seeded random-init
+weights, as the JAX script does (scripts/quality_gate.py:48-78, 153),
+and samples with its own sampler (DDIM, or PLMS for the SD tasks) and
+classifier-free guidance at the task's scale: the harvest and both
+rollouts are double-batched [unconditional; conditional]. A
+class-conditional task (cin256_v2, tiny_cin) takes a random
+class-embedding table, classes 0, 1, ... a row; a text-conditioned one
+(sd_v1_4, tiny_sd: CLIP; text2img_256, txt2img_1p4b, tiny_bert: BERT) a
+random-init text tower, the prompts "a synthetic scene number {i}" and
+the empty prompt through the stub tokenizer, at every vocabulary. The
+harvest and the rollouts each draw their own table or tower.
+``--noise-npz`` gives the harvest's starting noise ("harvest", n-cali
+rows) and the rollouts' ("rollout", batch rows) in place of the script's
+own draws, e.g. the JAX script's
 (``tfmq_dm_tpu_torch/scripts/jax_noise_cifar10.npz``).
 
 ``--deployment fake-quant`` samples from the fake-quant simulation
@@ -35,6 +41,8 @@ are symmetric, as in the JAX script (scripts/quality_gate.py:164-166).
         --json out.json
     python -m tfmq_dm_tpu_torch.scripts.quality_gate cin256_v2 --wq 4 \\
         --iters 5000 --n-cali 8 --json out.json
+    python -m tfmq_dm_tpu_torch.scripts.quality_gate tiny_sd --wq 4 \\
+        --iters 5000 --n-cali 64 --json out.json
 
 Runs on the card unless ``--device cpu``; the CPU takes the kernels'
 plain versions.
@@ -54,7 +62,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs.tasks import get_task
+from ..configs.tasks import get_task, text_encoder
 from ..cli import DEFAULT_CKPT, resolve_device
 from ..convert import load_params
 from ..models import clip_text, ddim_unet, ldm_unet
@@ -75,7 +83,10 @@ log = logging.getLogger("quality_gate")
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser("quality_gate")
     ap.add_argument("task", nargs="?", default="cifar10",
-                    help="cifar10, tiny_ddim, cin256_v2 or tiny_cin")
+                    help="cifar10, tiny_ddim, or a class- or "
+                         "text-conditioned LDM task (cin256_v2, tiny_cin, "
+                         "sd_v1_4, tiny_sd, text2img_256, txt2img_1p4b, "
+                         "tiny_bert)")
     ap.add_argument("--ckpt", default=None,
                     help="trained ddim_unet weights, a p::<layer>::<field> "
                          "npz (default for cifar10: runs/cifar10_ddpm.npz);"
@@ -158,15 +169,33 @@ def card() -> str:
         return "not measured"
 
 
-def class_cond(task, generator: torch.Generator, n: int, device):
-    """(context, uncond) of ``n`` rows from a random class-embedding
-    table (1001 x context_dim, N(0, 0.02^2)), classes 0, 1, ... and the
-    table's last row unconditional (scripts/quality_gate.py:48-60)."""
-    table = 0.02 * torch.randn((1001, task.unet.context_dim),
-                               generator=generator)
-    y = torch.arange(n) % 1000
-    return (clip_text.class_embed(table, y).to(device),
-            clip_text.class_embed(table, torch.full((n,), 1000)).to(device))
+def cond_setup(task, generator: torch.Generator, n: int, device):
+    """(context, uncond) of ``n`` rows for a conditioned task
+    (scripts/quality_gate.py:48-78), drawn with ``generator``: from a
+    random class-embedding table (1001 x context_dim, N(0, 0.02^2)),
+    classes 0, 1, ... and the table's last row unconditional; or from a
+    random-init text tower (CLIP or BERT, the JAX package's init scheme)
+    of the prompts "a synthetic scene number {i}" and of the empty
+    prompt, both through the stub tokenizer. (None, None) for an
+    unconditional task."""
+    if task.cond == "none":
+        return None, None
+    if task.cond == "class":
+        table = 0.02 * torch.randn((1001, task.unet.context_dim),
+                                   generator=generator)
+        y = torch.arange(n) % 1000
+        return (clip_text.class_embed(table, y).to(device),
+                clip_text.class_embed(table, torch.full((n,), 1000))
+                .to(device))
+    enc, ecfg = text_encoder(task)
+    params = enc.init_params(generator, ecfg, device="cpu")
+    params = {k: {f: v.to(device) for f, v in p.items()}
+              for k, p in params.items()}
+    prompts = [f"a synthetic scene number {i}" for i in range(n)]
+    with torch.no_grad():
+        return tuple(enc.apply(params, ecfg,
+                               enc.stub_tokenize(texts, ecfg).to(device))
+                     for texts in (prompts, [""] * n))
 
 
 def _wall(device) -> float:
@@ -216,9 +245,7 @@ def run(args) -> dict:
         recon_stats = meta.get("recon", {}).get("units", {})
     else:
         log.info("harvesting calibration data (%d a step)", args.n_cali)
-        cali_ctx = cali_uc = None
-        if ldm:
-            cali_ctx, cali_uc = class_cond(task, gen, args.n_cali, device)
+        cali_ctx, cali_uc = cond_setup(task, gen, args.n_cali, device)
         w_cali, a_cali, _ = ptq.generate_cali_data(
             task, fp_apply, gen, n_per_t=args.n_cali, steps=args.steps,
             context=cali_ctx, uncond=cali_uc,
@@ -243,9 +270,7 @@ def run(args) -> dict:
     res = cfg.image_size if ldm else cfg.resolution
     chans = cfg.in_channels
     noise = torch.Generator().manual_seed(args.seed)
-    roll_ctx = roll_uc = None
-    if ldm:
-        roll_ctx, roll_uc = class_cond(task, noise, args.batch, device)
+    roll_ctx, roll_uc = cond_setup(task, noise, args.batch, device)
     x0 = (torch.randn((args.batch, res, res, chans), generator=noise)
           if noise_in is None else noise_in["rollout"]).to(device)
     if args.deployment == "int4-serving":
@@ -253,7 +278,7 @@ def run(args) -> dict:
                                   int4_serving=True)
         ex = (torch.zeros((1, res, res, chans), device=device),
               torch.zeros((1,), dtype=torch.int32, device=device))
-        if ldm:
+        if roll_ctx is not None:
             ex += (roll_ctx[:1],)
         deployed = specialize_maps(adapter, params, deployed,
                                    example_args=ex, use_aq=use_aq)
@@ -262,7 +287,7 @@ def run(args) -> dict:
     else:
         q_once = make_model_fn(adapter, params, wstate, astate,
                                use_aq=use_aq)
-    if ldm:
+    if roll_ctx is not None:
         # double-batched CFG at the task's scale (quality_gate.py:240-260)
         fp_fn = make_cfg_model_fn(lambda x, t, c, s: fp_apply(x, t, c),
                                   roll_ctx, roll_uc, task.cfg_scale)
