@@ -205,6 +205,28 @@ when one is exceeded):
               kernel times per forward beside cuDNN / ``torch.matmul`` /
               SDPA and the bound.
 
+11. samplers - the remaining samplers on earlier phases' models,
+              int4-serving through ``cli.main`` (the task's sampler
+              replaced, as the JAX tests reach these samplers: no task
+              samples them): CIFAR-10 DDPM (``ddpm_noisy``) from phase
+              main's artifact, 8 images x ``STEPS`` steps, with the kernels
+              and the plain versions from one seed (images >= 30 dB), and
+              a deployed DDIM rollout's x0 trace (``collect="x0"``) bit-
+              equal at its end to the rollout without it;
+              lsun_churches256 from phase uncond's checkpoint, an
+              init-only artifact on the DPM-Solver++ 2M scan's
+              ``DPM_STEPS`` evaluation times (float model times through
+              the harvest and the FSC init pass), then ``DPM_N`` images
+              from it with the 2M scan and the general engine (``DPM_RUNS``:
+              multistep order 3 on logSNR steps, singlestep order 2) with
+              the kernels and the plain versions (latents >= 30 dB), and
+              the adaptive method (``ADAPTIVE_ORDER``) with the kernels:
+              its evaluations and seconds printed. Every run's (step, FSC
+              group) pairs are read from the deployed model function and
+              held against the artifact's group map, and its launches
+              equal to the walk of the layers times its evaluations; the
+              device-busy share of a 2M deployed sample.
+
 The profiled samples of every phase and the one-forward checks of phases
 ldm, sd, deploy and text run ``PROFILE_STEPS`` steps, cut from their
 samples' 10 (main) and 4 (the other phases).
@@ -240,7 +262,7 @@ from tfmq_dm_tpu_torch.utils.timing import device_ms, wall_ms  # noqa: E402
 
 PHASE_BUDGET_S = {"device": 60, "build": 180, "kernels": 240, "main": 180,
                   "recon": 120, "ldm": 420, "sd": 300, "deploy": 360,
-                  "uncond": 150, "text": 180}
+                  "uncond": 150, "text": 180, "samplers": 120}
 
 # kernel vs plain version: they round at the same points and differ only
 # in how the f32 sums are taken; the conv's tensor cores do not round to
@@ -415,6 +437,21 @@ TEXT_N, TEXT_STEPS = 1, 4
 TEXT_CALI_STEPS, TEXT_CALI_N, TEXT_CALI_ITERS = 1, 8, 10
 TEXT_UNITS = 74
 TEXT_PROMPT = "a painting of a lighthouse on a cliff at sunset"
+# phase samplers: the remaining samplers on earlier phases' models. DDPM
+# on phase main's CIFAR-10 artifact at its STEPS steps, batch 8; DPM-Solver
+# on phase uncond's lsun_churches256 checkpoint, batch DPM_N, DPM_STEPS
+# steps (the task's DDIM samples 200): the dedicated 2M scan, then the
+# general engine as multistep order 3 with logSNR steps and as singlestep
+# order 2 (two blocks of two evaluations, each carrying its block's index
+# to the FSC lookup), and the adaptive method at ADAPTIVE_ORDER
+DPM_N, DPM_STEPS = 2, 4
+DPM_RUNS = (("2m", []),
+            ("multistep_o3_logsnr", ["--dpm_method", "multistep",
+                                     "--dpm_order", "3", "--dpm_skip",
+                                     "logSNR"]),
+            ("singlestep_o2", ["--dpm_method", "singlestep", "--dpm_order",
+                               "2"]))
+ADAPTIVE_ORDER = 2
 
 
 class PhaseTimeout(Exception):
@@ -1280,11 +1317,10 @@ def time_linear_geometries(g, dev, peaks, path: str, batch: int,
 
 
 def time_conv_geometries(g, dev, peaks, cases) -> list:
-    """``int4_conv2d`` and cuDNN's bf16 conv (weights dequantized ahead of
-    time) at every conv geometry of both int4-serving paths, device ms
-    per call beside the bound and the launches per forward; then the
-    launch-weighted sums per forward of each path (the plain version is
-    not timed here)."""
+    """``int4_conv2d``, its plain version and cuDNN's bf16 conv (weights
+    dequantized ahead of time) at every conv geometry of the int4-serving
+    paths, device ms per call beside the bound and the launches per
+    forward; then the launch-weighted sums per forward of each path."""
     import torch
     import torch.nn.functional as F
     from tfmq_dm_tpu_torch.ops import int4_kernels as K
@@ -1304,6 +1340,7 @@ def time_conv_geometries(g, dev, peaks, cases) -> list:
                "launches_per_forward": per_fwd,
                "plan": list(K.conv_plan(b * r * r, co, k * k, ci)),
                "ms": device_ms(lambda: K.int4_conv2d(*case)),
+               "plain_ms": device_ms(lambda: K.int4_conv2d_plain(*case)),
                "library_ms": device_ms(lambda: F.conv2d(xn, wd, bd,
                                                         padding=p)),
                "bound_ms": max(t_ops, t_bytes),
@@ -1311,7 +1348,8 @@ def time_conv_geometries(g, dev, peaks, cases) -> list:
         e = EARLIER_MS.get(("int4_conv2d", b, r, k, ci, co))
         rows.append(row)
         print(f"   int4_conv2d {path} b{b} {r}x{r} {k}x{k} {ci}->{co} "
-              f"x{per_fwd}: {row['ms']:.4f} / cuDNN {row['library_ms']:.4f}"
+              f"x{per_fwd}: {row['ms']:.4f} / plain {row['plain_ms']:.4f}"
+              f" / cuDNN {row['library_ms']:.4f}"
               f"; bound {row['bound_ms']:.6f} ({row['bound_by']}); plan "
               f"{row['plan']}" + ("" if e is None else
                                   f"; earlier design {e:.4f} "
@@ -1325,8 +1363,9 @@ def time_conv_geometries(g, dev, peaks, cases) -> list:
             return sum(x[key] * x["launches_per_forward"] for x in sel)
         line = (f"   int4_conv2d {path} per forward "
                 f"({sum(x['launches_per_forward'] for x in sel)} launches):"
-                f" kernel {wsum('ms'):.4f} ms, cuDNN "
-                f"{wsum('library_ms'):.4f}, bound {wsum('bound_ms'):.4f}")
+                f" kernel {wsum('ms'):.4f} ms, plain {wsum('plain_ms'):.4f}"
+                f", cuDNN {wsum('library_ms'):.4f}, bound "
+                f"{wsum('bound_ms'):.4f}")
         earlier = [EARLIER_MS.get(("int4_conv2d", *x["shape"])) for x in sel]
         if None not in earlier:      # for reading only, not in the report
             line += ", earlier design " + format(sum(
@@ -2207,10 +2246,11 @@ def per_forward_line(measured, name: str) -> str:
     per forward."""
     rows = [x for x in measured["conv_geometries"] if x["path"] == name]
     conv = {k: sum(x[k] * x["launches_per_forward"] for x in rows)
-            for k in ("ms", "library_ms", "bound_ms")}
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     lin = measured[f"{name} linear_per_forward"]
-    line = (f"int4_conv2d {conv['ms']:.4f} ms / cuDNN "
-            f"{conv['library_ms']:.4f} / bound {conv['bound_ms']:.4f}; "
+    line = (f"int4_conv2d {conv['ms']:.4f} ms / plain {conv['plain_ms']:.4f}"
+            f" / cuDNN {conv['library_ms']:.4f} / bound "
+            f"{conv['bound_ms']:.4f}; "
             f"int4_linear {lin['ms']:.4f} / torch.matmul "
             f"{lin['library_ms']:.4f} / bound {lin['bound_ms']:.4f}")
     for kern in ("flash_int8", "flash_fp"):
@@ -2594,6 +2634,255 @@ def drive_text_path(dev, tmp: Path, measured: dict,
                  for k, v in runs.items()}}
     print(f"   {task.name} per forward (1 x CFG; the kernels phase's "
           f"times): " + per_forward_line(measured, task.name), flush=True)
+    shutil.rmtree(ttmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase samplers: DDPM, DDIM's x0 trace and DPM-Solver
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def task_sampler(name: str, sampler: str):
+    """The port CLI's ``get_task`` answering ``name`` with ``sampler``. No
+    task samples ddpm_noisy or dpm; the JAX package reaches them on a task
+    so replaced (tests/test_dpm_general.py:416-443)."""
+    import dataclasses
+    from unittest import mock
+    from tfmq_dm_tpu_torch import cli
+    real = cli.get_task
+
+    def get(n):
+        t = real(n)
+        return dataclasses.replace(t, sampler=sampler) if n == name else t
+
+    with mock.patch.object(cli, "get_task", get):
+        yield
+
+
+@contextlib.contextmanager
+def fsc_lookups():
+    """(step, FSC group) of every deployed UNet evaluation, in order (the
+    deployed model function's ``step_group`` calls), while the block
+    runs."""
+    from tfmq_dm_tpu_torch.quant import deploy
+    real, seen = deploy.step_group, []
+
+    def spy(step, gmap, n):
+        seen.append((step, real(step, gmap, n)))
+        return seen[-1][1]
+
+    deploy.step_group = spy
+    try:
+        yield seen
+    finally:
+        deploy.step_group = real
+
+
+def check_walk(label: str, launches: dict, walk: dict, nfe: int,
+               dev) -> dict:
+    """A run's launches equal to the walk of the layers times its UNet
+    evaluations (on the card; the CPU runs the plain versions)."""
+    got = {k: launches[k] for k in walk}
+    want = {k: v * nfe for k, v in walk.items()}
+    if dev.type == "cuda" and got != want:
+        raise AssertionError(f"{label}: launches {got}, the walk x NFE "
+                             f"{want}")
+    return got
+
+
+def check_psnr(label: str, got, ref, limit: float, latents: bool) -> float:
+    p = latent_psnr(got, ref) if latents else psnr(got, ref)
+    print(f"   {label}: kernels vs plain versions {p:.2f} dB "
+          f"({'latents' if latents else 'images'}; gate {limit:g})",
+          flush=True)
+    if not p >= limit:
+        raise AssertionError(f"{label}: PSNR kernels vs plain {p:.2f} dB "
+                             f"< {limit}")
+    return p if math.isfinite(p) else "bit-identical"
+
+
+def drive_samplers_path(dev, tmp: Path, main_path: dict,
+                        dpm_ckpt: str, ddpm_task: str = "cifar10",
+                        dpm_task: str = "lsun_churches256") -> dict:
+    """The remaining samplers on earlier phases' models, int4-serving.
+    ``ddpm_task`` (CIFAR-10, phase main's trained weights and artifact,
+    batch 8, its ``STEPS`` steps) samples with DDPM through ``cli.main``
+    with the kernels and with the plain versions from one seed (so the
+    step noise is the same draws), and a deployed DDIM rollout's x0 trace
+    (``collect="x0"``) ends bit-equal to the rollout without it.
+    ``dpm_task`` (lsun_churches256, phase uncond's random-init checkpoint
+    ``dpm_ckpt``, batch ``DPM_N``) gets an init-only artifact on the
+    DPM-Solver++ 2M scan's ``DPM_STEPS`` evaluation times, then
+    ``cli.main`` samples from it with each of ``DPM_RUNS`` (``--dpm_*``
+    flags) with the kernels and the plain versions, and once with the
+    adaptive method (order ``ADAPTIVE_ORDER``) with the kernels only: its
+    accept decisions branch on the data. Every evaluation's step and FSC
+    group are read from the deployed model function and held against the
+    group map of the artifact's times; launches are held equal to the walk
+    of the layers times the evaluations."""
+    import dataclasses
+    import torch
+    from tfmq_dm_tpu_torch import cli
+    from tfmq_dm_tpu_torch.configs.tasks import get_task
+    from tfmq_dm_tpu_torch.models import ldm_unet
+    from tfmq_dm_tpu_torch.pipelines import ptq
+    from tfmq_dm_tpu_torch.pipelines.loading import load_ldm_checkpoint
+    from tfmq_dm_tpu_torch.quant.calibrate import cali_model
+    from tfmq_dm_tpu_torch.samplers.ldm import group_of_step_from_t
+
+    ttmp = tmp / "samplers"
+    ttmp.mkdir()
+    quant = ["--ptq", "--use_aq", "--int-kernels", "--int4-serving"]
+    out = {}
+
+    # DDPM and the x0 trace
+    task = get_task(ddpm_task)
+    res = task.unet.resolution
+    walk = uncond_walk(task)
+    common = ["--task", ddpm_task, "--ckpt", main_path["ckpt"],
+              "--timesteps", str(STEPS), "-n", str(BATCH), "--batch",
+              str(BATCH), "--seed", str(SEED), "--device", dev.type,
+              "--cali_ckpt", main_path["art"]]
+    runs = {}
+    with task_sampler(ddpm_task, "ddpm_noisy"):
+        with fsc_lookups() as seen:
+            runs["ddpm"] = cli_sample(ttmp, "ddpm", common + quant,
+                                      (BATCH, res, res, 3), dev)
+        runs["ddpm_plain"] = cli_sample(ttmp, "ddpm_plain", common + quant,
+                                        (BATCH, res, res, 3), dev, True)
+    if [s for s, _ in seen] != list(range(STEPS)):
+        raise AssertionError(f"{ddpm_task} DDPM: evaluation steps "
+                             f"{[s for s, _ in seen]}")
+    rec = {"nfe": len(seen), "s": runs["ddpm"]["s"],
+           "plain_s": runs["ddpm_plain"]["s"],
+           "launches": check_walk(f"{ddpm_task} DDPM",
+                                  runs["ddpm"]["launches"], walk, STEPS,
+                                  dev)}
+    rec["psnr_kernel_vs_plain"] = check_psnr(
+        f"{ddpm_task} DDPM ({STEPS} steps, {BATCH} images)",
+        runs["ddpm"]["img"], runs["ddpm_plain"]["img"],
+        MIN_PSNR_KERNEL_VS_PLAIN_DB, latents=False)
+    args = cli.build_argparser().parse_args(common + quant + ["--out", "-"])
+    sampler_fn, sample_t = ptq.make_schedule(task, steps=STEPS)
+    fn = cli.build_model_fn(args, cli.load_ddim(args, task, dev), task.unet,
+                            sample_t, dev)
+    x = torch.randn((BATCH, res, res, 3),
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    reset_all_counts()
+    z = sampler_fn(fn, x)
+    z_x0, x0s = sampler_fn(fn, x, collect="x0")
+    sync(dev)
+    if not torch.equal(z, z_x0):
+        raise AssertionError(f"{ddpm_task}: collect='x0' changed the sample "
+                             f"by {float((z - z_x0).abs().max()):.3e}")
+    if tuple(x0s.shape) != (STEPS,) + tuple(x.shape) or \
+            not bool(torch.isfinite(x0s).all()):
+        raise AssertionError(f"{ddpm_task}: x0 trace {tuple(x0s.shape)}")
+    rec["x0_trace"] = {"shape": list(x0s.shape), "launches": check_walk(
+        f"{ddpm_task} x0 trace", all_counts(), walk, 2 * STEPS, dev)}
+    print(f"   {ddpm_task} DDIM x0 trace: {tuple(x0s.shape)}, the final "
+          f"sample bit-equal to collect='none'; launches "
+          f"{rec['x0_trace']['launches']} over both rollouts", flush=True)
+    out[ddpm_task] = rec
+    del fn
+    torch.cuda.empty_cache()
+
+    # DPM-Solver: an init-only artifact on the 2M scan's times
+    task = get_task(dpm_task)
+    dtask = dataclasses.replace(task, sampler="dpm")
+    walk = uncond_walk(task)
+    t0 = time.perf_counter()
+    params = load_ldm_checkpoint(dpm_ckpt, task, device=dev)[0]
+    reset_all_counts()
+    _, a_cali, cali_t = ptq.generate_cali_data(
+        dtask, lambda x, t, c: ldm_unet.apply(params, task.unet, x, t),
+        torch.Generator().manual_seed(1), n_per_t=DPM_N, steps=DPM_STEPS,
+        device=dev)
+    sync(dev)
+    harvest = all_counts()
+    if a_cali[1].dtype != torch.float32:
+        raise AssertionError(f"DPM harvest times {a_cali[1].dtype}")
+    art = str(ttmp / "cali_dpm.npz")
+    cali_model(ptq.build_adapter(task, ptq.QuantArgs(use_aq=True)), params,
+               None, a_cali, hp=None, use_aq=True, running_stat=False,
+               generator=torch.Generator().manual_seed(2), path=art,
+               w_scaler="minmax", act_scaler="minmax", init_samples=DPM_N,
+               meta={"task": dpm_task, "wq": 4, "aq": 8, "softmax_a_bit": 8,
+                     "use_aq": True, "cali_t": [float(v) for v in cali_t]})
+    sync(dev)
+    del a_cali
+    print(f"   {dpm_task} DPM-Solver++ 2M init-only artifact (harvest "
+          f"{DPM_STEPS} evaluations x {DPM_N} at model times "
+          f"{[round(float(v), 2) for v in cali_t]}; minmax grids, FSC init "
+          f"pass): {time.perf_counter() - t0:.2f} s; harvest launches "
+          f"{harvest}", flush=True)
+    if dev.type == "cuda" and \
+            harvest["flash_fp"] != walk["flash_int8"] * DPM_STEPS:
+        raise AssertionError(f"DPM harvest: flash_fp {harvest['flash_fp']}")
+
+    common = ["--task", dpm_task, "--ckpt", dpm_ckpt, "-n", str(DPM_N),
+              "--batch", str(DPM_N), "--seed", str(SEED), "--device",
+              dev.type, "--timesteps", str(DPM_STEPS), "--cali_ckpt", art]
+    img_res = task.unet.image_size * 2 ** (len(task.vae.ch_mult) - 1)
+    img_shape = (DPM_N, img_res, img_res, 3)
+    rec = {"walk": walk, "harvest_launches": harvest,
+           "cali_t": [float(v) for v in cali_t]}
+    for name, flags in DPM_RUNS:
+        args = cli.build_argparser().parse_args(common + quant + flags
+                                                + ["--out", "-"])
+        _, sample_t = ptq.make_schedule(dtask, steps=DPM_STEPS,
+                                        dpm_cfg=cli.dpm_config(args))
+        gos = group_of_step_from_t(cali_t, sample_t)
+        with task_sampler(dpm_task, "dpm"):
+            with fsc_lookups() as seen:
+                k = cli_sample(ttmp, name, common + quant + flags, img_shape,
+                               dev)
+            p = cli_sample(ttmp, f"{name}_plain", common + quant + flags,
+                           img_shape, dev, True)
+        want = [int(gos[min(s, len(gos) - 1)]) for s, _ in seen]
+        if [g for _, g in seen] != want or len(seen) != DPM_STEPS:
+            raise AssertionError(f"{dpm_task} {name}: (step, group) "
+                                 f"{seen}, the map {want}")
+        print(f"   {dpm_task} {name}: {len(seen)} evaluations, (step, FSC "
+              f"group) {seen}", flush=True)
+        rec[name] = {"nfe": len(seen), "steps_groups": seen, "s": k["s"],
+                     "plain_s": p["s"], "launches": check_walk(
+                         f"{dpm_task} {name}", k["launches"], walk,
+                         len(seen), dev),
+                     "psnr_kernel_vs_plain": check_psnr(
+                         f"{dpm_task} {name}", k["lat"], p["lat"],
+                         MIN_LATENT_PSNR_DB, latents=True)}
+    flags = ["--dpm_method", "adaptive", "--dpm_order", str(ADAPTIVE_ORDER)]
+    with task_sampler(dpm_task, "dpm"), fsc_lookups() as seen:
+        k = cli_sample(ttmp, "adaptive", common + quant + flags, img_shape,
+                       dev)
+    if {g for g in seen} != {(0, 0)}:
+        raise AssertionError(f"adaptive: (step, group) {set(seen)}")
+    rec["adaptive"] = {"order": ADAPTIVE_ORDER, "nfe": len(seen),
+                       "s": k["s"], "launches": check_walk(
+                           f"{dpm_task} adaptive", k["launches"], walk,
+                           len(seen), dev)}
+    print(f"   {dpm_task} adaptive order {ADAPTIVE_ORDER} (kernels only: its "
+          f"accept decisions branch on the data): {len(seen)} evaluations "
+          f"in {k['s']:.2f} s, launches {rec['adaptive']['launches']} = the "
+          f"walk x NFE", flush=True)
+
+    # the device-busy share of the 2M scan's deployed sample
+    args = cli.build_argparser().parse_args(common + quant + ["--out", "-"])
+    sampler_fn, sample_t = ptq.make_schedule(dtask, steps=PROFILE_STEPS)
+    fn = cli.build_ldm_model_fn(args, dtask, params, None, sample_t, dev)
+    x = torch.randn((DPM_N, task.unet.image_size, task.unet.image_size,
+                     task.unet.in_channels),
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    if dev.type == "cuda":
+        rec["profile"] = profile_device(
+            lambda: sampler_fn(fn, x),
+            f"{dpm_task} 2M deployed sample ({PROFILE_STEPS} of the "
+            f"{DPM_STEPS} steps, batch {DPM_N}, no decode)", top=6)
+    out[dpm_task] = rec
+    del params, fn
+    torch.cuda.empty_cache()
     shutil.rmtree(ttmp, ignore_errors=True)
     return out
 
@@ -3551,6 +3840,10 @@ def run() -> None:
             unc = drive_uncond_path(dev, tmp, measured)
         with phase("text"):
             text = drive_text_path(dev, tmp, measured)
+        with phase("samplers"):
+            smp = drive_samplers_path(
+                dev, tmp, main_path, str(tmp / "uncond" / "lsun_churches256"
+                                         / "lsun_churches256_random.ckpt"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = main_path["launches"]
@@ -3572,6 +3865,16 @@ def run() -> None:
     def launches_text(kern):
         return {t: {r: v["launches"][kern] for r, v in text[t]["runs"]
                     .items()} for t in TEXT_TASKS}
+
+    def launches_samplers(kern):
+        c10, ch = smp["cifar10"], smp["lsun_churches256"]
+        by_run = {"cifar10 ddpm": c10["launches"],
+                  "cifar10 x0 trace": c10["x0_trace"]["launches"],
+                  **{f"lsun_churches256 {r}": ch[r]["launches"]
+                     for r, _ in DPM_RUNS},
+                  "lsun_churches256 adaptive": ch["adaptive"]["launches"],
+                  "lsun_churches256 harvest": ch["harvest_launches"]}
+        return {r: c.get(kern, 0) for r, c in by_run.items()}
 
     tc = measured[("conv", BATCH, 32, 128)]
     tl = measured[("linear", BATCH, 512, 256)]
@@ -3598,6 +3901,7 @@ def run() -> None:
              name: unc[name]["runs"]["deployed"]["launches"]["int4_conv2d"]
              for name in UNCOND_TASKS},
          "launches_text": launches_text("int4_conv2d"),
+         "launches_samplers": launches_samplers("int4_conv2d"),
          "max_abs_err": max(errs["int4_conv2d"]), **tc,
          "cin256": measured[("conv", 2 * CIN_N, 64, 192)],
          "geometries": measured["conv_geometries"]},
@@ -3618,6 +3922,7 @@ def run() -> None:
              name: measured[f"{name} linear_per_forward"]
              for name in UNCOND_TASKS},
          "launches_text": launches_text("int4_linear"),
+         "launches_samplers": launches_samplers("int4_linear"),
          "text_per_forward": {
              name: measured[f"{name} linear_per_forward"]
              for name in TEXT_TASKS},
@@ -3638,6 +3943,7 @@ def run() -> None:
              t: unc[t]["runs"][run_name]["launches"][name]
              for t in UNCOND_FLASH if run_name in unc[t]["runs"]} or None,
          "launches_text": launches_text(name),
+         "launches_samplers": launches_samplers(name),
          "max_abs_err": max(errs[name]), **measured[name]}
         for name, where, mode, run_name, what in flash_rows] + [
         {"name": "int8_matmul_pre", "route": "cuda",
@@ -3738,6 +4044,7 @@ def run() -> None:
     print(json.dumps({"text": {
         name: {**rec, "steps": TEXT_STEPS, "images": TEXT_N}
         for name, rec in text.items()}}), flush=True)
+    print(json.dumps({"samplers": smp}), flush=True)
     print(json.dumps({"deploy": {
         k: {f: x for f, x in v.items() if f != "gemm_shapes"}
         for k, v in dep.items()}}), flush=True)

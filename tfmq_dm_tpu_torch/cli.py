@@ -75,6 +75,13 @@ tokenizer files (CLIP's BPE, bert-base-uncased's WordPiece) are not in
 this repository, so that prompt text is refused there. The rows, prompts
 or classes repeat to fill a batch; the unconditional row is the empty
 prompt's tokens, or the class table's last row.
+Each task samples with its own sampler (``pipelines/ptq.make_schedule``:
+DDIM, DDPM, PLMS or DPM-Solver). ``--dpm_order``, ``--dpm_method``,
+``--dpm_skip``, ``--dpm_algorithm``, ``--dpm_solver_type`` and
+``--dpm_denoise_to_zero`` configure the general DPM-Solver engine for a
+task whose sampler is ``dpm``, and are ignored, with a warning, for any
+other; an adaptive ``--dpm_method`` cannot calibrate (its times depend on
+the data) and samples every evaluation with FSC group 0.
 Runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Images in [0, 1], NHWC float32, are written to
 ``<out>/samples.npy``; LDM tasks also write the sampled latents to
@@ -89,6 +96,7 @@ import logging
 import os
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -186,6 +194,21 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--timesteps", type=int, default=None,
                    help="sampler steps (default: the task's)")
     p.add_argument("--eta", type=float, default=None)
+    # the general DPM-Solver configuration of a task whose sampler is
+    # 'dpm' (dpm_solver.py:965-1113, beyond the entry flow's multistep
+    # order-2 dpmsolver++ time_uniform; cli.py:99-114)
+    p.add_argument("--dpm_order", type=int, default=None,
+                   choices=(1, 2, 3))
+    p.add_argument("--dpm_method", default=None,
+                   choices=("multistep", "singlestep", "singlestep_fixed",
+                            "adaptive"))
+    p.add_argument("--dpm_skip", default=None,
+                   choices=("time_uniform", "logSNR", "time_quadratic"))
+    p.add_argument("--dpm_algorithm", default=None,
+                   choices=("dpmsolver++", "dpmsolver"))
+    p.add_argument("--dpm_solver_type", default=None,
+                   choices=("dpm_solver", "taylor"))
+    p.add_argument("--dpm_denoise_to_zero", action="store_true")
     p.add_argument("--scale", type=float, default=None,
                    help="classifier-free guidance scale")
     p.add_argument("--classes", default=None,
@@ -222,6 +245,34 @@ def _load_artifact(args, device):
     return wstate, astate, meta
 
 
+def dpm_config(args) -> Optional[dict]:
+    """The ``--dpm_*`` flags given, as ``ptq.make_schedule``'s dpm_cfg
+    (cli.py:221-227), or None."""
+    return {k: v for k, v in (
+        ("order", args.dpm_order), ("method", args.dpm_method),
+        ("skip_type", args.dpm_skip),
+        ("algorithm_type", args.dpm_algorithm),
+        ("solver_type", args.dpm_solver_type),
+        ("denoise_to_zero", args.dpm_denoise_to_zero or None),
+    ) if v is not None} or None
+
+
+def fsc_groups(astate, meta, sample_t) -> Optional[np.ndarray]:
+    """Each sampler evaluation's FSC group: the nearest of the artifact's
+    calibration times (``group_of_step_from_t``). None without FSC state
+    or calibration times, and for adaptive DPM-Solver, whose times depend
+    on the data (``sample_t`` None): every evaluation then carries step 0
+    and takes group 0, with a warning (cli.py:325-333)."""
+    if astate is None or "cali_t" not in meta:
+        return None
+    if sample_t is None:
+        logging.getLogger("tfmq_torch").warning(
+            "adaptive DPM-Solver has no static step times; FSC uses "
+            "calibration group 0 for every eval")
+        return None
+    return group_of_step_from_t(meta["cali_t"], sample_t)
+
+
 def deploy(args, adapter, params, wstate, example_args):
     """(deployed weights, params, carrier dtype) of ``--int-kernels``:
     integer weights with their border maps specialized to the sampled
@@ -245,9 +296,7 @@ def build_model_fn(args, params, cfg, sample_t, device):
     adapter = ddim_units.build_adapter(cfg, w_bits=args.wq, a_bits=args.aq,
                                        softmax_a_bit=args.softmax_a_bit,
                                        w_sym=args.w_sym)
-    gos = None
-    if astate is not None and "cali_t" in meta:
-        gos = group_of_step_from_t(meta["cali_t"], sample_t)
+    gos = fsc_groups(astate, meta, sample_t)
     if args.int_kernels:
         ex = (torch.zeros((1, cfg.resolution, cfg.resolution,
                            cfg.in_channels), device=device),
@@ -418,9 +467,7 @@ def build_ldm_model_fn(args, task, params, cond_params, sample_t, device):
         cfg, w_bits=args.wq, a_bits=args.aq,
         softmax_a_bit=args.softmax_a_bit, use_aq=args.use_aq,
         w_sym=args.w_sym)
-    gos = None
-    if astate is not None and "cali_t" in meta:
-        gos = group_of_step_from_t(meta["cali_t"], sample_t)
+    gos = fsc_groups(astate, meta, sample_t)
     if args.int_kernels:
         ex = (torch.zeros((1, cfg.image_size, cfg.image_size,
                            cfg.in_channels), device=device),
@@ -466,8 +513,12 @@ def sample(args, latents: list = None) -> np.ndarray:
                     "--int-kernels; running the default path")
     exact_f32()
     task = get_task(args.task)
+    dpm_cfg = dpm_config(args)
+    if dpm_cfg and task.sampler != "dpm":
+        log.warning("--dpm_* flags are ignored: task %s uses the %s "
+                    "sampler", task.name, task.sampler)
     sampler_fn, sample_t = ptq.make_schedule(task, steps=args.timesteps,
-                                             eta=args.eta)
+                                             eta=args.eta, dpm_cfg=dpm_cfg)
     vae_params = None
     if task.family == "ddim":
         params = load_ddim(args, task, device)
@@ -530,7 +581,7 @@ def calibrate(args) -> None:
     w_cali, a_cali, cali_t = ptq.generate_cali_data(
         task, fp_apply, generator, n_per_t=n_per_t, context=ctx,
         uncond=uc, cfg_scale=args.scale, steps=args.timesteps,
-        device=device)
+        dpm_cfg=dpm_config(args), device=device)
     log.info("calibrating -> %s", args.cali_save_path)
     ptq.quantize_task(task, adapter, params, qargs, w_cali, a_cali,
                       cali_t=cali_t, generator=generator,

@@ -17,6 +17,7 @@ from ..models import ddim_units, ldm_units
 from ..quant.calibrate import cali_model
 from ..quant.recon import ReconHP
 from ..samplers import ddim as ddim_s
+from ..samplers import dpm as dpm_s
 from ..samplers import ldm as ldm_s
 from ..utils.schedules import skip_seq
 
@@ -49,31 +50,68 @@ def build_adapter(task: TaskConfig, qargs: QuantArgs):
 
 
 def make_schedule(task: TaskConfig, steps: Optional[int] = None,
-                  eta: Optional[float] = None):
+                  eta: Optional[float] = None,
+                  dpm_cfg: Optional[dict] = None):
     """(sampler_fn, cali_t): ``sampler_fn(model_fn, x, generator,
-    collect)`` runs the task's sampler; ``cali_t`` holds the timestep of
-    each sampler step (the FSC groups). The ddim family's generalized
-    sampler and the LDM family's DDIM and PLMS samplers; the LDM DDIM
-    sampler also takes ``noise``, its stochastic steps' draws
-    (``ddim_scan_ldm``)."""
+    collect)`` runs the task's sampler; ``cali_t`` holds the model time of
+    each of its evaluations (the FSC groups), None where they depend on
+    the data (adaptive DPM-Solver). The ddim family's generalized and
+    ddpm_noisy samplers (both take ``noise``, their stochastic steps'
+    draws); the LDM family's DDIM (also with ``noise``), PLMS and
+    DPM-Solver samplers (ptq.py:63-136). With ``task.sampler == 'dpm'``,
+    ``dpm_cfg`` (keys order, method, skip_type, algorithm_type,
+    solver_type, denoise_to_zero) selects the general engine
+    (``samplers/dpm.py``); without it the dedicated DPM-Solver++ 2M scan
+    runs, the reference's entry configuration (sampler.py:82-83).
+    ``dpm_cfg`` is ignored for the other samplers."""
     betas = task_betas(task)
     steps = steps or task.steps
     eta = task.eta if eta is None else eta
     if task.family == "ddim":
-        if task.sampler != "generalized":
-            raise NotImplementedError(f"{task.sampler} sampler")
         seq = skip_seq(task.skip_type, task.num_timesteps, steps)
-
-        def fn(model_fn, x, generator=None, collect="none"):
-            return ddim_s.generalized_scan(model_fn, betas, seq, x,
-                                           generator, eta=eta,
-                                           collect=collect)
+        if task.sampler == "ddpm_noisy":
+            def fn(model_fn, x, generator=None, collect="none", noise=None):
+                return ddim_s.ddpm_scan(model_fn, betas, seq, x, generator,
+                                        collect=collect, noise=noise)
+        elif task.sampler == "generalized":
+            def fn(model_fn, x, generator=None, collect="none", noise=None):
+                return ddim_s.generalized_scan(model_fn, betas, seq, x,
+                                               generator, eta=eta,
+                                               collect=collect, noise=noise)
+        else:
+            raise NotImplementedError(f"{task.sampler} sampler")
         return fn, seq[::-1].copy()
 
-    if task.sampler not in ("ddim", "plms"):
-        raise NotImplementedError(f"{task.sampler} sampler (DPM-Solver++ "
-                                  "waits for its slice)")
     ac = np.cumprod(1.0 - betas)
+    if task.sampler == "dpm":
+        if dpm_cfg:
+            ns = dpm_s.NoiseSchedule("discrete", alphas_cumprod=ac)
+            kw = dict(steps=steps, order=dpm_cfg.get("order", 2),
+                      method=dpm_cfg.get("method", "multistep"),
+                      skip_type=dpm_cfg.get("skip_type", "time_uniform"),
+                      algorithm_type=dpm_cfg.get("algorithm_type",
+                                                 "dpmsolver++"),
+                      solver_type=dpm_cfg.get("solver_type", "dpm_solver"),
+                      denoise_to_zero=dpm_cfg.get("denoise_to_zero", False))
+            cali_t = None if kw["method"] == "adaptive" else \
+                dpm_s.eval_times(ns, steps=steps, order=kw["order"],
+                                 method=kw["method"],
+                                 skip_type=kw["skip_type"])
+
+            def fn(model_fn, x, generator=None, collect="none"):
+                return dpm_s.dpm_solver_sample(model_fn, ns, x,
+                                               collect=collect, **kw)
+            return fn, cali_t
+
+        sched = ldm_s.DPMSchedule(ac, steps)
+
+        def fn(model_fn, x, generator=None, collect="none"):
+            return ldm_s.dpm_solver_pp_2m_scan(model_fn, sched, x,
+                                               collect=collect)
+        return fn, sched.model_t[:-1].copy()
+
+    if task.sampler not in ("ddim", "plms"):
+        raise NotImplementedError(f"{task.sampler} sampler")
     sched = ldm_s.DDIMScheduleLDM(
         ac, ldm_s.make_ddim_timesteps(steps, task.num_timesteps), eta=eta)
     if task.sampler == "plms":
@@ -102,6 +140,7 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
                        rollout_batch: Optional[int] = None,
                        noise: Optional[torch.Tensor] = None,
                        step_noise: Optional[torch.Tensor] = None,
+                       dpm_cfg: Optional[dict] = None,
                        device="cuda"):
     """Harvest (x_t, t[, c]) at every sampler step in O(T) rollouts.
 
@@ -109,7 +148,10 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
     that of stochastic steps) is drawn with ``generator`` (a CPU
     generator), one rollout batch at a time; ``noise`` (n_per_t, H, W,
     C) replaces the starting noise's draws, and ``step_noise`` (steps,
-    n_per_t, H, W, C) those of the stochastic DDIM steps (eta > 0). With
+    n_per_t, H, W, C) those of the stochastic steps (DDIM at eta > 0,
+    DDPM). ``dpm_cfg``: as ``make_schedule``'s; the harvest then holds
+    DPM-Solver's float32 model times, and an adaptive configuration, whose
+    times depend on the data, is refused before anything runs. With
     conditioning, each rollout uses CFG and every group holds the rows
     [(x, t, uc); (x, t, c)] (data_generate.py:13-49); ``context``/
     ``uncond`` are (n, 1, embed_dim) class embeddings or (n, 77, 768)
@@ -118,7 +160,10 @@ def generate_cali_data(task: TaskConfig, fp_apply: Callable,
 
     Returns (w_cali sample-major tuple, a_cali group-major tuple (G, N,
     ...), cali_t)."""
-    sampler_fn, cali_t = make_schedule(task, steps=steps)
+    if dpm_cfg and dpm_cfg.get("method") == "adaptive":
+        raise ValueError("adaptive DPM-Solver has data-dependent eval "
+                         "times: calibration needs a fixed-step method")
+    sampler_fn, cali_t = make_schedule(task, steps=steps, dpm_cfg=dpm_cfg)
     shape = latent_shape(task)
     rollout_batch = rollout_batch or n_per_t
     xs_all, ts_all = [], []

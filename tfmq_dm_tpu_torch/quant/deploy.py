@@ -23,7 +23,7 @@ from ..ops.nn import exact_f32
 from .adapter import ModelAdapter
 from .adaround import adaround_fq
 from .context import QuantCtx
-from .fsc import pack_fsc, slice_fsc, unpack_fsc
+from .fsc import pack_fsc, slice_fsc, step_group, unpack_fsc
 from .policy import QuantPolicy
 from .quantizer import broadcast_channel
 
@@ -176,7 +176,8 @@ def make_deployed_model_fn(adapter: ModelAdapter, params,
                            kv_cache_fn=None) -> Callable:
     """model_fn(x, t, step, *cond) that executes the deployed weights
     (deploy.py:252-296); the FSC activation state is selected per sampler
-    step (group = step, or ``group_of_step[step]``), the contexts take the
+    step (group = step, or ``group_of_step[step]``; ``fsc.step_group``
+    clamps an index past the end as JAX does), the contexts take the
     flash kernels and carry ``act_dtype`` between deployed layers.
     ``kv_cache_fn``: optional ``(qctx) -> cache``, called once with a
     group-0 context, so that the cross-attention K/V of a constant context
@@ -199,8 +200,8 @@ def make_deployed_model_fn(adapter: ModelAdapter, params,
     def model_fn(x, t, step: int, *cond):
         astate = {}
         if packed is not None:
-            g = step if group_of_step is None else int(group_of_step[step])
             flat, spec = packed
+            g = step_group(step, group_of_step, flat.shape[0])
             astate = unpack_fsc(flat[g], spec)
         ctx = make_ctx(astate)
         if kv_cache is not None:

@@ -114,6 +114,17 @@ def pack_fsc(astate_batched: Dict):
     return flat, (tuple(names), shapes, dtypes)
 
 
+def step_group(step: int, group_of_step, n_groups: int) -> int:
+    """The FSC group of the sampler evaluation ``step``:
+    ``group_of_step[step]``, or ``step`` without a map, with an index past
+    the map's or the groups' end clamped to the last, as JAX's gather
+    clamps it (inference.py:58; a DPM-Solver denoise_to_zero evaluation
+    carries ``steps``, one past a map of ``steps`` entries)."""
+    if group_of_step is not None:
+        step = int(group_of_step[min(step, len(group_of_step) - 1)])
+    return min(step, n_groups - 1)
+
+
 def unpack_fsc(row: torch.Tensor, spec) -> Dict:
     """Inverse of one packed row: views, reshapes and casts only."""
     names, shapes, dtypes = spec

@@ -11,7 +11,7 @@ from typing import Callable, Dict, Optional
 
 from .adapter import ModelAdapter
 from .context import QuantCtx
-from .fsc import pack_fsc, slice_fsc, unpack_fsc
+from .fsc import pack_fsc, slice_fsc, step_group, unpack_fsc
 
 
 def make_model_fn(adapter: ModelAdapter, params, wstate: Optional[Dict],
@@ -21,7 +21,8 @@ def make_model_fn(adapter: ModelAdapter, params, wstate: Optional[Dict],
     """``model_fn(x, t, step, *cond) -> eps`` of the fake-quant model.
 
     ``group_of_step``: optional map sampler step -> FSC group (identity
-    when None). ``kv_cache_fn``: optional ``(qctx) -> cache`` building the
+    when None; an index past the end is clamped, ``fsc.step_group``).
+    ``kv_cache_fn``: optional ``(qctx) -> cache`` building the
     static-context cross-attention K/V (``ldm_unet.build_cross_kv``); it is
     called once with a group-0 context, since the context-fed to_k/to_v
     sites see the same input at every step, and the cache rides the
@@ -40,8 +41,8 @@ def make_model_fn(adapter: ModelAdapter, params, wstate: Optional[Dict],
     def model_fn(x, t, step: int, *cond):
         astate = {}
         if packed is not None:
-            g = step if group_of_step is None else int(group_of_step[step])
             flat, spec = packed
+            g = step_group(step, group_of_step, flat.shape[0])
             astate = unpack_fsc(flat[g], spec)
         ctx = QuantCtx(adapter.policy, wstate=wstate or {}, astate=astate,
                        use_wq=use_wq, use_aq=use_aq, flash=True)

@@ -1,12 +1,12 @@
-"""LDM-family DDIM and PLMS samplers, classifier-free guidance and FSC
-step mapping (port of the DDIM and PLMS parts of
-``tfmq_dm_tpu/samplers/ldm.py``; the reference's
-ldm/models/diffusion/{ddim,plms}.py).
+"""LDM-family DDIM, PLMS and DPM-Solver++ (2M) samplers, classifier-free
+guidance and FSC step mapping (port of ``tfmq_dm_tpu/samplers/ldm.py``;
+the reference's ldm/models/diffusion/{ddim,plms}.py and
+dpm_solver/dpm_solver.py).
 
 Schedule quantities are computed on the host per step, in float32 like
 the JAX tables; the rollout is a Python loop over the steps. The model
 callback receives the step index, so FSC selects its per-timestep state
-by step. DPM-Solver++ waits for its slice.
+by step. The general DPM-Solver engine is ``samplers/dpm.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .ddim import check_noise, step_noise
 
 
 def make_beta_schedule(schedule: str, n_timestep: int,
@@ -92,10 +94,7 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
     a_prev = sched.a_prev.astype(f32)
     sigma = sched.sigma.astype(f32)
     s1ma = sched.sqrt_1m_a.astype(f32)
-    if noise is not None and tuple(noise.shape) != \
-            (sched.num_steps,) + tuple(x.shape):
-        raise ValueError(f"noise {tuple(noise.shape)}: expected "
-                         f"{(sched.num_steps,) + tuple(x.shape)}")
+    check_noise(noise, sched.num_steps, x)
     if np.any(sigma > 0) and generator is None and noise is None:
         raise ValueError("eta > 0 needs a torch.Generator or the noise")
     n = x.shape[0]
@@ -110,10 +109,8 @@ def ddim_scan_ldm(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
             f32(1.0) - a_prev[i] - sigma[i] ** 2, f32(0.0)))) * e_t
         x_prev = float(np.sqrt(a_prev[i])) * pred_x0 + dir_xt
         if sigma[i] > 0:
-            z = noise[i] if noise is not None else torch.randn(
-                xt.shape, generator=generator, device=generator.device,
-                dtype=xt.dtype)
-            x_prev = x_prev + float(sigma[i]) * z.to(xt.device, xt.dtype)
+            x_prev = x_prev + float(sigma[i]) * step_noise(
+                noise, generator, i, xt)
         if collect == "traj":
             xs.append(xt)
             ts.append(t_b)
@@ -184,6 +181,86 @@ def plms_scan(model_fn, sched: DDIMScheduleLDM, x: torch.Tensor,
             xs.append(xt)
             ts.append(t_b)
         xt = x_prev
+    if collect == "none":
+        return xt
+    return xt, (torch.stack(xs), torch.stack(ts))
+
+
+class DPMSchedule:
+    """NoiseScheduleVP('discrete') quantities sampled at uniform
+    continuous times (dpm_solver.py:95-160, 410-436; ldm.py:176-197):
+    S + 1 times from T = 1 to 1/N; alpha, sigma and lambda by linear
+    interpolation of 0.5 log(alphas_cumprod) over t_array = linspace(0, 1,
+    N + 1)[1:]; float64."""
+
+    def __init__(self, alphas_cumprod: np.ndarray, steps: int):
+        ac = np.asarray(alphas_cumprod, np.float64)
+        n = len(ac)
+        log_alpha = 0.5 * np.log(ac)
+        t_array = np.linspace(0.0, 1.0, n + 1)[1:]
+        t_cont = np.linspace(1.0, 1.0 / n, steps + 1)
+        la = np.interp(t_cont, t_array, log_alpha)
+        self.t_cont = t_cont
+        self.model_t = (t_cont - 1.0 / n) * 1000.0   # model input times
+        self.log_alpha = la
+        self.alpha = np.exp(la)
+        self.sigma = np.sqrt(1.0 - np.exp(2.0 * la))
+        self.lam = la - 0.5 * np.log(1.0 - np.exp(2.0 * la))
+        self.steps = steps
+
+
+@torch.no_grad()
+def dpm_solver_pp_2m_scan(model_fn, sched: DPMSchedule, x: torch.Tensor,
+                          lower_order_final: bool = True,
+                          collect: str = "none"):
+    """DPM-Solver++ multistep order 2 on x0 predictions (dpm_solver.py:
+    755-795, the sample() multistep loop :1075-1115; ldm.py:200-258).
+    ``model_fn`` returns eps; one evaluation a step (NFE = steps, the
+    first at t_0, none after the last update). The first update, and the
+    last when ``lower_order_final`` and steps < 15, are first order. The
+    step scalars are float32, computed with the JAX scan's expressions.
+    ``collect="traj"`` also returns the model inputs (x, t) of the
+    ``steps`` evaluations, t the float32 model times."""
+    if collect not in ("none", "traj"):
+        raise ValueError(f"collect must be 'none' or 'traj', got {collect!r}")
+    f32 = np.float32
+    steps = sched.steps
+    lam = sched.lam.astype(f32)
+    alpha = sched.alpha.astype(f32)
+    sigma = sched.sigma.astype(f32)
+    model_t = sched.model_t.astype(f32)
+    w2 = np.full(steps + 1, f32(0.5), f32)
+    w2[1] = 0.0
+    if lower_order_final and steps < 15:
+        w2[steps] = 0.0
+    n = x.shape[0]
+    xs, ts = [], []
+
+    def x0_pred(xt, i):
+        t_b = torch.full((n,), float(model_t[i]), dtype=torch.float32,
+                         device=x.device)
+        if collect == "traj":
+            xs.append(xt)
+            ts.append(t_b)
+        eps = _promoted(model_fn(xt, t_b, i), xt)
+        return (xt - float(sigma[i]) * eps) / float(alpha[i])
+
+    m_prev = m_prev_prev = x0_pred(x, 0)
+    lam_pp = lam[0]
+    xt = x
+    for i in range(1, steps + 1):
+        h = lam[i] - lam[i - 1]
+        h0 = lam[i - 1] - lam_pp
+        r0 = h0 / h if h0 != 0 else f32(1.0)
+        d1 = (m_prev - m_prev_prev) / float(np.maximum(r0, f32(1e-12)))
+        phi = np.expm1(-h)
+        xt = float(sigma[i] / sigma[i - 1]) * xt \
+            - float(alpha[i] * phi) * m_prev \
+            - float(w2[i] * alpha[i] * phi) * d1
+        lam_pp = lam[i - 1]
+        m_prev_prev = m_prev
+        if i < steps:
+            m_prev = x0_pred(xt, i)
     if collect == "none":
         return xt
     return xt, (torch.stack(xs), torch.stack(ts))
